@@ -1,0 +1,121 @@
+"""Build the CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` (all started
+together) for ``sm_90a`` into a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds) under
+``distpow_tpu_torch/build/``.  A library's file name carries a hash of its
+source, the shared headers and the flags, so a stale build is never
+loaded.  Nothing happens at import time: the first ``load_library`` call
+builds and loads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+
+# -Xptxas -v prints each kernel's registers and spills into the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# What the last build() did: seconds of wall time (0.0 when every library
+# was already built) and nvcc's output per source.
+last_build_s = 0.0
+last_build_log: Dict[str, str] = {}
+
+
+def find_cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        f"{name} not found: the CUDA kernels are built on a machine with the "
+        f"CUDA toolkit (PATH or /usr/local/cuda/bin)"
+    )
+
+
+def sources() -> List[str]:
+    """Kernel names: one per ``csrc/<name>.cu``."""
+    return [os.path.basename(p)[:-3]
+            for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))]
+
+
+def library_path(name: str) -> str:
+    """Where the build of ``csrc/<name>.cu`` at its current contents lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build() -> Dict[str, str]:
+    """Compile every source not built at its current contents, one nvcc
+    each, all at once; return ``{name: library path}``."""
+    global last_build_s, last_build_log
+    paths = {name: library_path(name) for name in sources()}
+    todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
+    last_build_s, last_build_log = 0.0, {}
+    if not todo:
+        return paths
+    nvcc = find_cuda_tool("nvcc")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.monotonic()
+    procs = {}
+    for name, path in todo.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, cmd)
+    failed = []
+    for name, (proc, tmp, cmd) in procs.items():
+        out, _ = proc.communicate()
+        last_build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, todo[name])
+    last_build_s = time.monotonic() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    """Set every C function's argument and result types."""
+    vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+    if name == "md5_search":
+        lib.distpow_md5_search.argtypes = [
+            vp, vp, vp,          # init, base, masks
+            i32, i32,            # n_blocks, mask_words
+            u32, u32, u32, i32,  # chunk0, tb_lo, tbc, log_tbc
+            i32, i32, u32,       # var_word, var_shift, chunk_mask
+            u32, vp, i32, vp,    # n, out, grid, stream
+        ]
+        lib.distpow_md5_search.restype = i32
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build if needed, load ``csrc/<name>.cu``'s library once, declare types."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build()[name])
+            _declare(name, lib)
+            _libs[name] = lib
+        return _libs[name]

@@ -1,0 +1,85 @@
+"""The search step's runtime operands, shared by the kernel and the plain step.
+
+``StepOperands`` binds one (nonce, difficulty, partition) onto a search
+step: the absorbed prefix state, the tail's constant words and the
+trailing difficulty masks, all as ``int32`` tensors holding the words'
+``uint32`` bit patterns (the CUDA kernel reads them as ``uint32``; the
+plain step widens them to masked ``int64``), plus the thread-byte run
+``(tb_lo, tb_count)``.  The tail layout (``tb_loc``, ``chunk_locs``) is
+not an operand: it is the static shape of the step, as in the reference.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+Device = Union[str, torch.device]
+
+MASK32 = 0xFFFFFFFF
+
+
+def u32_tensor(values, device: Device = "cpu") -> torch.Tensor:
+    """``int32`` tensor holding the uint32 bit patterns of ``values``."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint32)).view(np.int32)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """uint32 bit patterns (``int32``) -> ``int64`` values in [0, 2^32)."""
+    return t.to(torch.int64) & MASK32
+
+
+def u32_value(t: torch.Tensor) -> int:
+    """A 0-d result tensor (``int32`` bit pattern or ``int64``) as a uint32 int."""
+    return int(t) & MASK32
+
+
+@dataclass(frozen=True)
+class StepOperands:
+    init: torch.Tensor   # int32 [4]
+    base: torch.Tensor   # int32 [n_blocks, 16]
+    masks: torch.Tensor  # int32 [mask_words], the LAST digest words' masks
+    tb_lo: int
+    tb_count: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.init.device
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.base.shape[0])
+
+    @property
+    def mask_words(self) -> int:
+        return int(self.masks.shape[0])
+
+
+def make_operands(init: Sequence[int], base, masks: Sequence[int], tb_lo: int,
+                  tb_count: int, device: Device = "cpu") -> StepOperands:
+    """Operands from host words (ints or numpy arrays of uint32 values)."""
+    return StepOperands(
+        init=u32_tensor(init, device),
+        base=u32_tensor(base, device).reshape(-1, 16),
+        masks=u32_tensor(masks, device).reshape(-1),
+        tb_lo=int(tb_lo),
+        tb_count=int(tb_count),
+    )
+
+
+def operands_from_numpy(init, base, masks, tb_lo: int, tb_count: int,
+                        device: Device = "cpu") -> StepOperands:
+    """The reference package's ``step_operands(...)`` output, as numpy
+    arrays (``init[4]``, ``base[n_blocks, 16]``, ``masks[mask_words]``),
+    turned into the port's operands, so a test feeds both packages from
+    one source."""
+    base = np.asarray(base, dtype=np.uint32)
+    if base.ndim != 2 or base.shape[1] != 16:
+        raise ValueError(f"base must be [n_blocks, 16], got {base.shape}")
+    return make_operands(np.asarray(init, dtype=np.uint32), base,
+                         np.asarray(masks, dtype=np.uint32), tb_lo, tb_count,
+                         device)
