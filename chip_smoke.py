@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's MD5 mining path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's mining path on one NVIDIA GPU, for every
+hash model that has a CUDA kernel: md5, sha256, sha256d, sha1, ripemd160.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernel from ``distpow_tpu_torch/csrc``, holds it against its plain
-PyTorch version on the card, mines through ``get_backend("auto")`` at the
-worker's full size (batch 2^20, 2^30-candidate launches), checks
-cancellation, and times the kernel.  Every phase prints one JSON line; the
-last line, printed only when every phase passed, is
-``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
-package.  Long outputs (the nvcc log, the SASS) go to ``chiprun_out/``.
+CUDA kernels from ``distpow_tpu_torch/csrc`` (one nvcc per source, all
+started together), and for each model holds its kernel against the plain
+PyTorch version on the card (``kernel_parity``, and ``full_parity`` at the
+worker's full launch), mines through ``get_backend("auto", hash_model=...)``
+at the worker's full size (batch 2^20, the model's cost-scaled launch)
+with the launch counts set to 0 just before and read just after
+(``mine``), and times the kernel (``rate``).  md5's phases keep their names
+(``kernel_parity``, ``full_parity``, ``mine``, ``cancel``, ``rate``); the
+other models' carry the model's name as a suffix.  Every phase prints one
+JSON line; the line before the card's name lists every kernel; the last
+line, printed only when every phase passed, is ``{"ok": true, "device":
+{...}}``.  It imports neither JAX nor the JAX package.  Long outputs (the
+nvcc log, the SASS) go to ``chiprun_out/``.
 
 Exits non-zero, without the result line, when no GPU is available, when the
 port's package is not beside this script, or when any phase fails.
@@ -16,6 +23,7 @@ port's package is not beside this script, or when any phase fails.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -29,10 +37,22 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
+MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160")
+# model -> the TPU code its kernel replaces (distpow_tpu/ops/md5_pallas.py:
+# the scaffold _dyn_pallas_step, ported with md5, and each model's tile)
+REPLACES = {"md5": "distpow_tpu/ops/md5_pallas.py:698",
+            "sha256": "distpow_tpu/ops/md5_pallas.py:247",
+            "sha256d": "distpow_tpu/ops/md5_pallas.py:304",
+            "sha1": "distpow_tpu/ops/md5_pallas.py:325",
+            "ripemd160": "distpow_tpu/ops/md5_pallas.py:391"}
+
 # Parity grid (phase kernel_parity): every tail shape, width, mask bucket,
-# partition kind and launch multiplier the plain step handles.
+# partition kind and launch multiplier the plain step handles.  md5's grid;
+# the other models run a reduced grid of nonce lengths and difficulties.
 NONCE_LENS = (1, 4, 13, 55, 56, 63, 64, 100)
 DIFFICULTIES = (0, 1, 2, 5, 8, 9, 12, 16)
+NONCE_LENS_REDUCED = (1, 13, 55, 56, 63, 100)
+DIFFICULTIES_REDUCED = (0, 2, 5, 9)
 # (tb_lo, tbc, chunks per sub-batch): sub-batches of at most 2^14, so
 # batch * launch_steps stays within 2^16
 PARTITIONS = ((0, 256, 64), (64, 64, 256), (7, 1, 4096), (16, 96, 128))
@@ -41,20 +61,34 @@ LAUNCH_STEPS = (1, 3)
 # Hopper issues at most one warp instruction per clock from each of an SM's
 # four schedulers: 4 x 32 = 128 thread results per clock per SM, whatever
 # the pipe.  The programming guide's 64 per clock for 32-bit integer ops is
-# no floor for this kernel: it measured faster than that rate allows.
+# no floor for these kernels: md5's measured faster than that rate allows.
 ISSUED_RESULTS_PER_CLOCK_PER_SM = 128
 
-# The main path's launch: batch 2^20 x 1024 sub-batches of a width-4 segment
-MAIN_BATCH, MAIN_STEPS, MAIN_CHUNK0 = 1 << 20, 1 << 10, 1 << 24
+# The main path's launch: batch 2^20 x k sub-batches of a width-4 segment,
+# k from the model's cost-scaled dispatch budget (1024 for md5)
+MAIN_BATCH, MAIN_CHUNK0 = 1 << 20, 1 << 24
 
 RATE_LAUNCHES = 10
 RATE_DIFFICULTY = 16
 # full_parity: nonces tried for a difficulty-7 first hit deep in the launch
 FULL_PARITY_TRIES = 256
+# mine: difficulties solved per model; the first is also held to python_search
+MINE_DIFFICULTIES = {m: (5, 6, 8) if m == "md5" else (3, 6, 8) for m in MODELS}
 
 # message word of MD5 round i
 MD5_G = tuple(i if i < 16 else (5 * i + 1) % 16 if i < 32 else (3 * i + 5) % 16 if i < 48
               else (7 * i) % 16 for i in range(64))
+# message word of RIPEMD-160 round i, left and right line
+RMD_RL = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+          7, 4, 13, 1, 10, 6, 15, 3, 12, 0, 9, 5, 2, 14, 11, 8,
+          3, 10, 14, 4, 9, 15, 8, 1, 2, 7, 0, 6, 13, 11, 5, 12,
+          1, 9, 11, 10, 0, 8, 12, 4, 13, 3, 7, 15, 14, 5, 6, 2,
+          4, 0, 5, 9, 7, 12, 2, 10, 14, 1, 3, 8, 11, 6, 15, 13)
+RMD_RR = (5, 14, 7, 0, 9, 2, 11, 4, 13, 6, 15, 8, 1, 10, 3, 12,
+          6, 11, 3, 7, 0, 13, 5, 10, 14, 15, 8, 12, 4, 9, 1, 2,
+          15, 5, 1, 3, 7, 14, 6, 9, 11, 8, 12, 2, 10, 0, 4, 13,
+          8, 6, 4, 1, 3, 11, 15, 0, 5, 12, 2, 13, 9, 7, 10, 14,
+          12, 15, 10, 4, 1, 5, 8, 7, 6, 2, 13, 14, 0, 3, 9, 11)
 
 
 def emit(obj) -> None:
@@ -66,6 +100,11 @@ def nvidia_smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def suffix(model_name: str) -> str:
+    """Phase-name suffix: none for md5 (the first slice's names), else _<model>."""
+    return "" if model_name == "md5" else f"_{model_name}"
 
 
 class Smoke:
@@ -91,16 +130,38 @@ class Smoke:
         emit({"phase": name, "ok": True, "wall_s": time.monotonic() - t0, **out})
 
 
+# A kernel specialization's key in its mangled name: md5_search_kernel<MW, NB, POW2>
+# or hash_search_kernel<Hash, MW, NB, POW2>
+KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d)ELi(\d)ELb(\d)E"
+
+
+def spec_label(key) -> str:
+    mw, nb, pow2 = key
+    return f"mw{mw}_nb{nb}_{'pow2' if pow2 else 'div'}"
+
+
+def parse_ptxas(log: str):
+    """Per specialization ``(mask_words, n_blocks, pow2)``: registers and
+    spill bytes, from nvcc's ``-Xptxas -v`` output."""
+    out = {}
+    pattern = (KERNEL_KEY + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+               r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
+    for mw, nb, p2, _, st, ld, regs in re.findall(pattern, log):
+        out[(int(mw), int(nb), p2 == "1")] = {"registers": int(regs),
+                                              "spill_bytes": int(st) + int(ld)}
+    return out
+
+
 def parse_sass_loops(sass: str):
     """Per kernel specialization ``(mask_words, n_blocks, pow2)``: the
-    count of instructions in its grid-stride loop body (one candidate; the loop is
-    not unrolled), counted between the widest backward branch and its
-    target, NOPs excluded."""
+    opcodes of its grid-stride loop body (one candidate; the loop is not
+    unrolled), counted between the widest backward branch and its target,
+    NOPs excluded, as a Counter (its total is the loop's length)."""
     out = {}
     parts = re.split(r"\n\s*Function : ", sass)
     for part in parts[1:]:
         name = part.split("\n", 1)[0].strip()
-        m = re.search(r"md5_search_kernelILi(\d)ELi(\d)ELb(\d)E", name)
+        m = re.search(KERNEL_KEY, name)
         if not m:
             continue
         instrs, labels = [], {}
@@ -129,9 +190,9 @@ def parse_sass_loops(sass: str):
                 best = (tgt, addr)
         if best is None:
             continue
-        body = [t for a, t in instrs if best[0] <= a <= best[1]
-                and not re.match(r"^(@!?U?P\w+\s+)?NOP\b", t)]
-        out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = len(body)
+        body = [re.sub(r"^@!?U?P\w+\s+", "", t) for a, t in instrs if best[0] <= a <= best[1]]
+        out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = collections.Counter(
+            t.split()[0].split(".")[0] for t in body if not t.startswith("NOP"))
     return out
 
 
@@ -160,6 +221,159 @@ def md5_needed_ops(n_blocks: int, mask_words: int, var_words) -> int:
     return n + 4 + 1 + 2 * len(var_words) + mask_words + 2 + 3
 
 
+# The counts below follow md5_needed_ops' conventions (a rotate = 1 SHF, a
+# logic function of up to three inputs = 1 LOP3, a sum of up to three terms
+# = 1 IADD3, a rotate-then-add = 1 LEA.HI), and track which values vary per
+# candidate: a value computed only from the launch's operands (the prefix
+# state, the constant message words) is computed once per launch and costs
+# nothing per candidate, and the constants of a sum fold into one term.
+# That lets the rounds before the first variable message word, and
+# schedule words made of constant words only, cost nothing.
+
+def _sum_ops(n_var: int, has_const: bool) -> int:
+    """Three-input adds (or XORs) to combine ``n_var`` varying terms and,
+    when ``has_const``, one folded constant term."""
+    return (n_var + has_const) // 2 if n_var else 0
+
+
+def _sha256_block_ops(state_var, word_var, mw: int):
+    """(ops, new state variability) of one SHA-256 compression whose
+    ``mw`` trailing digest words are live (the tile's MAX_E / MAX_A)."""
+    max_e = 59 + min(mw, 4)
+    max_a = 55 + mw if mw > 4 else max_e - 4
+    n, w = 0, list(word_var)
+    for i in range(16, max_e + 1):
+        terms = (w[i - 2], w[i - 7], w[i - 15], w[i - 16])
+        n += 4 * w[i - 2] + 4 * w[i - 15] + _sum_ops(sum(terms), not all(terms))
+        w.append(any(terms))
+    A = {-1 - j: state_var[j] for j in range(4)}
+    E = {-1 - j: state_var[4 + j] for j in range(4)}
+    for r in range(max_e + 1):
+        s1, ch = E[r - 1], E[r - 1] or E[r - 2] or E[r - 3]
+        n += 4 * s1 + ch
+        t1_var = sum((E[r - 4], s1, ch, w[r]))
+        n += _sum_ops(t1_var, True)  # K[r] is the constant term
+        E[r] = bool(t1_var) or A[r - 4]
+        n += E[r]
+        if r <= max_a:
+            s0, maj = A[r - 1], A[r - 1] or A[r - 2] or A[r - 3]
+            n += 4 * s0 + maj
+            a_var = sum((bool(t1_var), s0, maj))
+            n += _sum_ops(a_var, a_var < 3)
+            A[r] = bool(a_var)
+    out = list(state_var)
+    for j in range(8 - mw, 8):
+        out[j] = A[63 - j] if j < 4 else E[67 - j]
+        n += out[j]
+    return n, out
+
+
+def _sha1_block_ops(state_var, word_var, mw: int):
+    """(ops, new state variability) of one SHA-1 compression; the chain
+    stops at round 74 + mw."""
+    last = 74 + mw
+    n, w = 0, list(word_var)
+    for i in range(16, last + 1):
+        terms = (w[i - 3], w[i - 8], w[i - 14], w[i - 16])
+        v = any(terms)
+        n += _sum_ops(sum(terms), not all(terms)) + v  # XORs, then rotl 1
+        w.append(v)
+    X = {-1 - j: state_var[j] for j in range(5)}
+    rotated = set()
+
+    def rot(i):  # rotl(X[i], 30), computed once per chain value
+        nonlocal n
+        if i >= -2 and X[i] and i not in rotated:
+            rotated.add(i)
+            n += 1
+
+    for r in range(last + 1):
+        rot(r - 3)
+        f = X[r - 2] or X[r - 3] or X[r - 4]
+        s_var = sum((f, X[r - 5], w[r]))
+        n += f + _sum_ops(s_var, True)  # K is the constant term
+        n += X[r - 1] or bool(s_var)    # rotl(a, 5) + s: one LEA.HI
+        X[r] = X[r - 1] or bool(s_var)
+    out = list(state_var)
+    for j in range(5 - mw, 5):
+        out[j] = X[79 - j]
+        n += out[j]  # init + x, or init + rotl(x, 30): one op
+    return n, out
+
+
+RMD_NEED = ((78, 77), (77, 76), (76, 75), (75, 79), (79, 78))
+
+
+def _ripemd160_block_ops(state_var, word_var, mw: int):
+    """(ops, new state variability) of one RIPEMD-160 compression; each
+    line stops at the last chain index its live digest words read."""
+    live = range(5 - mw, 5)
+    n = 0
+    lines = []
+    for right, order in ((False, RMD_RL), (True, RMD_RR)):
+        last = max(RMD_NEED[j][right] for j in live)
+        a0, b0, c0, d0, e0 = state_var
+        X = {-1: b0, -2: c0, -3: d0, -4: e0, -5: a0}
+        rotated = set()
+
+        def rot(i, X=X, rotated=rotated):  # rotl(X[i], 10), once per chain value
+            nonlocal n
+            if i >= -2 and X[i] and i not in rotated:
+                rotated.add(i)
+                n += 1
+
+        for r in range(last + 1):
+            rot(r - 3)
+            f = X[r - 1] or X[r - 2] or X[r - 3]
+            t_var = sum((X[r - 5], f, word_var[order[r]]))
+            n += f + _sum_ops(t_var, True)  # K is the constant term
+            n += bool(t_var) or X[r - 4]    # rotl(t, s) + e: one LEA.HI
+            X[r] = bool(t_var) or X[r - 4]
+        lines.append((X, rot))
+    (XL, rot_l), (XR, rot_r) = lines
+    # word j: h + one chain value of each line, some rotated by 10
+    terms = ((78, 77, False, True), (77, 76, True, True), (76, 75, True, True),
+             (75, 79, True, False), (79, 78, False, False))
+    out = list(state_var)
+    for j in live:
+        il, ir, rl, rr = terms[j]
+        if rl:
+            rot_l(il)
+        if rr:
+            rot_r(ir)
+        out[j] = XL[il] or XR[ir]
+        n += out[j]
+    return n, out
+
+
+def needed_ops(model_name: str, n_blocks: int, mask_words: int, var_words) -> int:
+    """Integer operations one candidate of a power-of-two run needs, counted
+    from the hash itself (the conventions above).  Around the compressions,
+    as for md5: decode 4, placing the variable bytes (a byte swap for a
+    big-endian hash, a combine, a shift and an OR per word), the mask fold
+    (one per mask word), the hit test 2 and the loop 3."""
+    if model_name == "md5":
+        return md5_needed_ops(n_blocks, mask_words, var_words)
+    fn = {"sha256": _sha256_block_ops, "sha256d": _sha256_block_ops,
+          "sha1": _sha1_block_ops, "ripemd160": _ripemd160_block_ops}[model_name]
+    full = 5 if model_name in ("sha1", "ripemd160") else 8
+    state = [False] * full
+    n = 0
+    for blk in range(n_blocks):
+        words = [16 * blk + w in var_words for w in range(16)]
+        last = blk == n_blocks - 1
+        if model_name == "sha256d" and last:
+            ops, state = fn(state, words, full)
+            n += ops
+            # stage 2: the digest words, then constants, from the constant init
+            ops, state = fn([False] * 8, state + [False] * 8, mask_words)
+        else:
+            ops, state = fn(state, words, mask_words if last else full)
+        n += ops
+    big_endian = model_name != "ripemd160"
+    return n + 4 + big_endian + 1 + 2 * len(var_words) + mask_words + 2 + 3
+
+
 def main() -> int:
     import torch
 
@@ -179,14 +393,16 @@ def main() -> int:
     from distpow_tpu_torch.backends import get_backend
     from distpow_tpu_torch.backends.cuda_backend import CudaBackend
     from distpow_tpu_torch.models import puzzle
-    from distpow_tpu_torch.models.registry import MD5
+    from distpow_tpu_torch.models.registry import get_hash_model
     from distpow_tpu_torch.ops import _build
-    from distpow_tpu_torch.ops.md5_cuda import BLOCK_THREADS, LAUNCHES, default_grid, md5_search
+    from distpow_tpu_torch.ops.hash_cuda import (BLOCK_THREADS, KERNELS, LAUNCHES, default_grid,
+                                                 hash_search, kernel_mask_words)
     from distpow_tpu_torch.ops.operands import make_operands, u32_value
     from distpow_tpu_torch.ops.packing import build_tail_spec
     from distpow_tpu_torch.ops.search_step import (
         SENTINEL, mask_words_for, plain_search, plain_search_w0, step_operands)
     from distpow_tpu_torch.parallel.partition import thread_bytes, worker_bits
+    from distpow_tpu_torch.parallel.search import launch_steps_for
     from distpow_tpu_torch.runtime.metrics import REGISTRY
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -197,6 +413,12 @@ def main() -> int:
     def sync_value(t) -> int:
         torch.cuda.synchronize()
         return u32_value(t)
+
+    def main_steps(model) -> int:
+        """Sub-batches of the worker's width-4 launch for ``model``: what the
+        driver plans under the CUDA backend's cost-scaled budget."""
+        budget = CudaBackend(hash_model=model.name, device=dev).max_launch
+        return launch_steps_for(4, MAIN_BATCH // 256, 256, budget)
 
     # 1. device ---------------------------------------------------------
     def device():
@@ -211,55 +433,63 @@ def main() -> int:
     smoke.phase("device", device)
 
     # 2. build ----------------------------------------------------------
-    loops = {}
+    loops = {}  # kernel -> {(mask_words, n_blocks, pow2): SASS loop opcodes}
 
     def build():
         paths = _build.build()
-        build_s = _build.last_build_s
-        log = "\n".join(f"== {k}\n{v}" for k, v in _build.last_build_log.items())
+        # copied now: load_library below calls build() again, which resets them
+        build_s, build_log = _build.last_build_s, dict(_build.last_build_log)
+        log = "\n".join(f"== {k}\n{v}" for k, v in build_log.items())
         with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as fh:
             fh.write(log)
-        # ptxas -v: registers and spill bytes per specialization
-        ptxas = {}
-        pattern = (r"md5_search_kernelILi(\d)ELi(\d)ELb(\d)E[^\n]*\n\s*(\d+) bytes stack frame, "
-                   r"(\d+) bytes spill stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
-        for mw, nb, p2, _, st, ld, regs in re.findall(pattern, log):
-            key = f"mw{mw}_nb{nb}_{'pow2' if p2 == '1' else 'div'}"
-            ptxas[key] = {"registers": int(regs), "spill_bytes": int(st) + int(ld)}
-        lib = paths["md5_search"]
-        sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", lib],
-                              capture_output=True, text=True, check=True, timeout=300).stdout
-        with open(os.path.join(OUT_DIR, "md5_search.sass"), "w") as fh:
-            fh.write(sass)
-        loops.update(parse_sass_loops(sass))
-        if len(loops) != 16:
-            raise RuntimeError(f"found the loop of {len(loops)} of 16 specializations")
-        _build.load_library("md5_search")
+        ptxas, loop_counts = {}, {}
+        for model_name in MODELS:
+            kernel = KERNELS[model_name]
+            # md5: mask words 1-4; the others 1-4 and the full digest
+            expect = 16 if model_name == "md5" else 20
+            specs = parse_ptxas(build_log.get(kernel, ""))
+            if build_log and len(specs) != expect:
+                raise RuntimeError(f"ptxas reported {len(specs)} of {expect} {kernel} kernels")
+            ptxas[kernel] = {spec_label(k): v for k, v in sorted(specs.items())}
+            sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", paths[kernel]],
+                                  capture_output=True, text=True, check=True,
+                                  timeout=300).stdout
+            with open(os.path.join(OUT_DIR, f"{kernel}.sass"), "w") as fh:
+                fh.write(sass)
+            loops[kernel] = parse_sass_loops(sass)
+            if len(loops[kernel]) != expect:
+                raise RuntimeError(f"found the loop of {len(loops[kernel])} of {expect} "
+                                   f"{kernel} specializations")
+            loop_counts[kernel] = {spec_label(k): sum(v.values())
+                                   for k, v in sorted(loops[kernel].items())}
+            _build.load_library(kernel)
+        # the timed specialization's loop by opcode: ISETP and SEL are the
+        # byte placement against the runtime layout
+        timed = {k: dict(loops[k][(2, 1, True)].most_common()) for k in loops}
         return {"build_s": build_s, "libraries": {k: os.path.relpath(v, HERE)
-                                                              for k, v in paths.items()},
-                "ptxas": ptxas,
-                "loop_instructions": {f"mw{k[0]}_nb{k[1]}_{'pow2' if k[2] else 'div'}": v
-                                      for k, v in sorted(loops.items())}}
+                                                  for k, v in paths.items()},
+                "ptxas": ptxas, "loop_instructions": loop_counts,
+                "timed_loop_opcodes": timed}
 
     smoke.phase("build", build, needs=("device",))
 
     # 3. kernel_parity --------------------------------------------------
-    def kernel_parity():
+    def kernel_parity(model, seed, nonce_lens, difficulties):
         import numpy as np
 
-        rng = np.random.default_rng(20261016)
+        rng = np.random.default_rng(seed)
         cases = []  # (label, ops, spec, chunk0, batch, steps, grid)
         i = 0
-        for n_len in NONCE_LENS:
+        for n_len in nonce_lens:
             nonce = rng.integers(0, 256, size=n_len, dtype=np.uint8).tobytes()
             for width in range(5):
-                for d in DIFFICULTIES:
+                for d in difficulties:
                     tb_lo, tbc, chunks = PARTITIONS[i % len(PARTITIONS)]
                     steps = LAUNCH_STEPS[(i // len(PARTITIONS)) % 2]
                     extra = b"\x01\x02" if i % 7 == 3 else b""
                     i += 1
-                    spec = build_tail_spec(nonce, width, MD5, extra)
-                    ops = step_operands(spec, d, MD5, tb_lo, tbc, dev)
+                    spec = build_tail_spec(nonce, width, model, extra)
+                    ops = step_operands(spec, d, model, tb_lo, tbc, dev)
                     if width == 0:
                         cases.append((f"n{n_len}_w0_d{d}", ops, spec, 0, tbc, 1, None))
                         continue
@@ -268,14 +498,15 @@ def main() -> int:
                     chunk0 = 256 ** (width - 1) if i % 2 else 256 ** width - 5
                     cases.append((f"n{n_len}_w{width}_d{d}_tbc{tbc}_k{steps}", ops, spec,
                                   chunk0, chunks * tbc, steps, None))
-        # synthetic sparse masks: hits in every mask bucket and tail shape,
-        # first hits deep in the launch, small grids that loop
-        for mw in (1, 2, 3, 4):
+        # synthetic sparse masks: hits in every mask bucket (for sha256 and
+        # sha256d also the widths the wrapper pads to the full digest) and
+        # tail shape, first hits deep in the launch, small grids that loop
+        for mw in range(1, model.digest_words + 1):
             for n_len in (13, 60):
                 for (tb_lo, tbc, chunks), bits, grid in (((0, 256, 64), 6, None),
                                                          ((16, 96, 128), 13, 3)):
                     nonce = rng.integers(0, 256, size=n_len, dtype=np.uint8).tobytes()
-                    spec = build_tail_spec(nonce, 3, MD5)
+                    spec = build_tail_spec(nonce, 3, model)
                     masks = [0] * mw
                     for b in rng.choice(32 * mw, size=bits, replace=False):
                         masks[int(b) // 32] |= 1 << (int(b) % 32)
@@ -284,13 +515,13 @@ def main() -> int:
                                   chunks * tbc, 3, grid))
         mismatches, hits, max_err = [], 0, 0
         for label, ops, spec, chunk0, batch, steps, grid in cases:
-            got = sync_value(md5_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
-                                        steps, device=dev, grid=grid))
+            got = sync_value(hash_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
+                                         steps, device=dev, grid=grid))
             if spec.width == 0:
-                want = u32_value(plain_search_w0(ops, spec.tb_loc, spec.chunk_locs))
+                want = u32_value(plain_search_w0(ops, spec.tb_loc, spec.chunk_locs, model=model))
             else:
                 want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0,
-                                              batch, steps))
+                                              batch, steps, model=model))
             hits += want != SENTINEL
             max_err = max(max_err, abs(got - want))
             if got != want:
@@ -302,22 +533,21 @@ def main() -> int:
                 "sentinel_cases": len(cases) - hits, "max_abs_err": max_err,
                 "tolerance": "exact (integer first-hit index)"}
 
-    smoke.phase("kernel_parity", kernel_parity, needs=("build",))
-
-    # 3b. full_parity: the main path's launch (2^30 candidates, the wrapper's
-    # grid) against the plain version, on inputs with hits -------------------
-    def full_parity():
-        n = MAIN_BATCH * MAIN_STEPS
+    # 3b. full_parity: the main path's launch (the wrapper's grid) against
+    # the plain version, on inputs with hits --------------------------------
+    def full_parity(model):
+        steps = main_steps(model)
+        n = MAIN_BATCH * steps
         grid = default_grid(n, smoke.info["device"]["sm_count"])
         stride = grid * BLOCK_THREADS
 
         def operands(nonce, d):
-            spec = build_tail_spec(nonce, 4, MD5)
-            return spec, step_operands(spec, d, MD5, 0, 256, dev)
+            spec = build_tail_spec(nonce, 4, model)
+            return spec, step_operands(spec, d, model, 0, 256, dev)
 
         def kernel(spec, ops):
-            return sync_value(md5_search(ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
-                                         MAIN_BATCH, MAIN_STEPS, device=dev))
+            return sync_value(hash_search(model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
+                                          MAIN_BATCH, steps, device=dev))
 
         # a nonce whose first difficulty-7 hit lies in the launch's second
         # half and in a block of the grid's second half (the plain version
@@ -336,110 +566,125 @@ def main() -> int:
             spec, ops = operands(nonce, d)
             got = kernel(spec, ops)
             want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
-                                          MAIN_BATCH, MAIN_STEPS))
+                                          MAIN_BATCH, steps, model=model))
             max_err = max(max_err, abs(got - want))
             cases.append({"difficulty": d, "kernel": got, "plain": want,
                           "fraction_of_launch": got / n,
                           "block": (got % stride) // BLOCK_THREADS})
             if got != want or want == SENTINEL:
                 raise AssertionError(f"full launch at difficulty {d}: kernel {got}, plain {want}")
-        return {"nonce": nonce.hex(), "candidates": n, "grid": grid, "nonces_tried": i + 1,
-                "cases": cases, "mismatches": 0, "max_abs_err": max_err,
+        return {"nonce": nonce.hex(), "candidates": n, "launch_steps": steps, "grid": grid,
+                "nonces_tried": i + 1, "cases": cases, "mismatches": 0, "max_abs_err": max_err,
                 "tolerance": "exact (integer first-hit index)"}
 
-    smoke.phase("full_parity", full_parity, needs=("build", "device"))
-
     # 4. mine: the worker's path through get_backend("auto") -------------
-    def mine():
-        backend = get_backend("auto")
-        if not isinstance(backend, CudaBackend) or backend.batch_size != 1 << 20:
+    def mine(model):
+        backend = get_backend("auto", hash_model=model.name)
+        if not isinstance(backend, CudaBackend) or backend.batch_size != 1 << 20 \
+                or backend.model is not model:
             raise AssertionError(f"auto resolved to {backend!r}")
+        kernel = KERNELS[model.name]
         nonce = bytes([1, 2, 3, 4])
         full = thread_bytes(0, worker_bits(1))
-        LAUNCHES.reset()
+        # every count to 0 just before the path runs
+        for counter in LAUNCHES.values():
+            counter.reset()
         REGISTRY.reset()
         requests = []
 
         def counts():
             return (REGISTRY.get("search.hashes"), REGISTRY.get("search.launches"),
-                    LAUNCHES.value)
+                    LAUNCHES[kernel].value)
 
         def deltas(before):
             return dict(zip(("hashes_dispatched", "search_launches", "kernel_launches"),
                             (b - a for a, b in zip(before, counts()))))
 
-        for d in (5, 6, 8):
+        def digest_hex(msg):
+            h = puzzle.new_hash(model.name)
+            h.update(msg)
+            return h.hexdigest()
+
+        difficulties = MINE_DIFFICULTIES[model.name]
+        for d in difficulties:
             before = counts()
             t0 = time.monotonic()
             secret = backend.search(nonce, d, full)
             wall = time.monotonic() - t0
-            if secret is None or not puzzle.check_secret(nonce, secret, d):
+            if secret is None or not puzzle.check_secret(nonce, secret, d, model.name):
                 raise AssertionError(f"difficulty {d}: {secret!r} does not solve")
-            digest = hashlib.md5(nonce + secret).hexdigest()
+            digest = digest_hex(nonce + secret)
             if not digest.endswith("0" * d):
-                raise AssertionError(f"difficulty {d}: hashlib digest {digest}")
-            req = {"difficulty": d, "workers": 1, "secret": secret.hex(), "md5": digest,
+                raise AssertionError(f"difficulty {d}: {model.name} digest {digest}")
+            req = {"difficulty": d, "workers": 1, "secret": secret.hex(), model.name: digest,
                    "wall_s": wall, **deltas(before)}
-            if d == 5:
-                oracle = puzzle.python_search(nonce, d, full)
+            if req["kernel_launches"] <= 0:
+                raise AssertionError(f"difficulty {d}: {kernel} was not launched")
+            if d == difficulties[0]:
+                oracle = puzzle.python_search(nonce, d, full, algo=model.name)
                 req["python_search"] = oracle.hex()
                 if oracle != secret:
-                    raise AssertionError(f"difficulty 5: kernel {secret.hex()} != "
+                    raise AssertionError(f"difficulty {d}: kernel {secret.hex()} != "
                                          f"python_search {oracle.hex()}")
             requests.append(req)
 
-        # 4-way prefix split on the one card, each worker in its own thread
-        # and stream; the first result wins and cancels the others
-        nonce4, d4 = bytes([5, 6, 7, 8]), 8
-        bits = worker_bits(4)
-        done = threading.Event()
-        results = [None] * 4
-        errors = []
+        if model.name == "md5":
+            # 4-way prefix split on the one card, each worker in its own
+            # thread and stream; the first result wins and cancels the others
+            nonce4, d4 = bytes([5, 6, 7, 8]), 8
+            bits = worker_bits(4)
+            done = threading.Event()
+            results = [None] * 4
+            errors = []
 
-        def worker(i):
-            try:
-                with torch.cuda.stream(torch.cuda.Stream(dev)):
-                    secret = backend.search(nonce4, d4, thread_bytes(i, bits), done.is_set)
-                    torch.cuda.current_stream(dev).synchronize()
-                if secret is not None:
-                    results[i] = (time.monotonic(), secret)
+            def worker(i):
+                try:
+                    with torch.cuda.stream(torch.cuda.Stream(dev)):
+                        secret = backend.search(nonce4, d4, thread_bytes(i, bits), done.is_set)
+                        torch.cuda.current_stream(dev).synchronize()
+                    if secret is not None:
+                        results[i] = (time.monotonic(), secret)
+                        done.set()
+                except Exception as exc:  # surfaced below through errors
+                    errors.append(f"worker {i}: {exc!r}")
                     done.set()
-            except Exception as exc:  # surfaced below through errors
-                errors.append(f"worker {i}: {exc!r}")
-                done.set()
 
-        before = counts()
-        t0 = time.monotonic()
-        threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        if any(t.is_alive() for t in threads):
-            done.set()
-            raise AssertionError("a 4-way worker did not finish within 300 s")
-        if errors:
-            raise AssertionError("; ".join(errors))
-        found = sorted((r[0], i, r[1]) for i, r in enumerate(results) if r is not None)
-        if not found:
-            raise AssertionError("no 4-way worker found a secret")
-        t_win, winner, secret = found[0]
-        digest = hashlib.md5(nonce4 + secret).hexdigest()
-        if not digest.endswith("0" * d4) or secret[0] >> 6 != winner:
-            raise AssertionError(f"4-way: {secret.hex()} from worker {winner}, md5 {digest}")
-        requests.append({"difficulty": d4, "workers": 4, "winner": winner,
-                         "secret": secret.hex(), "md5": digest, "wall_s": t_win - t0,
-                         **deltas(before), "finished": sum(r is not None for r in results)})
-        launches = LAUNCHES.value
-        if launches <= 0:
-            raise AssertionError("the main path launched the kernel no time")
-        return {"requests": requests, "kernel_launches": {"md5_search": launches},
+            before = counts()
+            t0 = time.monotonic()
+            threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads):
+                done.set()
+                raise AssertionError("a 4-way worker did not finish within 300 s")
+            if errors:
+                raise AssertionError("; ".join(errors))
+            found = sorted((r[0], i, r[1]) for i, r in enumerate(results) if r is not None)
+            if not found:
+                raise AssertionError("no 4-way worker found a secret")
+            t_win, winner, secret = found[0]
+            digest = hashlib.md5(nonce4 + secret).hexdigest()
+            if not digest.endswith("0" * d4) or secret[0] >> 6 != winner:
+                raise AssertionError(f"4-way: {secret.hex()} from worker {winner}, md5 {digest}")
+            requests.append({"difficulty": d4, "workers": 4, "winner": winner,
+                             "secret": secret.hex(), "md5": digest, "wall_s": t_win - t0,
+                             **deltas(before),
+                             "finished": sum(r is not None for r in results)})
+        # the counts just after
+        launches = {k: c.value for k, c in LAUNCHES.items()}
+        if launches[kernel] <= 0:
+            raise AssertionError(f"the main path launched {kernel} no time")
+        others = {k: v for k, v in launches.items() if k != kernel and v}
+        if others:
+            raise AssertionError(f"the {model.name} path launched other kernels: {others}")
+        return {"requests": requests, "kernel_launches": {kernel: launches[kernel]},
                 "search_launches": REGISTRY.get("search.launches"),
                 "blocking_syncs": REGISTRY.get("search.blocking_syncs")}
 
-    smoke.phase("mine", mine, needs=("kernel_parity",))
-
-    # 5. cancel ---------------------------------------------------------
+    # 5. cancel (md5) ---------------------------------------------------
     def cancel():
         backend = get_backend("auto")
         t0 = time.monotonic()
@@ -452,20 +697,18 @@ def main() -> int:
         return {"returned": None, "time_to_cancel_s": t_ret - 1.0, "return_s": t_ret,
                 "drained_s": time.monotonic() - t0}
 
-    smoke.phase("cancel", cancel, needs=("build",))
-
     # 6. rate -----------------------------------------------------------
-    def rate():
+    def rate(model):
         nonce, width = bytes([1, 2, 3, 4]), 4
-        spec = build_tail_spec(nonce, width, MD5)
-        ops = step_operands(spec, RATE_DIFFICULTY, MD5, 0, 256, dev)
-        batch, steps, chunk0 = MAIN_BATCH, MAIN_STEPS, MAIN_CHUNK0
+        spec = build_tail_spec(nonce, width, model)
+        ops = step_operands(spec, RATE_DIFFICULTY, model, 0, 256, dev)
+        batch, steps, chunk0 = MAIN_BATCH, main_steps(model), MAIN_CHUNK0
         n = batch * steps
         grid = default_grid(n, smoke.info["device"]["sm_count"])
 
         def launch():
-            return md5_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
-                              device=dev)
+            return hash_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
+                               device=dev)
 
         first = sync_value(launch())  # warm-up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -479,34 +722,36 @@ def main() -> int:
         # the plain version on the same inputs: no yardstick of speed, it
         # repeats the kernel's arithmetic in ~1000 elementwise torch ops
         small = 1 << 16
-        plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, small, 1)
+        plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, small, 1, model=model)
         start.record()
-        plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, small, 1)
+        plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, small, 1, model=model)
         end.record()
         end.synchronize()
         plain_small_ms = start.elapsed_time(end)
         start.record()
-        plain_full = plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps)
+        plain_full = plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
+                                  model=model)
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
         if u32_value(plain_full) != first:
             raise AssertionError(f"full launch: kernel {first} != plain {u32_value(plain_full)}")
 
-        # the bound: the operations MD5 needs per candidate (no hit at this
-        # difficulty, so every candidate is hashed) at the issue rate; the
-        # kernel's own SASS loop count is a diagnostic beside it
-        mw = mask_words_for(RATE_DIFFICULTY, MD5)
+        # the bound: the operations the hash needs per candidate (no hit at
+        # this difficulty, so every candidate is hashed) at the issue rate;
+        # the kernel's own SASS loop count is a diagnostic beside it
+        mw = mask_words_for(RATE_DIFFICULTY, model)
         var_words = {16 * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
-        needed = md5_needed_ops(spec.n_blocks, mw, var_words)
+        needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
         dev_info = smoke.info["device"]
-        sass = loops[(mw, spec.n_blocks, True)]
+        sass = sum(loops[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks,
+                                                True)].values())
         ops_per_s = ISSUED_RESULTS_PER_CLOCK_PER_SM * dev_info["sm_count"] * \
             dev_info["clock_mhz"] * 1e6
         bound_ms = n * needed / ops_per_s * 1e3
         return {"difficulty": RATE_DIFFICULTY, "mask_words": mw, "candidates_per_launch": n,
-                "grid": grid, "launches_timed": RATE_LAUNCHES, "ms": ms,
-                "ghs": n / ms / 1e6, "result": first,
+                "launch_steps": steps, "grid": grid, "launches_timed": RATE_LAUNCHES,
+                "ms": ms, "ghs": n / ms / 1e6, "result": first,
                 "plain_ms_full_launch": plain_ms,
                 "plain_ms_2p16_no_yardstick": plain_small_ms,
                 "needed_ops_per_hash": needed, "bound_ms": bound_ms,
@@ -515,19 +760,38 @@ def main() -> int:
                 "sass_issue_ms": n * sass / ops_per_s * 1e3,
                 "card": dev_info["nvidia_smi"]}
 
-    smoke.phase("rate", rate, needs=("build", "device"))
+    for i, model_name in enumerate(MODELS):
+        model = get_hash_model(model_name)
+        sfx = suffix(model_name)
+        if model_name == "md5":
+            grid_args = (20261016, NONCE_LENS, DIFFICULTIES)
+        else:
+            grid_args = (20261016 + i, NONCE_LENS_REDUCED, DIFFICULTIES_REDUCED)
+        smoke.phase(f"kernel_parity{sfx}", lambda: kernel_parity(model, *grid_args),
+                    needs=("build",))
+        smoke.phase(f"full_parity{sfx}", lambda: full_parity(model), needs=("build", "device"))
+        smoke.phase(f"mine{sfx}", lambda: mine(model), needs=(f"kernel_parity{sfx}",))
+        if model_name == "md5":
+            smoke.phase("cancel", cancel, needs=("build",))
+        smoke.phase(f"rate{sfx}", lambda: rate(model), needs=("build", "device"))
 
-    r = smoke.info.get("rate")
-    if r is not None and all(p in smoke.info for p in ("mine", "kernel_parity", "full_parity")):
-        emit({"kernels": [{
-            "name": "md5_search", "route": "cuda",
-            "source": "distpow_tpu_torch/csrc/md5_search.cu",
-            "replaces": "distpow_tpu/ops/md5_pallas.py:698",
-            "launches": smoke.info["mine"]["kernel_launches"]["md5_search"],
-            "max_abs_err": max(smoke.info[p]["max_abs_err"]
-                               for p in ("kernel_parity", "full_parity")),
+    kernels = []
+    for model_name in MODELS:
+        sfx = suffix(model_name)
+        phases = [f"{p}{sfx}" for p in ("kernel_parity", "full_parity", "mine", "rate")]
+        if not all(p in smoke.info for p in phases):
+            continue
+        kernel, r = KERNELS[model_name], smoke.info[f"rate{sfx}"]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": f"distpow_tpu_torch/csrc/{kernel}.cu",
+            "replaces": REPLACES[model_name],
+            "launches": smoke.info[f"mine{sfx}"]["kernel_launches"][kernel],
+            "max_abs_err": max(smoke.info[p]["max_abs_err"] for p in phases[:2]),
             "ms": r["ms"], "plain_ms": r["plain_ms_full_launch"],
-            "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None}]})
+            "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
+    if kernels:
+        emit({"kernels": kernels})
     if "device" in smoke.info:
         print(nvidia_smi("name,power.limit"), flush=True)
     if smoke.failed:

@@ -6,9 +6,10 @@ from ``distpow_tpu``: every module keeps its own copy of what it needs.
 
 Layout mirrors the reference package:
 
-* ``models/``   puzzle semantics, the MD5 model, the hash-model registry
+* ``models/``   puzzle semantics, the hash models (md5, sha256, sha256d,
+                sha1, ripemd160), the hash-model registry
 * ``ops/``      difficulty masks, tail packing, the plain torch search
-                step, the CUDA kernel's build and wrapper
+                step, the CUDA kernels' build and wrapper
 * ``parallel/`` partition algebra and the pipelined search driver
 * ``backends/`` ``python`` / ``torch`` / ``cuda`` miners and ``get_backend``
 * ``runtime/``  the small metrics registry the driver writes

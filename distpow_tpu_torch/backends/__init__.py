@@ -3,7 +3,8 @@
 * ``python`` — the hashlib loop, the behavioural-parity baseline
 * ``torch``  — the plain PyTorch step behind the pipelined driver, on an
                explicit device (tests and the CPU)
-* ``cuda``   — the hand-written CUDA kernel behind the same driver
+* ``cuda``   — the hand-written CUDA kernel of the hash model behind the
+               same driver (md5, sha256, sha256d, sha1, ripemd160)
 * ``auto``   — ``cuda``
 
 Every backend implements ``search(nonce, difficulty, thread_bytes,

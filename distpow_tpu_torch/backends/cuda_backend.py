@@ -1,9 +1,11 @@
-"""Worker backend driving the hand-written CUDA MD5 kernel.
+"""Worker backend driving the hand-written CUDA search kernels.
 
-Plugs ``ops.md5_cuda.md5_search`` into ``parallel.search.search`` through
-the step-factory protocol.  The kernel takes every configuration the
-plain step takes (1- and 2-block tails, power-of-two or not thread-byte
-runs, widths 0-4), so there is no fallback path.
+Plugs ``ops.hash_cuda.hash_search`` into ``parallel.search.search`` through
+the step-factory protocol, with the kernel of the backend's hash model
+(md5, sha256, sha256d, sha1 or ripemd160; other models raise).  Each
+kernel takes every configuration the plain step takes (1- and 2-block
+tails, power-of-two or not thread-byte runs, widths 0-4, every difficulty),
+so there is no fallback path.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.registry import get_hash_model
-from ..ops.md5_cuda import md5_search
+from ..ops.hash_cuda import hash_search, kernel_name
 from ..ops.operands import Device
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
@@ -55,8 +57,7 @@ class CudaBackend:
                  max_launch: Optional[int] = None, device: Device = "cuda",
                  metrics: Metrics = REGISTRY):
         self.model = get_hash_model(hash_model)
-        if self.model.name != "md5":
-            raise ValueError("the CUDA kernel implements md5 only")
+        kernel_name(self.model)  # raises for a model without a kernel
         self.device = _require_device(device)
         self.batch_size = batch_size
         self.max_launch = max_launch or scaled_launch_candidates(self.model.cost_ops)
@@ -75,8 +76,8 @@ class CudaBackend:
                 batch = chunks * tbc
 
             def step(chunk0: int) -> torch.Tensor:
-                return md5_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, k,
-                                  device=self.device)
+                return hash_search(self.model, ops, spec.tb_loc, spec.chunk_locs, chunk0,
+                                   batch, k, device=self.device)
 
             return step, chunks * k
 

@@ -18,9 +18,47 @@ import hashlib
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 
+class _DoubleSha256:
+    """hashlib-shaped sha256(sha256(.)), Bitcoin's proof-of-work digest."""
+
+    name = "sha256d"
+    digest_size = 32
+
+    def __init__(self, data: bytes = b""):
+        self._inner = hashlib.sha256(data)
+
+    def update(self, data: bytes) -> None:
+        self._inner.update(data)
+
+    def digest(self) -> bytes:
+        return hashlib.sha256(self._inner.digest()).digest()
+
+    def hexdigest(self) -> str:
+        return self.digest().hex()
+
+    def copy(self) -> "_DoubleSha256":
+        c = _DoubleSha256()
+        c._inner = self._inner.copy()
+        return c
+
+
 def new_hash(algo: str):
-    """``hashlib.new(algo)``; the port's slice serves md5 only."""
-    return hashlib.new(algo)
+    """``hashlib.new(algo)``, for every model the port serves.
+
+    sha256d is a composition that hashlib has no name for.  ripemd160 is
+    outside hashlib's guaranteed set: an OpenSSL 3 build without its legacy
+    provider raises for it, and then the pure-Python ``Ripemd160`` stands
+    in.  Every verification path hashes through here."""
+    if algo == "sha256d":
+        return _DoubleSha256()
+    try:
+        return hashlib.new(algo)
+    except ValueError:
+        if algo == "ripemd160":
+            from .ripemd160 import Ripemd160
+
+            return Ripemd160()
+        raise
 
 
 def hash_hex(nonce: bytes, secret: bytes, algo: str = "md5") -> str:

@@ -98,17 +98,18 @@ def build() -> Dict[str, str]:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    """Set every C function's argument and result types."""
+    """Set the argument and result types of ``distpow_<name>``, the one C
+    function of each library; every search kernel has the same interface."""
     vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
-    if name == "md5_search":
-        lib.distpow_md5_search.argtypes = [
-            vp, vp, vp,          # init, base, masks
-            i32, i32,            # n_blocks, mask_words
-            u32, u32, u32, i32,  # chunk0, tb_lo, tbc, log_tbc
-            i32, i32, u32,       # var_word, var_shift, chunk_mask
-            u32, vp, i32, vp,    # n, out, grid, stream
-        ]
-        lib.distpow_md5_search.restype = i32
+    fn = getattr(lib, f"distpow_{name}")
+    fn.argtypes = [
+        vp, vp, vp,          # init, base, masks
+        i32, i32,            # n_blocks, mask_words
+        u32, u32, u32, i32,  # chunk0, tb_lo, tbc, log_tbc
+        i32, i32, u32,       # var_word, var_shift, chunk_mask
+        u32, vp, i32, vp,    # n, out, grid, stream
+    ]
+    fn.restype = i32
 
 
 def load_library(name: str) -> ctypes.CDLL:

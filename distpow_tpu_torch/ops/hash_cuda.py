@@ -1,0 +1,195 @@
+"""Wrapper of the hand-written CUDA search kernels (``csrc/*_search.cu``).
+
+Counterpart of the reference's Pallas launch site
+(``distpow_tpu/ops/md5_pallas.py`` ``build_pallas_search_step`` /
+``cached_pallas_search_step``).  One kernel per hash model, all with the
+same C interface: ``md5_search`` (``md5.cuh``), ``sha256_search`` and
+``sha256d_search`` (``sha256.cuh``), ``sha1_search`` (``sha1.cuh``) and
+``ripemd160_search`` (``ripemd160.cuh``).  ``hash_search`` checks the
+operands against the model, allocates the result cell, launches the
+model's kernel on the current stream and counts the launch.  For CUDA
+tensors it launches or raises; only for tensors on the CPU does it run the
+plain version (``plain_search``, the same function in PyTorch).  No
+``try`` falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..models.registry import HashModel
+from .operands import Device, StepOperands
+from .search_step import _check_launch, plain_search
+
+# Blocks per SM of a launch's grid: a few waves of 256-thread blocks, so
+# blocks that finish early (a thread stops at its first hit) leave no SM idle.
+BLOCKS_PER_SM = 16
+BLOCK_THREADS = 256  # BLOCK_THREADS / HASH_BLOCK_THREADS of the kernels
+
+# hash model -> kernel: csrc/<kernel>.cu exports distpow_<kernel>
+KERNELS = {
+    "md5": "md5_search",
+    "sha256": "sha256_search",
+    "sha256d": "sha256d_search",
+    "sha1": "sha1_search",
+    "ripemd160": "ripemd160_search",
+}
+
+# Mask-word counts each kernel is built for, besides the full digest: a
+# difficulty that reads more trailing words than this runs the full-digest
+# kernel on masks padded with leading zero words, which every candidate meets.
+MASK_WORD_KEYS = (1, 2, 3, 4)
+
+
+class LaunchCounter:
+    """Kernel launches, counted where the wrapper launches and nowhere else."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+# one counter per kernel
+LAUNCHES = {kernel: LaunchCounter() for kernel in KERNELS.values()}
+
+
+def kernel_name(model: HashModel) -> str:
+    """The kernel of ``model``; raises for a model that has none."""
+    try:
+        return KERNELS[model.name]
+    except KeyError:
+        raise ValueError(f"no CUDA kernel for hash model {model.name!r}; "
+                         f"kernels exist for {sorted(KERNELS)}") from None
+
+
+def kernel_mask_words(mask_words: int, model: HashModel) -> int:
+    """The ``MASK_WORDS`` key a launch at ``mask_words`` runs under."""
+    return mask_words if mask_words in MASK_WORD_KEYS else model.digest_words
+
+
+def kernel_layout(tb_loc, chunk_locs, byteorder: str) -> Tuple[int, int, int]:
+    """The kernel's layout arguments ``(var_word, var_shift, chunk_mask)``.
+
+    The kernels take the candidate's variable bytes as one contiguous run
+    (thread byte, then chunk bytes 0..width-1), which is what packing
+    builds for every model; any other layout raises.  A byte's position in
+    the tail is ``64 * block + 4 * word + offset``, where ``offset`` is
+    ``shift / 8`` in little-endian words and ``3 - shift / 8`` in
+    big-endian ones.  ``var_shift`` is the thread byte's own shift."""
+    if byteorder not in ("little", "big"):
+        raise ValueError(f"bad byte order {byteorder!r}")
+
+    def pos(b, w, s):
+        return b * 64 + w * 4 + (s // 8 if byteorder == "little" else 3 - s // 8)
+
+    b, w, s = tb_loc
+    if s % 8 or not 0 <= s < 32 or not 0 <= w < 16 or b not in (0, 1):
+        raise ValueError(f"bad thread-byte location {tb_loc}")
+    start = pos(b, w, s)
+    for j, (cb, cw, cs) in enumerate(chunk_locs):
+        if cs % 8 or not 0 <= cs < 32 or pos(cb, cw, cs) != start + 1 + j:
+            raise ValueError(
+                f"chunk byte {j} at {(cb, cw, cs)} does not follow the thread "
+                f"byte at {tb_loc}: the kernel takes one contiguous run"
+            )
+    width = len(chunk_locs)
+    if width > 4:
+        raise ValueError("at most 4 variable chunk bytes")
+    return b * 16 + w, s, (1 << (8 * width)) - 1
+
+
+def default_grid(n: int, sm_count: int) -> int:
+    """Blocks for a launch over ``n`` indices: a few waves per SM, and no
+    more blocks than there are indices for."""
+    return max(1, min(-(-n // BLOCK_THREADS), sm_count * BLOCKS_PER_SM))
+
+
+def _check_operands(ops: StepOperands, device: torch.device, model: HashModel) -> None:
+    tensors = {"init": ops.init, "base": ops.base, "masks": ops.masks}
+    for name, t in tensors.items():
+        if t.device.type != device.type:
+            raise ValueError(f"{name} is on {t.device}, the call asks for {device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must hold uint32 bit patterns as int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if len({t.device for t in tensors.values()}) != 1:
+        raise ValueError("operands lie on different devices")
+    n_state = len(model.init_state)
+    if tuple(ops.init.shape) != (n_state,):
+        raise ValueError(f"{model.name} init must be [{n_state}], got {tuple(ops.init.shape)}")
+    if ops.base.dim() != 2 or ops.base.shape[1] != 16 or ops.n_blocks not in (1, 2):
+        raise ValueError(f"base must be [1 or 2, 16], got {tuple(ops.base.shape)}")
+    if ops.masks.dim() != 1 or not 1 <= ops.mask_words <= model.digest_words:
+        raise ValueError(f"{model.name} masks must be [1..{model.digest_words}], "
+                         f"got {tuple(ops.masks.shape)}")
+    if ops.tb_count < 1 or ops.tb_lo < 0 or ops.tb_lo + ops.tb_count > 256:
+        raise ValueError(f"bad thread-byte run ({ops.tb_lo}, {ops.tb_count})")
+
+
+def hash_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0: int,
+                batch: int, launch_steps: int = 1, *, device: Device,
+                grid: Optional[int] = None) -> torch.Tensor:
+    """First hitting flat index in ``[0, batch * launch_steps)``, or SENTINEL.
+
+    On a CUDA device: launches ``model``'s kernel and returns its result
+    cell, a 0-d ``int32`` tensor holding the uint32 bit pattern (SENTINEL
+    is -1 there), without synchronising.  On the CPU: the plain version, a
+    0-d ``int64``.  ``grid`` overrides the number of blocks.
+    """
+    name = kernel_name(model)
+    device = torch.device(device)
+    _check_operands(ops, device, model)
+    _check_launch(batch, launch_steps)
+    if not 0 <= chunk0 <= 0xFFFFFFFF:
+        raise ValueError(f"chunk0 {chunk0} is not a uint32")
+    if device.type == "cpu":
+        return plain_search(ops, tb_loc, chunk_locs, chunk0, batch, launch_steps, model=model)
+    if device.type != "cuda":
+        raise ValueError(f"hash_search runs on cuda or cpu, not {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("hash_search on a CUDA device, but CUDA is not available")
+    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model.word_byteorder)
+    if var_word >= 16 * ops.n_blocks:
+        raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
+    from ._build import load_library
+
+    lib = load_library(name)
+    mw = kernel_mask_words(ops.mask_words, model)
+    masks = F.pad(ops.masks, (mw - ops.mask_words, 0)) if mw != ops.mask_words else ops.masks
+    n = batch * launch_steps
+    tbc = ops.tb_count
+    log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
+    dev = ops.device
+    with torch.cuda.device(dev):
+        if grid is None:
+            grid = default_grid(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        out = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
+        rc = getattr(lib, f"distpow_{name}")(
+            ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
+            ops.n_blocks, mw,
+            chunk0, ops.tb_lo, tbc, log_tbc,
+            var_word, var_shift, chunk_mask,
+            n, out.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name].add()
+    return out

@@ -40,7 +40,7 @@ def u32_value(t: torch.Tensor) -> int:
 
 @dataclass(frozen=True)
 class StepOperands:
-    init: torch.Tensor   # int32 [4]
+    init: torch.Tensor   # int32 [S], the model's state words
     base: torch.Tensor   # int32 [n_blocks, 16]
     masks: torch.Tensor  # int32 [mask_words], the LAST digest words' masks
     tb_lo: int
@@ -74,9 +74,9 @@ def make_operands(init: Sequence[int], base, masks: Sequence[int], tb_lo: int,
 def operands_from_numpy(init, base, masks, tb_lo: int, tb_count: int,
                         device: Device = "cpu") -> StepOperands:
     """The reference package's ``step_operands(...)`` output, as numpy
-    arrays (``init[4]``, ``base[n_blocks, 16]``, ``masks[mask_words]``),
-    turned into the port's operands, so a test feeds both packages from
-    one source."""
+    arrays (``init[S]``, ``base[n_blocks, 16]``, ``masks[mask_words]``, S
+    and mask_words up to the model's state and digest words), turned into
+    the port's operands, so a test feeds both packages from one source."""
     base = np.asarray(base, dtype=np.uint32)
     if base.ndim != 2 or base.shape[1] != 16:
         raise ValueError(f"base must be [n_blocks, 16], got {base.shape}")

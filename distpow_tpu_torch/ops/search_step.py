@@ -1,8 +1,9 @@
 """The plain PyTorch search step: the reference the CUDA kernel is held to.
 
 One step evaluates ``launch_steps`` sub-batches of ``batch`` candidates:
-flat index -> (chunk, thread byte) -> message words -> MD5 state ->
+flat index -> (chunk, thread byte) -> message words -> hash state ->
 difficulty masks -> the smallest hitting flat index, or ``SENTINEL``.
+The hash model is an argument of every step: there is no default.
 The flat index is chunk-major, thread-byte-minor (worker.go:318-319), so
 the minimum is the first hit in reference enumeration order.
 
@@ -22,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..models.registry import MD5, HashModel, get_hash_model
+from ..models.registry import HashModel, get_hash_model
 from .difficulty import nibble_masks
 from .operands import MASK32, Device, StepOperands, make_operands, widen
 from .packing import TailSpec, build_tail_spec
@@ -52,7 +53,8 @@ def eval_dyn_candidates(model, n_blocks, tb_loc, chunk_locs, init, base, tb, chu
     """Hash a batch of candidates against runtime-operand nonce words.
 
     ``init[S]`` and ``base[n_blocks, 16]`` are int64 word tensors; ``tb``
-    and ``chunk`` int64 tensors (or ints).  Returns the state tuple."""
+    and ``chunk`` int64 tensors (or ints).  Returns the state tuple, after
+    the model's ``finalize`` stage where it has one (sha256d)."""
     state = tuple(init[i] for i in range(len(model.init_state)))
     for b in range(n_blocks):
         words = [base[b, w] for w in range(base.shape[1])]
@@ -63,6 +65,8 @@ def eval_dyn_candidates(model, n_blocks, tb_loc, chunk_locs, init, base, tb, chu
             if cb == b:
                 words[cw] = words[cw] | (((chunk >> (8 * j)) & 0xFF) << cs)
         state = model.compress(state, words)
+    if model.finalize is not None:
+        state = model.finalize(state)
     return state
 
 
@@ -87,7 +91,7 @@ def step_operands(spec: TailSpec, difficulty: int, model: HashModel,
 
 
 def plain_search(ops: StepOperands, tb_loc, chunk_locs, chunk0: int, batch: int,
-                 launch_steps: int = 1, model: HashModel = MD5) -> torch.Tensor:
+                 launch_steps: int = 1, *, model: HashModel) -> torch.Tensor:
     """First hitting flat index in ``[0, batch * launch_steps)``, or
     SENTINEL, as a 0-d int64 tensor: the plain version of the kernel."""
     _check_launch(batch, launch_steps)
@@ -113,8 +117,8 @@ def plain_search(ops: StepOperands, tb_loc, chunk_locs, chunk0: int, batch: int,
     return best
 
 
-def plain_search_w0(ops: StepOperands, tb_loc, chunk_locs=(),
-                    model: HashModel = MD5) -> torch.Tensor:
+def plain_search_w0(ops: StepOperands, tb_loc, chunk_locs=(), *,
+                    model: HashModel) -> torch.Tensor:
     """Width-0 probe: scan all 256 thread bytes and mask those outside the
     partition, so one fixed shape serves every partition.  Returns the
     partition-local index ``tb - tb_lo`` of the first hit, or SENTINEL."""
@@ -149,7 +153,7 @@ def cached_search_step(
     ops = step_operands(spec, difficulty, model, tb_lo, tb_count, device)
     if width == 0:
         def bound0(chunk0: int) -> torch.Tensor:
-            return plain_search_w0(ops, spec.tb_loc, spec.chunk_locs, model)
+            return plain_search_w0(ops, spec.tb_loc, spec.chunk_locs, model=model)
 
         return bound0
     batch = chunks_per_step * tb_count
@@ -157,6 +161,6 @@ def cached_search_step(
 
     def bound(chunk0: int) -> torch.Tensor:
         return plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
-                            launch_steps, model)
+                            launch_steps, model=model)
 
     return bound

@@ -10,8 +10,8 @@ import torch
 from distpow_tpu_torch.backends import PythonBackend, TorchBackend, get_backend
 from distpow_tpu_torch.backends.cuda_backend import CudaBackend, plan_launch_geometry
 from distpow_tpu_torch.models.registry import MD5
-from distpow_tpu_torch.ops.md5_cuda import (BLOCK_THREADS, LAUNCHES, default_grid,
-                                            kernel_layout, md5_search)
+from distpow_tpu_torch.ops.hash_cuda import (BLOCK_THREADS, LAUNCHES, default_grid,
+                                             hash_search, kernel_layout)
 from distpow_tpu_torch.ops.packing import build_tail_spec
 from distpow_tpu_torch.ops.search_step import step_operands
 
@@ -39,17 +39,20 @@ def test_explicit_cpu_device_is_served(no_gpu):
 
 
 def test_cuda_backend_serves_md5_only():
-    with pytest.raises(ValueError, match="not ported yet"):
-        get_backend("cuda", hash_model="sha256", device="cpu")
+    """Named for the first slice; the backend now serves every ported model
+    and raises for those still queued."""
+    for name in ("sha512", "sha3_256"):
+        with pytest.raises(ValueError, match="not ported yet"):
+            get_backend("cuda", hash_model=name, device="cpu")
 
 
 def test_wrapper_on_a_cuda_path_raises_and_launches_nothing(no_gpu):
     spec = build_tail_spec(b"\x01\x02\x03\x04", 1, MD5)
     ops = step_operands(spec, 2, MD5, 0, 256, "cpu")
-    before = LAUNCHES.value
+    before = LAUNCHES["md5_search"].value
     with pytest.raises(ValueError, match="cuda"):
-        md5_search(ops, spec.tb_loc, spec.chunk_locs, 1, 1024, device="cuda")
-    assert LAUNCHES.value == before
+        hash_search(MD5, ops, spec.tb_loc, spec.chunk_locs, 1, 1024, device="cuda")
+    assert LAUNCHES["md5_search"].value == before
 
 
 def test_wrapper_checks_operands():
@@ -57,19 +60,19 @@ def test_wrapper_checks_operands():
     ops = step_operands(spec, 2, MD5, 0, 256, "cpu")
     bad = ops.__class__(ops.init.to(torch.int64), ops.base, ops.masks, 0, 256)
     with pytest.raises(ValueError, match="int32"):
-        md5_search(bad, spec.tb_loc, spec.chunk_locs, 1, 1024, device="cpu")
+        hash_search(MD5, bad, spec.tb_loc, spec.chunk_locs, 1, 1024, device="cpu")
     bad = ops.__class__(ops.init, ops.base, ops.masks, 200, 100)
     with pytest.raises(ValueError, match="thread-byte run"):
-        md5_search(bad, spec.tb_loc, spec.chunk_locs, 1, 1024, device="cpu")
+        hash_search(MD5, bad, spec.tb_loc, spec.chunk_locs, 1, 1024, device="cpu")
     with pytest.raises(ValueError, match="2\\^31"):
-        md5_search(ops, spec.tb_loc, spec.chunk_locs, 1, 1 << 30, 2, device="cpu")
+        hash_search(MD5, ops, spec.tb_loc, spec.chunk_locs, 1, 1 << 30, 2, device="cpu")
 
 
 @pytest.mark.parametrize("nonce_len", range(0, 130, 7))
 @pytest.mark.parametrize("width", range(5))
 def test_kernel_layout_covers_every_tail(nonce_len, width):
     spec = build_tail_spec(bytes(nonce_len), width, MD5, b"\x01" if width == 4 else b"")
-    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs)
+    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, "little")
     b, w, s = spec.tb_loc
     assert (var_word, var_shift) == (16 * b + w, s)
     assert var_word < 16 * spec.n_blocks
@@ -78,7 +81,7 @@ def test_kernel_layout_covers_every_tail(nonce_len, width):
 
 def test_kernel_layout_rejects_a_split_run():
     with pytest.raises(ValueError, match="contiguous"):
-        kernel_layout((0, 1, 0), ((0, 1, 16),))
+        kernel_layout((0, 1, 0), ((0, 1, 16),), "little")
 
 
 def test_launch_geometry():

@@ -1,0 +1,90 @@
+"""``chip_smoke.py`` on a machine without a GPU: it exits non-zero and
+prints no result line, also when it lies alone in a directory.  And its
+host-side helpers: the ptxas and SASS parsers on both kernel name forms,
+and the per-candidate operation counts behind ``bound_ms``."""
+
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "chip_smoke.py")
+
+
+def _load():
+    spec = importlib.util.spec_from_file_location("chip_smoke", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: these tests describe a machine without one")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_exits_nonzero_without_a_gpu(no_gpu, tmp_path, alone):
+    script = SCRIPT
+    if alone:
+        script = str(tmp_path / "chip_smoke.py")
+        shutil.copy(SCRIPT, script)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, script], cwd=os.path.dirname(script), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+PTXAS = """
+ptxas info    : Compiling entry function '_ZN7distpow17md5_search_kernelILi2ELi1ELb1EEEvPKjS2_S2_NS_6LayoutEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow17md5_search_kernelILi2ELi1ELb1EEEvPKjS2_S2_NS_6LayoutEjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 54 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow18hash_search_kernelINS_9Ripemd160ELi4ELi2ELb0EEEvPKjS3_S3_NS_6LayoutEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow18hash_search_kernelINS_9Ripemd160ELi4ELi2ELb0EEEvPKjS3_S3_NS_6LayoutEjPj
+    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 24 bytes cumulative stack size, 32 bytes smem
+"""
+
+SASS = """
+        Function : _ZN7distpow18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEvPKjS3_S3_NS_6LayoutEjPj
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0020*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0030*/                   NOP ;
+        /*0040*/                   LOP3.LUT R3, R2, R4, R5, 0x96, !PT ;
+        /*0050*/               @P0 BRA `(.L_x_1) ;
+        /*0060*/                   EXIT ;
+"""
+
+
+def test_parsers_read_both_kernel_name_forms():
+    cs = _load()
+    assert cs.parse_ptxas(PTXAS) == {
+        (2, 1, True): {"registers": 54, "spill_bytes": 0},
+        (4, 2, False): {"registers": 80, "spill_bytes": 40},
+    }
+    # the loop body between the backward branch and its target, NOPs excluded
+    assert cs.parse_sass_loops(SASS) == {(8, 1, True): {"IADD3": 1, "LOP3": 1, "BRA": 1}}
+
+
+def test_needed_ops_of_the_timed_launches():
+    """The counts behind each model's bound in PERF.md: difficulty 16 (two
+    mask words), one tail block, the variable bytes in words 1 and 2."""
+    cs = _load()
+    got = {m: cs.needed_ops(m, 1, 2, {1, 2}) for m in cs.MODELS}
+    assert got == {"md5": 215, "sha256": 1221, "sha256d": 2545, "sha1": 548,
+                   "ripemd160": 643}
+    for m in cs.MODELS:
+        # more live digest words or a second block cost more, never less
+        counts = [cs.needed_ops(m, 1, mw, {1, 2}) for mw in range(1, 5)]
+        assert counts == sorted(counts)
+        assert cs.needed_ops(m, 2, 2, {15, 16}) > got[m]

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 
 from distpow_tpu_torch.models.registry import MD5
-from distpow_tpu_torch.ops.md5_cuda import kernel_layout
+from distpow_tpu_torch.ops.hash_cuda import kernel_layout
 from distpow_tpu_torch.ops.operands import make_operands, u32_value
 from distpow_tpu_torch.ops.packing import build_tail_spec, pack_reference_bytes
 from distpow_tpu_torch.ops.search_step import SENTINEL, plain_search
@@ -110,7 +110,7 @@ def _arr(values):
 
 
 def _layout(spec, chunk0, tb_lo, tbc):
-    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs)
+    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, "little")
     log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
     return [chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask]
 
@@ -147,7 +147,7 @@ def test_twin_first_hit_matches_plain_step(twin, mask_words, nonce_len, tb_lo, t
         masks[int(b) // 32] |= 1 << (int(b) % 32)
     chunk0, batch = 70000, 40 * tbc
     ops = make_operands(spec.init_state, spec.base_words, masks, tb_lo, tbc, "cpu")
-    want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch))
+    want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, model=MD5))
     init, init_p = _arr(spec.init_state)
     base, base_p = _arr(spec.base_words)
     m, m_p = _arr(masks)

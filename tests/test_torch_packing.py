@@ -71,8 +71,12 @@ def test_meets_difficulty_matches_trailing_nibbles():
 
 
 def test_registry_serves_md5_and_names_the_queue_for_the_rest():
+    """Named for the first slice; md5 and the second slice's four models are
+    served, the four still queued name the queue."""
     assert get_hash_model("MD5") is MD5
-    for name in ("sha256", "sha1", "blake2b_256"):
+    for name in ("sha256", "sha256d", "sha1", "ripemd160"):
+        assert get_hash_model(name.upper()).name == name
+    for name in ("sha512", "sha384", "sha3_256", "blake2b_256"):
         with pytest.raises(ValueError, match="ROADMAP"):
             get_hash_model(name)
     with pytest.raises(ValueError, match="unknown"):

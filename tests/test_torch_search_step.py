@@ -12,8 +12,9 @@ import torch
 from distpow_tpu.models.registry import MD5 as JAX_MD5
 from distpow_tpu.ops import packing as jax_packing
 from distpow_tpu.ops import search_step as jax_step
+from distpow_tpu_torch.models.registry import MD5
 from distpow_tpu_torch.ops import search_step
-from distpow_tpu_torch.ops.md5_cuda import LAUNCHES, md5_search
+from distpow_tpu_torch.ops.hash_cuda import LAUNCHES, hash_search
 from distpow_tpu_torch.ops.operands import operands_from_numpy, u32_value
 from distpow_tpu_torch.ops.search_step import SENTINEL, _check_launch
 
@@ -49,21 +50,23 @@ def test_plain_step_first_hit_matches_jax_xla_step(case):
     init, base, masks = (np.asarray(a) for a in jax_step.step_operands(spec, d, JAX_MD5))
     ops = operands_from_numpy(init, base, masks, tb_lo, tbc)
     if width == 0:
-        got = search_step.plain_search_w0(ops, spec.tb_loc, spec.chunk_locs)
+        got = search_step.plain_search_w0(ops, spec.tb_loc, spec.chunk_locs, model=MD5)
         batch, steps = tbc, 1
     else:
         batch, steps = chunks * tbc, k
-        got = search_step.plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps)
+        got = search_step.plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
+                                       model=MD5)
     assert u32_value(got) == want
 
     # the port's own serving step and the kernel wrapper's CPU path agree
     bound = search_step.cached_search_step(
         nonce, width, d, tb_lo, tbc, chunks, "md5", extra, k, "cpu")
     assert u32_value(bound(chunk0)) == want
-    before = LAUNCHES.value
-    wrapped = md5_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps, device="cpu")
+    before = LAUNCHES["md5_search"].value
+    wrapped = hash_search(MD5, ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
+                          device="cpu")
     assert u32_value(wrapped) == want
-    assert LAUNCHES.value == before  # the plain path launches no kernel
+    assert LAUNCHES["md5_search"].value == before  # the plain path launches no kernel
 
 
 def test_sentinel_cases_are_hit_free():
@@ -83,7 +86,8 @@ def test_plain_step_matches_pallas_kernel_in_interpret_mode():
     ops = operands_from_numpy(
         *(np.asarray(a) for a in jax_step.step_operands(spec, 2, JAX_MD5)), 64, 64)
     for c0 in (256, 256 + 512):
-        got = search_step.plain_search(ops, spec.tb_loc, spec.chunk_locs, c0, 512 * 64)
+        got = search_step.plain_search(ops, spec.tb_loc, spec.chunk_locs, c0, 512 * 64,
+                                       model=MD5)
         assert u32_value(got) == int(step_p(jnp.uint32(c0)))
 
 
