@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's mining path on one NVIDIA GPU, for every
-hash model that has a CUDA kernel: md5, sha256, sha256d, sha1, ripemd160.
+hash model, each through its own CUDA kernel: md5, sha256, sha256d, sha1,
+ripemd160, sha512, sha384, sha3_256, blake2b_256.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``distpow_tpu_torch/csrc`` (one nvcc per source, all
@@ -9,13 +10,14 @@ PyTorch version on the card (``kernel_parity``, and ``full_parity`` at the
 worker's full launch), mines through ``get_backend("auto", hash_model=...)``
 at the worker's full size (batch 2^20, the model's cost-scaled launch)
 with the launch counts set to 0 just before and read just after
-(``mine``), and times the kernel (``rate``).  md5's phases keep their names
+(``mine``), and times the kernel and the plain version on the same
+main-path launch, whose results must agree (``rate``).  md5's phases keep their names
 (``kernel_parity``, ``full_parity``, ``mine``, ``cancel``, ``rate``); the
 other models' carry the model's name as a suffix.  Every phase prints one
 JSON line; the line before the card's name lists every kernel; the last
 line, printed only when every phase passed, is ``{"ok": true, "device":
 {...}}``.  It imports neither JAX nor the JAX package.  Long outputs (the
-nvcc log, the SASS) go to ``chiprun_out/``.
+nvcc log, each kernel's SASS, gzipped) go to ``chiprun_out/``.
 
 Exits non-zero, without the result line, when no GPU is available, when the
 port's package is not beside this script, or when any phase fails.
@@ -24,6 +26,8 @@ port's package is not beside this script, or when any phase fails.
 from __future__ import annotations
 
 import collections
+import functools
+import gzip
 import hashlib
 import json
 import os
@@ -37,21 +41,32 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160")
+MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha512", "sha384", "sha3_256",
+          "blake2b_256")
 # model -> the TPU code its kernel replaces (distpow_tpu/ops/md5_pallas.py:
 # the scaffold _dyn_pallas_step, ported with md5, and each model's tile)
 REPLACES = {"md5": "distpow_tpu/ops/md5_pallas.py:698",
             "sha256": "distpow_tpu/ops/md5_pallas.py:247",
             "sha256d": "distpow_tpu/ops/md5_pallas.py:304",
             "sha1": "distpow_tpu/ops/md5_pallas.py:325",
-            "ripemd160": "distpow_tpu/ops/md5_pallas.py:391"}
+            "ripemd160": "distpow_tpu/ops/md5_pallas.py:391",
+            "sha512": "distpow_tpu/ops/md5_pallas.py:605",
+            "sha384": "distpow_tpu/ops/md5_pallas.py:609",
+            "sha3_256": "distpow_tpu/ops/md5_pallas.py:528",
+            "blake2b_256": "distpow_tpu/ops/md5_pallas.py:615"}
 
 # Parity grid (phase kernel_parity): every tail shape, width, mask bucket,
 # partition kind and launch multiplier the plain step handles.  md5's grid;
-# the other models run a reduced grid of nonce lengths and difficulties.
+# the other models run a reduced grid of difficulties and nonce lengths
+# around their own block size: one- and two-block tails, and runs that
+# cross the block boundary.
 NONCE_LENS = (1, 4, 13, 55, 56, 63, 64, 100)
 DIFFICULTIES = (0, 1, 2, 5, 8, 9, 12, 16)
-NONCE_LENS_REDUCED = (1, 13, 55, 56, 63, 100)
+NONCE_LENS_REDUCED = {"sha512": (1, 13, 111, 120, 127, 130, 250),
+                      "sha384": (1, 13, 111, 120, 127, 130, 250),
+                      "sha3_256": (1, 13, 130, 133, 135, 140, 280),
+                      "blake2b_256": (1, 13, 120, 124, 126, 127, 129, 260)}
+NONCE_LENS_64 = (1, 13, 55, 56, 63, 100)  # the 64-byte-block models
 DIFFICULTIES_REDUCED = (0, 2, 5, 9)
 # (tb_lo, tbc, chunks per sub-batch): sub-batches of at most 2^14, so
 # batch * launch_steps stays within 2^16
@@ -74,7 +89,6 @@ RATE_DIFFICULTY = 16
 FULL_PARITY_TRIES = 256
 # mine: difficulties solved per model; the first is also held to python_search
 MINE_DIFFICULTIES = {m: (5, 6, 8) if m == "md5" else (3, 6, 8) for m in MODELS}
-
 # message word of MD5 round i
 MD5_G = tuple(i if i < 16 else (5 * i + 1) % 16 if i < 32 else (3 * i + 5) % 16 if i < 48
               else (7 * i) % 16 for i in range(64))
@@ -131,8 +145,9 @@ class Smoke:
 
 
 # A kernel specialization's key in its mangled name: md5_search_kernel<MW, NB, POW2>
-# or hash_search_kernel<Hash, MW, NB, POW2>
-KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d)ELi(\d)ELb(\d)E"
+# or hash_search_kernel<Hash, MW, NB, POW2>; MW has two digits for the full
+# digests of sha512 (16) and sha384 (12)
+KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
 
 
 def spec_label(key) -> str:
@@ -228,7 +243,11 @@ def md5_needed_ops(n_blocks: int, mask_words: int, var_words) -> int:
 # state, the constant message words) is computed once per launch and costs
 # nothing per candidate, and the constants of a sum fold into one term.
 # That lets the rounds before the first variable message word, and
-# schedule words made of constant words only, cost nothing.
+# schedule words made of constant words only, cost nothing.  The 64-bit
+# hashes count in the same 32-bit instructions: a 64-bit sum of up to three
+# terms is 2 (IADD3 with its carry out, IADD3.X), a 64-bit logic function
+# of up to three inputs 2 LOP3, a 64-bit rotate or shift 2 funnel shifts,
+# and a rotate by 32 nothing (the halves swap).
 
 def _sum_ops(n_var: int, has_const: bool) -> int:
     """Three-input adds (or XORs) to combine ``n_var`` varying terms and,
@@ -236,42 +255,64 @@ def _sum_ops(n_var: int, has_const: bool) -> int:
     return (n_var + has_const) // 2 if n_var else 0
 
 
-def _sha256_block_ops(state_var, word_var, mw: int):
-    """(ops, new state variability) of one SHA-256 compression whose
-    ``mw`` trailing digest words are live (the tile's MAX_E / MAX_A)."""
-    max_e = 59 + min(mw, 4)
-    max_a = 55 + mw if mw > 4 else max_e - 4
+def _sha2_block_ops(state_var, word_var, rounds: int, live, cost: int):
+    """(ops, new state variability) of one SHA-256 (64 rounds of 32-bit
+    words, ``cost`` 1) or SHA-512 (80 rounds of 64-bit words, ``cost`` 2)
+    compression whose digest words ``live`` are read: the E chain stops at
+    the last chain index they read, the A chain where the E chain or they
+    need it (the tiles' MAX_E / MAX_A)."""
+    need_a = [rounds - 1 - j for j in live if j < 4]
+    need_e = [rounds + 3 - j for j in live if j >= 4]
+    max_e = max(need_e + need_a)
+    max_a = max(need_a + [max_e - 4])
     n, w = 0, list(word_var)
     for i in range(16, max_e + 1):
         terms = (w[i - 2], w[i - 7], w[i - 15], w[i - 16])
-        n += 4 * w[i - 2] + 4 * w[i - 15] + _sum_ops(sum(terms), not all(terms))
+        n += cost * (4 * w[i - 2] + 4 * w[i - 15] + _sum_ops(sum(terms), not all(terms)))
         w.append(any(terms))
     A = {-1 - j: state_var[j] for j in range(4)}
     E = {-1 - j: state_var[4 + j] for j in range(4)}
     for r in range(max_e + 1):
         s1, ch = E[r - 1], E[r - 1] or E[r - 2] or E[r - 3]
-        n += 4 * s1 + ch
+        n += cost * (4 * s1 + ch)
         t1_var = sum((E[r - 4], s1, ch, w[r]))
-        n += _sum_ops(t1_var, True)  # K[r] is the constant term
+        n += cost * _sum_ops(t1_var, True)  # K[r] is the constant term
         E[r] = bool(t1_var) or A[r - 4]
-        n += E[r]
+        n += cost * E[r]
         if r <= max_a:
             s0, maj = A[r - 1], A[r - 1] or A[r - 2] or A[r - 3]
-            n += 4 * s0 + maj
+            n += cost * (4 * s0 + maj)
             a_var = sum((bool(t1_var), s0, maj))
-            n += _sum_ops(a_var, a_var < 3)
+            n += cost * _sum_ops(a_var, a_var < 3)
             A[r] = bool(a_var)
     out = list(state_var)
-    for j in range(8 - mw, 8):
-        out[j] = A[63 - j] if j < 4 else E[67 - j]
-        n += out[j]
+    for j in live:
+        out[j] = A[rounds - 1 - j] if j < 4 else E[rounds + 3 - j]
+        n += cost * out[j]
     return n, out
 
 
-def _sha1_block_ops(state_var, word_var, mw: int):
+def _sha256_block_ops(state_var, word_var, mw):
+    """(ops, new state variability) of one SHA-256 compression whose ``mw``
+    trailing digest words are live (None: the full state)."""
+    mw = 8 if mw is None else mw
+    return _sha2_block_ops(state_var, word_var, 64, range(8 - mw, 8), 1)
+
+
+def _sha512_block_ops(state_var, word_var, mw, d32: int):
+    """(ops, new 64-bit state variability) of one SHA-512 compression, for a
+    digest of ``d32`` 32-bit words (16; sha384 12) of which ``mw`` trailing
+    ones are live (None: the full state).  ``word_var`` has the block's 32
+    words; a 64-bit word varies if either half does."""
+    w64 = [word_var[2 * i] or word_var[2 * i + 1] for i in range(16)]
+    live = range(8) if mw is None else range((d32 - mw) // 2, d32 // 2)
+    return _sha2_block_ops(state_var, w64, 80, live, 2)
+
+
+def _sha1_block_ops(state_var, word_var, mw):
     """(ops, new state variability) of one SHA-1 compression; the chain
-    stops at round 74 + mw."""
-    last = 74 + mw
+    stops at round 74 + mw (None: the full state)."""
+    last = 74 + (5 if mw is None else mw)
     n, w = 0, list(word_var)
     for i in range(16, last + 1):
         terms = (w[i - 3], w[i - 8], w[i - 14], w[i - 16])
@@ -295,7 +336,7 @@ def _sha1_block_ops(state_var, word_var, mw: int):
         n += X[r - 1] or bool(s_var)    # rotl(a, 5) + s: one LEA.HI
         X[r] = X[r - 1] or bool(s_var)
     out = list(state_var)
-    for j in range(5 - mw, 5):
+    for j in range(79 - last, 5):
         out[j] = X[79 - j]
         n += out[j]  # init + x, or init + rotl(x, 30): one op
     return n, out
@@ -304,10 +345,10 @@ def _sha1_block_ops(state_var, word_var, mw: int):
 RMD_NEED = ((78, 77), (77, 76), (76, 75), (75, 79), (79, 78))
 
 
-def _ripemd160_block_ops(state_var, word_var, mw: int):
+def _ripemd160_block_ops(state_var, word_var, mw):
     """(ops, new state variability) of one RIPEMD-160 compression; each
     line stops at the last chain index its live digest words read."""
-    live = range(5 - mw, 5)
+    live = range(0 if mw is None else 5 - mw, 5)
     n = 0
     lines = []
     for right, order in ((False, RMD_RL), (True, RMD_RR)):
@@ -346,31 +387,122 @@ def _ripemd160_block_ops(state_var, word_var, mw: int):
     return n, out
 
 
+def _sha3_block_ops(state_var, word_var, mw):
+    """(ops, new lane variability) of one SHA3-256 absorb and Keccak-f, over
+    the 25 lanes (a lane varies if either half does).  A round: theta's
+    column sums (a five-input XOR, 2 LOP3 a half), the rotate of each
+    column sum by 1, one three-input XOR a lane (A ^ C[x-1] ^ rotl(C[x+1],
+    1)), rho's rotate (none by 0), chi (one LOP3 a half) and iota (one XOR
+    a half whose constant is not zero).  The last round computes chi only
+    for the live lanes (None: all), and only what they read.  The absorb's
+    XOR of a varying word joins the byte placement's OR (base | bytes ^
+    state is one LOP3, the constants folded), so it costs nothing here."""
+    from distpow_tpu_torch.models.sha3 import KECCAK_RC, KECCAK_ROT
+
+    lanes = [state_var[i] or (i < 17 and (word_var[2 * i] or word_var[2 * i + 1]))
+             for i in range(25)]
+    live = set(range(25)) if mw is None else set(range((8 - mw) // 2, 4))
+    src = {y + 5 * ((2 * x + 3 * y) % 5): x + 5 * y for x in range(5) for y in range(5)}
+    n = 0
+    for r in range(24):
+        need = live if r == 23 else set(range(25))
+        need_b = {(i % 5 + k) % 5 + i - i % 5 for i in need for k in range(3)}
+        need_a = {src[b] for b in need_b}
+        need_d = {a % 5 for a in need_a}
+        need_c = {(x + 4) % 5 for x in need_d} | {(x + 1) % 5 for x in need_d}
+        col = [any(lanes[x + 5 * y] for y in range(5)) for x in range(5)]
+        n += sum(4 * col[x] for x in need_c)
+        n += sum(2 * col[(x + 1) % 5] for x in need_d)
+        a_var = {a: lanes[a] or col[(a + 4) % 5] or col[(a + 1) % 5] for a in need_a}
+        n += 2 * sum(a_var.values())
+        b_var = {b: a_var[src[b]] for b in need_b}
+        n += sum(2 * a_var[src[b]] for b in need_b
+                 if KECCAK_ROT[src[b] % 5][src[b] // 5] != 0)
+        new = list(lanes)
+        for i in need:
+            y5 = i - i % 5
+            new[i] = b_var[i] or b_var[(i + 1) % 5 + y5] or b_var[(i + 2) % 5 + y5]
+            n += 2 * new[i]
+        if 0 in need and new[0]:
+            n += bool(KECCAK_RC[r] & 0xFFFFFFFF) + bool(KECCAK_RC[r] >> 32)
+        lanes = new
+    return n, lanes
+
+
+def _blake2b_block_ops(state_var, word_var, mw):
+    """(ops, new state variability) of one BLAKE2b compression over 64-bit
+    words.  A G is 8 steps: a + b + x (2), (d ^ a) >>> 32 (2: the XOR), c +
+    d (2), (b ^ c) >>> 24 (4), a + b + y (2), (d ^ a) >>> 16 (4), c + d (2),
+    (b ^ c) >>> 63 (4), each only where it varies; IV, t and f0 are
+    constants.  The last round skips the diagonals that write no lane of a
+    live 64-bit digest word (None: all live); a live word is one three-input
+    XOR a half, h ^ v[j] ^ v[j + 8]."""
+    from distpow_tpu_torch.models.blake2b import BLAKE2B_SIGMA, G_LANES
+
+    m = [word_var[2 * i] or word_var[2 * i + 1] for i in range(16)]
+    v = list(state_var) + [False] * 8
+    live = set(range(8)) if mw is None else set(range((8 - mw) // 2, 4))
+    n = 0
+    for r in range(12):
+        s = BLAKE2B_SIGMA[r]
+        for g, (a, b, c, d) in enumerate(G_LANES):
+            if r == 11 and g >= 4 and not any(k % 8 in live for k in (a, b, c, d)):
+                continue
+            va = v[a] or v[b] or m[s[2 * g]]
+            vd = v[d] or va
+            vc = v[c] or vd
+            vb = v[b] or vc
+            n += 2 * va + 2 * vd + 2 * vc + 4 * vb
+            va = va or vb or m[s[2 * g + 1]]
+            vd = vd or va
+            vc = vc or vd
+            vb = vb or vc
+            n += 2 * va + 4 * vd + 2 * vc + 4 * vb
+            v[a], v[b], v[c], v[d] = va, vb, vc, vd
+    out = list(state_var)
+    for j in live:
+        out[j] = state_var[j] or v[j] or v[j + 8]
+        n += 2 * out[j]
+    return n, out
+
+
+# model -> (the ops of one block, the state values it tracks)
+BLOCK_OPS = {"sha256": (_sha256_block_ops, 8), "sha256d": (_sha256_block_ops, 8),
+             "sha1": (_sha1_block_ops, 5), "ripemd160": (_ripemd160_block_ops, 5),
+             "sha512": (functools.partial(_sha512_block_ops, d32=16), 8),
+             "sha384": (functools.partial(_sha512_block_ops, d32=12), 8),
+             "sha3_256": (_sha3_block_ops, 25), "blake2b_256": (_blake2b_block_ops, 8)}
+
+
 def needed_ops(model_name: str, n_blocks: int, mask_words: int, var_words) -> int:
     """Integer operations one candidate of a power-of-two run needs, counted
-    from the hash itself (the conventions above).  Around the compressions,
-    as for md5: decode 4, placing the variable bytes (a byte swap for a
-    big-endian hash, a combine, a shift and an OR per word), the mask fold
-    (one per mask word), the hit test 2 and the loop 3."""
+    from the hash itself (the conventions above).  ``var_words`` are the
+    tail's message words (``words_per_block`` a block) that hold variable
+    bytes.  Around the compressions, as for md5: decode 4, placing the
+    variable bytes (a byte swap for a big-endian hash, a combine, a shift
+    and an OR per word), the mask fold (one per mask word), the hit test 2
+    and the loop 3."""
+    from distpow_tpu_torch.models.registry import get_hash_model
+
     if model_name == "md5":
         return md5_needed_ops(n_blocks, mask_words, var_words)
-    fn = {"sha256": _sha256_block_ops, "sha256d": _sha256_block_ops,
-          "sha1": _sha1_block_ops, "ripemd160": _ripemd160_block_ops}[model_name]
-    full = 5 if model_name in ("sha1", "ripemd160") else 8
-    state = [False] * full
+    model = get_hash_model(model_name)
+    wpb = model.words_per_block
+    fn, state_size = BLOCK_OPS[model_name]
+    state = [False] * state_size
     n = 0
     for blk in range(n_blocks):
-        words = [16 * blk + w in var_words for w in range(16)]
+        words = [wpb * blk + w in var_words for w in range(wpb)]
         last = blk == n_blocks - 1
         if model_name == "sha256d" and last:
-            ops, state = fn(state, words, full)
+            ops, state = fn(state, words, None)
             n += ops
             # stage 2: the digest words, then constants, from the constant init
             ops, state = fn([False] * 8, state + [False] * 8, mask_words)
         else:
-            ops, state = fn(state, words, mask_words if last else full)
+            ops, state = fn(state, words, mask_words if last else None)
         n += ops
-    big_endian = model_name != "ripemd160"
+    big_endian = model.word_byteorder == "big"
     return n + 4 + big_endian + 1 + 2 * len(var_words) + mask_words + 2 + 3
 
 
@@ -454,7 +586,7 @@ def main() -> int:
             sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", paths[kernel]],
                                   capture_output=True, text=True, check=True,
                                   timeout=300).stdout
-            with open(os.path.join(OUT_DIR, f"{kernel}.sass"), "w") as fh:
+            with gzip.open(os.path.join(OUT_DIR, f"{kernel}.sass.gz"), "wt") as fh:
                 fh.write(sass)
             loops[kernel] = parse_sass_loops(sass)
             if len(loops[kernel]) != expect:
@@ -498,11 +630,12 @@ def main() -> int:
                     chunk0 = 256 ** (width - 1) if i % 2 else 256 ** width - 5
                     cases.append((f"n{n_len}_w{width}_d{d}_tbc{tbc}_k{steps}", ops, spec,
                                   chunk0, chunks * tbc, steps, None))
-        # synthetic sparse masks: hits in every mask bucket (for sha256 and
-        # sha256d also the widths the wrapper pads to the full digest) and
-        # tail shape, first hits deep in the launch, small grids that loop
+        # synthetic sparse masks: hits in every mask bucket (also the widths
+        # the wrapper pads to the full digest) and tail shape (a one-block
+        # tail, a two-block one whose run crosses the block boundary), first
+        # hits deep in the launch, small grids that loop
         for mw in range(1, model.digest_words + 1):
-            for n_len in (13, 60):
+            for n_len in (13, 60 if model.block_bytes == 64 else model.block_bytes - 3):
                 for (tb_lo, tbc, chunks), bits, grid in (((0, 256, 64), 6, None),
                                                          ((16, 96, 128), 13, 3)):
                     nonce = rng.integers(0, 256, size=n_len, dtype=np.uint8).tobytes()
@@ -720,7 +853,8 @@ def main() -> int:
         ms = start.elapsed_time(end) / RATE_LAUNCHES
 
         # the plain version on the same inputs: no yardstick of speed, it
-        # repeats the kernel's arithmetic in ~1000 elementwise torch ops
+        # repeats the kernel's arithmetic in 10^3-10^4 elementwise torch ops;
+        # on the timed launch it is also the judge of the kernel's result
         small = 1 << 16
         plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, small, 1, model=model)
         start.record()
@@ -741,7 +875,7 @@ def main() -> int:
         # this difficulty, so every candidate is hashed) at the issue rate;
         # the kernel's own SASS loop count is a diagnostic beside it
         mw = mask_words_for(RATE_DIFFICULTY, model)
-        var_words = {16 * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
+        var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
         needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
         dev_info = smoke.info["device"]
         sass = sum(loops[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks,
@@ -766,7 +900,8 @@ def main() -> int:
         if model_name == "md5":
             grid_args = (20261016, NONCE_LENS, DIFFICULTIES)
         else:
-            grid_args = (20261016 + i, NONCE_LENS_REDUCED, DIFFICULTIES_REDUCED)
+            grid_args = (20261016 + i, NONCE_LENS_REDUCED.get(model_name, NONCE_LENS_64),
+                         DIFFICULTIES_REDUCED)
         smoke.phase(f"kernel_parity{sfx}", lambda: kernel_parity(model, *grid_args),
                     needs=("build",))
         smoke.phase(f"full_parity{sfx}", lambda: full_parity(model), needs=("build", "device"))

@@ -6,8 +6,9 @@ from ``distpow_tpu``: every module keeps its own copy of what it needs.
 
 Layout mirrors the reference package:
 
-* ``models/``   puzzle semantics, the hash models (md5, sha256, sha256d,
-                sha1, ripemd160), the hash-model registry
+* ``models/``   puzzle semantics, the nine hash models (md5, sha256,
+                sha256d, sha1, ripemd160, sha512, sha384, sha3_256,
+                blake2b_256), the hash-model registry
 * ``ops/``      difficulty masks, tail packing, the plain torch search
                 step, the CUDA kernels' build and wrapper
 * ``parallel/`` partition algebra and the pipelined search driver

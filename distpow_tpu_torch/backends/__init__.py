@@ -4,7 +4,7 @@
 * ``torch``  — the plain PyTorch step behind the pipelined driver, on an
                explicit device (tests and the CPU)
 * ``cuda``   — the hand-written CUDA kernel of the hash model behind the
-               same driver (md5, sha256, sha256d, sha1, ripemd160)
+               same driver (all nine models)
 * ``auto``   — ``cuda``
 
 Every backend implements ``search(nonce, difficulty, thread_bytes,

@@ -2,7 +2,7 @@
 
 Plugs ``ops.hash_cuda.hash_search`` into ``parallel.search.search`` through
 the step-factory protocol, with the kernel of the backend's hash model
-(md5, sha256, sha256d, sha1 or ripemd160; other models raise).  Each
+(each of the nine models has one; an unknown model raises).  Each
 kernel takes every configuration the plain step takes (1- and 2-block
 tails, power-of-two or not thread-byte runs, widths 0-4, every difficulty),
 so there is no fallback path.

@@ -1,0 +1,21 @@
+// BLAKE2b-256 proof-of-work search kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel distpow_tpu/ops/md5_pallas.py _dyn_pallas_step
+// (the scaffold) around _blake2b_tile (the rounds).
+// The kernel, its design and what bounds it are in hash_search.cuh; the
+// rounds in blake2b.cuh.
+//
+// Interface: a plain C function, launched on the caller's stream; it does
+// not synchronise and allocates nothing.  Arguments as in
+// distpow::launch_hash_search.
+#include "blake2b.cuh"
+
+extern "C" int distpow_blake2b_256_search(const void* init, const void* base, const void* masks,
+                                          int n_blocks, int mask_words, uint32_t chunk0, uint32_t tb_lo,
+                                          uint32_t tbc, int log_tbc, int var_word, int var_shift,
+                                          uint32_t chunk_mask, uint32_t n, void* out, int grid,
+                                          void* stream) {
+  return distpow::launch_hash_search<distpow::Blake2b_256>(init, base, masks, n_blocks, mask_words,
+                                                           chunk0, tb_lo, tbc, log_tbc, var_word, var_shift,
+                                                           chunk_mask, n, out, grid, stream);
+}

@@ -1,18 +1,26 @@
-// Search scaffold of the sha256, sha256d, sha1 and ripemd160 kernels: the
-// flat-index decode, the message words of a candidate in either byte order,
-// the mask check, and (under nvcc) the kernel and its launcher.
+// Search scaffold of every kernel but md5's: the flat-index decode, the
+// message words of a candidate in either byte order, the mask check, and
+// (under nvcc) the kernel and its launcher.
 //
 // Replaces the scaffold of the TPU kernel, distpow_tpu/ops/md5_pallas.py
-// _dyn_pallas_step, for the four hashes whose tiles are _sha256_tile,
-// _sha256d_tile, _sha1_tile and _ripemd160_tile.  A hash is a struct H
-// (sha256.cuh, sha1.cuh, ripemd160.cuh) with
+// _dyn_pallas_step, for the hashes whose tiles are _sha256_tile,
+// _sha256d_tile, _sha1_tile, _ripemd160_tile, _sha512_tile, _sha384_tile,
+// _sha3_tile and _blake2b_tile.  A hash is a struct H (sha256.cuh,
+// sha1.cuh, ripemd160.cuh, sha512.cuh, sha3.cuh, blake2b.cuh) with
 //   STATE_WORDS, DIGEST_WORDS      uint32 words of the state and the digest
+//   BLOCK_WORDS                    uint32 message words of a block
+//   ROW_WORDS                      words of a tail block's row: the message
+//                                  words, then the compression's parameter
+//                                  words (blake2b's t and f0), which hold
+//                                  no variable byte
 //   BIG_ENDIAN_WORDS               how message bytes map to message words
 //   block(st, m)                   a full compression (not the last block)
 //   last<MW>(st, m)                the last block and any finalize stage,
 //                                  after which only the MW trailing digest
 //                                  words of st are defined: the rounds that
 //                                  feed only the others are never computed
+// All words are uint32; a 64-bit hash pairs them in its own limb order
+// and works in uint64_t inside its struct.
 //
 // Layout, decode, rotl32 and SENTINEL come from md5.cuh, the first slice's
 // header, whose MD5 kernel keeps its own scaffold for now.
@@ -33,7 +41,18 @@
 
 namespace distpow {
 
+// The hashes of 64-byte blocks and 16-word rows.
+struct Block16 {
+  static constexpr int BLOCK_WORDS = 16;
+  static constexpr int ROW_WORDS = 16;
+};
+
 DISTPOW_HD uint32_t rotr32(uint32_t x, int s) { return rotl32(x, 32 - s); }
+
+// 64-bit rotates, 0 <= s < 64; with a constant s nvcc emits two funnel
+// shifts (none for s = 32 or 0).
+DISTPOW_HD uint64_t rotr64(uint64_t x, int s) { return (x >> s) | (x << ((64 - s) & 63)); }
+DISTPOW_HD uint64_t rotl64(uint64_t x, int s) { return (x << s) | (x >> ((64 - s) & 63)); }
 
 DISTPOW_HD uint32_t bswap32(uint32_t x) {
 #if defined(__CUDA_ARCH__)
@@ -44,8 +63,11 @@ DISTPOW_HD uint32_t bswap32(uint32_t x) {
 }
 
 // The variable bytes of a candidate are one contiguous run in the tail:
-// the thread byte, then chunk bytes 0..width-1.  The run spans the words
-// L.var_word and L.var_word + 1; L.var_shift is the thread byte's bit shift
+// the thread byte, then chunk bytes 0..width-1.  The run spans the message
+// words L.var_word and L.var_word + 1, counted over the tail's message
+// words alone (BLOCK_WORDS per block, no parameter words), so the second
+// word is the next block's first where the run crosses the boundary.
+// L.var_shift is the thread byte's bit shift
 // in its word (8 * byte offset little-endian, 8 * (3 - offset) big-endian),
 // and the two words' variable bits come out of one 64-bit window.
 template <bool BIG_ENDIAN_WORDS>
@@ -64,33 +86,35 @@ DISTPOW_HD void var_words(const Layout& L, uint32_t tb, uint32_t chunk, uint32_t
   }
 }
 
-// Message words of tail block blk: the constant words, with the variable
-// bits ORed into the run's two words.
+// The row of tail block blk: the constant words, with the variable bits
+// ORed into the run's two message words.
+template <class H>
 DISTPOW_HD void message_block(const uint32_t* base, const Layout& L, uint32_t first,
-                              uint32_t second, int blk, uint32_t m[16]) {
+                              uint32_t second, int blk, uint32_t m[H::ROW_WORDS]) {
   DISTPOW_UNROLL
-  for (int w = 0; w < 16; ++w) {
-    const int word = blk * 16 + w;
-    m[w] = base[word] | (word == L.var_word ? first : 0u) |
-           (word == L.var_word + 1 ? second : 0u);
+  for (int w = 0; w < H::ROW_WORDS; ++w) {
+    const int word = blk * H::BLOCK_WORDS + w;
+    m[w] = base[blk * H::ROW_WORDS + w];
+    if (w < H::BLOCK_WORDS)
+      m[w] |= (word == L.var_word ? first : 0u) | (word == L.var_word + 1 ? second : 0u);
   }
 }
 
 // The state after the N_BLOCKS tail blocks of candidate (tb, chunk), of
 // which the MASK_WORDS trailing digest words are defined.  init holds the
-// absorbed prefix state, base[16 * N_BLOCKS] the tail's constant words.
+// absorbed prefix state, base[ROW_WORDS * N_BLOCKS] the tail's rows.
 template <class H, int MASK_WORDS, int N_BLOCKS>
 DISTPOW_HD void hash_tail_state(const uint32_t* init, const uint32_t* base, const Layout& L,
                                 uint32_t tb, uint32_t chunk, uint32_t st[H::STATE_WORDS]) {
-  uint32_t first, second, m[16];
+  uint32_t first, second, m[H::ROW_WORDS];
   var_words<H::BIG_ENDIAN_WORDS>(L, tb, chunk, first, second);
   DISTPOW_UNROLL
   for (int i = 0; i < H::STATE_WORDS; ++i) st[i] = init[i];
   if constexpr (N_BLOCKS == 2) {
-    message_block(base, L, first, second, 0, m);
+    message_block<H>(base, L, first, second, 0, m);
     H::block(st, m);
   }
-  message_block(base, L, first, second, N_BLOCKS - 1, m);
+  message_block<H>(base, L, first, second, N_BLOCKS - 1, m);
   H::template last<MASK_WORDS>(st, m);
 }
 
@@ -123,26 +147,25 @@ namespace distpow {
 //   leading zero words, which every candidate passes), N_BLOCKS and POW2
 //   are template keys, so the rounds that feed only unread digest words are
 //   dead code; the layout is a runtime argument.
+// * The launch's prefix state and constant rows are loop invariants that
+//   every thread reads at the same index.  They sit in shared memory,
+//   loaded once per block, where a read is a broadcast.  Copied into
+//   registers instead (ptxas for sm_90a), SHA3-256's one-block kernels
+//   spill 200-224 bytes at 128 registers and sha512's and sha384's
+//   two-block ones 224-296 bytes; from shared memory no one-block kernel
+//   spills at mask words 1-4, and the 32-bit hashes take 32-58 registers
+//   instead of 56-98.
 // * The min across the grid: per thread, per warp (__reduce_min_sync), then
 //   one atomicMin per block into a cell the wrapper set to SENTINEL on the
 //   same stream.
-// What bounds it is instruction issue: a candidate reads no memory.
+// What bounds it is instruction issue: a candidate reads no device memory.
 constexpr int HASH_BLOCK_THREADS = 256;
 
+// The thread's first hitting flat index in its grid-stride loop, or SENTINEL.
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
-__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
-hash_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
-                   const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
-                   uint32_t* __restrict__ out) {
-  uint32_t init[H::STATE_WORDS], base[16 * N_BLOCKS], masks[MASK_WORDS];
-#pragma unroll
-  for (int i = 0; i < H::STATE_WORDS; ++i) init[i] = __ldg(init_g + i);
-#pragma unroll
-  for (int i = 0; i < 16 * N_BLOCKS; ++i) base[i] = __ldg(base_g + i);
-#pragma unroll
-  for (int i = 0; i < MASK_WORDS; ++i) masks[i] = __ldg(masks_g + i);
-
-  uint32_t best = SENTINEL;
+__device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const uint32_t* base,
+                                                     const uint32_t* masks, const Layout& L,
+                                                     uint32_t n) {
   const uint32_t stride = gridDim.x * blockDim.x;
   // one hash per iteration, so the loop body in the SASS is one candidate's
   // work: chip_smoke.py counts it beside the bound
@@ -150,11 +173,26 @@ hash_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restri
   for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
     uint32_t tb, chunk;
     decode<POW2>(L, f, tb, chunk);
-    if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk)) {
-      best = f;
-      break;
-    }
+    if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk)) return f;
   }
+  return SENTINEL;
+}
+
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
+hash_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                   const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
+                   uint32_t* __restrict__ out) {
+  constexpr int BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
+  uint32_t masks[MASK_WORDS];
+#pragma unroll
+  for (int i = 0; i < MASK_WORDS; ++i) masks[i] = __ldg(masks_g + i);
+
+  __shared__ uint32_t init[H::STATE_WORDS], base[BASE_WORDS];
+  for (int i = threadIdx.x; i < H::STATE_WORDS; i += blockDim.x) init[i] = init_g[i];
+  for (int i = threadIdx.x; i < BASE_WORDS; i += blockDim.x) base[i] = base_g[i];
+  __syncthreads();
+  uint32_t best = thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init, base, masks, L, n);
 
   __shared__ uint32_t warp_min[HASH_BLOCK_THREADS / 32];
   best = __reduce_min_sync(0xFFFFFFFFu, best);
@@ -201,8 +239,9 @@ cudaError_t launch_hash_mw(int mask_words, bool pow2, const uint32_t* init,
 }
 
 // The body of each kernel's extern "C" launcher (the *_search.cu files).
-// init[STATE_WORDS], base[16 * n_blocks] and masks[mask_words] are device
-// arrays; out is the device result cell, already holding SENTINEL.
+// init[STATE_WORDS], base[ROW_WORDS * n_blocks] and masks[mask_words] are
+// device arrays; out is the device result cell, already holding SENTINEL.
+// var_word counts message words only (var_words above).
 // n_blocks is 1 or 2, mask_words 1-4 or DIGEST_WORDS, log_tbc = log2(tbc)
 // or -1 when tbc is not a power of two.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a configuration no kernel was built for.

@@ -142,7 +142,7 @@ DISTPOW_HD void ripemd160_compress(uint32_t st[5], const uint32_t m[16]) {
   st[4] = h0 + XL[84] + XR[83];
 }
 
-struct Ripemd160 {
+struct Ripemd160 : Block16 {
   static constexpr int STATE_WORDS = 5;
   static constexpr int DIGEST_WORDS = 5;
   static constexpr bool BIG_ENDIAN_WORDS = false;

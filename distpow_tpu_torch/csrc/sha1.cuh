@@ -66,7 +66,7 @@ DISTPOW_HD void sha1_compress(uint32_t st[5], const uint32_t m[16]) {
   for (int j = 5 - MW; j < 5; ++j) st[j] += j < 2 ? X[84 - j] : rotl32(X[84 - j], 30);
 }
 
-struct Sha1 {
+struct Sha1 : Block16 {
   static constexpr int STATE_WORDS = 5;
   static constexpr int DIGEST_WORDS = 5;
   static constexpr bool BIG_ENDIAN_WORDS = true;

@@ -78,7 +78,7 @@ DISTPOW_HD void sha256_compress(uint32_t st[8], const uint32_t m[16]) {
   for (int j = 8 - MW; j < 8; ++j) st[j] += j < 4 ? A[67 - j] : E[71 - j];
 }
 
-struct Sha256 {
+struct Sha256 : Block16 {
   static constexpr int STATE_WORDS = 8;
   static constexpr int DIGEST_WORDS = 8;
   static constexpr bool BIG_ENDIAN_WORDS = true;
@@ -97,7 +97,7 @@ struct Sha256 {
 // bit length 256.  Stage 1 runs at full width, since every digest word feeds
 // stage 2; the mask-word pruning applies to stage 2.  Words 8-15 of the
 // second block are constants, so their K + w folds at compile time.
-struct Sha256d {
+struct Sha256d : Block16 {
   static constexpr int STATE_WORDS = 8;
   static constexpr int DIGEST_WORDS = 8;
   static constexpr bool BIG_ENDIAN_WORDS = true;

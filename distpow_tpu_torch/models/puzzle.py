@@ -45,12 +45,15 @@ class _DoubleSha256:
 def new_hash(algo: str):
     """``hashlib.new(algo)``, for every model the port serves.
 
-    sha256d is a composition that hashlib has no name for.  ripemd160 is
-    outside hashlib's guaranteed set: an OpenSSL 3 build without its legacy
-    provider raises for it, and then the pure-Python ``Ripemd160`` stands
-    in.  Every verification path hashes through here."""
+    sha256d is a composition that hashlib has no name for, and blake2b_256
+    is ``blake2b`` at a 32-byte digest.  ripemd160 is outside hashlib's
+    guaranteed set: an OpenSSL 3 build without its legacy provider raises
+    for it, and then the pure-Python ``Ripemd160`` stands in.  Every
+    verification path hashes through here."""
     if algo == "sha256d":
         return _DoubleSha256()
+    if algo == "blake2b_256":
+        return hashlib.blake2b(digest_size=32)
     try:
         return hashlib.new(algo)
     except ValueError:

@@ -1,9 +1,10 @@
 """Hash-model registry.
 
-A ``HashModel`` bundles what packing and the search step read.  The
-reference registry has nine models; this port serves md5, sha256, sha256d,
-sha1 and ripemd160, each with a CUDA kernel, and raises for the other
-four, which are queued in ROADMAP.md (Queue 2 G-I).
+A ``HashModel`` bundles what packing and the search step read.  The port
+serves the reference registry's nine models, each with a CUDA kernel: md5,
+sha256, sha256d, sha1, ripemd160, sha512, sha384, sha3_256 and blake2b_256.
+The 64-bit hashes carry each 64-bit word as a pair of 32-bit words, so
+every layer above the models speaks 32-bit words only.
 """
 
 from __future__ import annotations
@@ -11,10 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
 
-from . import md5, ripemd160, sha1, sha256, sha256d
-
-# Queued for later slices of the port (ROADMAP.md Queue 2 G-I).
-NOT_YET_PORTED = ("sha512", "sha384", "sha3_256", "blake2b_256")
+from . import blake2b, md5, ripemd160, sha1, sha3, sha256, sha256d, sha384, sha512
 
 
 @dataclass(frozen=True)
@@ -25,14 +23,25 @@ class HashModel:
     word_byteorder: str        # how digest words map to digest bytes
     length_byteorder: str      # byte order of the bit-length field
     init_state: Tuple[int, ...]
-    compress: Callable         # (state, words[16]) -> state, int64-carried torch
+    compress: Callable         # (state, row words) -> state, int64-carried torch
     py_absorb: Callable        # prefix -> (state, remainder, absorbed_len)
     # Compute cost per hash that scales the per-dispatch launch budget
     # (parallel/search.py scaled_launch_candidates); md5 is the
     # reference point of that scale.  The reference registry's operation
     # counts, carried over as they are.
     cost_ops: int
+    # Bytes of the bit-length field of the "md" padding: 16 for sha512/384.
     length_bytes: int = 8
+    # Padding family (ops/packing.py build_tail_spec): "md" (0x80, zeros,
+    # the bit length), "sha3" (0x06 after the message and 0x80 into the
+    # last rate byte, one 0x86 byte when they meet) or "blake2" (zero fill;
+    # the parameter words mark the end).
+    padding: str = "md"
+    # Words appended to each tail block's row after the message words, the
+    # compression's parameters (blake2b's byte count t and finalization
+    # word f0), from ``block_param_words(absorbed, content, block, n_blocks)``.
+    param_words: int = 0
+    block_param_words: Optional[Callable] = None
     # Hash composition (sha256d): a state -> state stage the search step
     # applies after the last compress and before the difficulty check;
     # packing never sees it.  ``py_finalize`` is its pure-Python twin.
@@ -46,6 +55,11 @@ class HashModel:
     @property
     def words_per_block(self) -> int:
         return self.block_bytes // 4
+
+    @property
+    def row_words(self) -> int:
+        """Words of one tail block's row: message words, then parameters."""
+        return self.words_per_block + self.param_words
 
     @property
     def max_difficulty(self) -> int:
@@ -121,16 +135,66 @@ RIPEMD160 = HashModel(
     cost_ops=1854,
 )
 
-_REGISTRY = {m.name: m for m in (MD5, SHA256, SHA256D, SHA1, RIPEMD160)}
+SHA512 = HashModel(
+    name="sha512",
+    block_bytes=sha512.BLOCK_BYTES,
+    digest_words=sha512.DIGEST_WORDS,
+    word_byteorder=sha512.WORD_BYTEORDER,
+    length_byteorder=sha512.LENGTH_BYTEORDER,
+    init_state=sha512.SHA512_INIT,
+    compress=sha512.sha512_compress,
+    py_absorb=sha512.py_absorb,
+    cost_ops=9782,
+    length_bytes=sha512.LENGTH_BYTES,
+)
+
+SHA384 = HashModel(
+    name="sha384",
+    block_bytes=sha384.BLOCK_BYTES,
+    digest_words=sha384.DIGEST_WORDS,  # 12 of the 16 state words
+    word_byteorder=sha384.WORD_BYTEORDER,
+    length_byteorder=sha384.LENGTH_BYTEORDER,
+    init_state=sha384.SHA384_INIT,
+    compress=sha384.sha384_compress,
+    py_absorb=sha384.py_absorb,
+    cost_ops=9782,
+    length_bytes=sha384.LENGTH_BYTES,
+)
+
+SHA3_256 = HashModel(
+    name="sha3_256",
+    block_bytes=sha3.BLOCK_BYTES,      # the rate
+    digest_words=sha3.DIGEST_WORDS,    # 8 of the 50 state words
+    word_byteorder=sha3.WORD_BYTEORDER,
+    length_byteorder=sha3.LENGTH_BYTEORDER,
+    init_state=sha3.SHA3_INIT,
+    compress=sha3.sha3_256_compress,
+    py_absorb=sha3.py_absorb,
+    cost_ops=9900,
+    padding="sha3",
+)
+
+BLAKE2B_256 = HashModel(
+    name="blake2b_256",
+    block_bytes=blake2b.BLOCK_BYTES,
+    digest_words=blake2b.DIGEST_WORDS,  # 8 of the 16 state words
+    word_byteorder=blake2b.WORD_BYTEORDER,
+    length_byteorder=blake2b.LENGTH_BYTEORDER,
+    init_state=blake2b.BLAKE2B_INIT,
+    compress=blake2b.blake2b_256_compress,
+    py_absorb=blake2b.py_absorb,
+    cost_ops=5205,
+    padding="blake2",
+    param_words=blake2b.PARAM_WORDS,
+    block_param_words=blake2b.block_param_words,
+)
+
+_REGISTRY = {m.name: m for m in (MD5, SHA256, SHA256D, SHA1, RIPEMD160, SHA512, SHA384,
+                                 SHA3_256, BLAKE2B_256)}
 
 
 def get_hash_model(name: str) -> HashModel:
-    key = name.lower()
-    if key in _REGISTRY:
-        return _REGISTRY[key]
-    if key in NOT_YET_PORTED:
-        raise ValueError(
-            f"hash model {name!r} is not ported yet: it is queued in "
-            f"ROADMAP.md (Queue 2 G-I); this port serves {sorted(_REGISTRY)}"
-        )
-    raise ValueError(f"unknown hash model {name!r}; available: {sorted(_REGISTRY)}")
+    try:
+        return _REGISTRY[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown hash model {name!r}; available: {sorted(_REGISTRY)}") from None

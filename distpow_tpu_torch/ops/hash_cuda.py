@@ -4,8 +4,10 @@ Counterpart of the reference's Pallas launch site
 (``distpow_tpu/ops/md5_pallas.py`` ``build_pallas_search_step`` /
 ``cached_pallas_search_step``).  One kernel per hash model, all with the
 same C interface: ``md5_search`` (``md5.cuh``), ``sha256_search`` and
-``sha256d_search`` (``sha256.cuh``), ``sha1_search`` (``sha1.cuh``) and
-``ripemd160_search`` (``ripemd160.cuh``).  ``hash_search`` checks the
+``sha256d_search`` (``sha256.cuh``), ``sha1_search`` (``sha1.cuh``),
+``ripemd160_search`` (``ripemd160.cuh``), ``sha512_search`` and
+``sha384_search`` (``sha512.cuh``), ``sha3_256_search`` (``sha3.cuh``) and
+``blake2b_256_search`` (``blake2b.cuh``).  ``hash_search`` checks the
 operands against the model, allocates the result cell, launches the
 model's kernel on the current stream and counts the launch.  For CUDA
 tensors it launches or raises; only for tensors on the CPU does it run the
@@ -37,6 +39,10 @@ KERNELS = {
     "sha256d": "sha256d_search",
     "sha1": "sha1_search",
     "ripemd160": "ripemd160_search",
+    "sha512": "sha512_search",
+    "sha384": "sha384_search",
+    "sha3_256": "sha3_256_search",
+    "blake2b_256": "blake2b_256_search",
 }
 
 # Mask-word counts each kernel is built for, besides the full digest: a
@@ -84,23 +90,28 @@ def kernel_mask_words(mask_words: int, model: HashModel) -> int:
     return mask_words if mask_words in MASK_WORD_KEYS else model.digest_words
 
 
-def kernel_layout(tb_loc, chunk_locs, byteorder: str) -> Tuple[int, int, int]:
+def kernel_layout(tb_loc, chunk_locs, model: HashModel) -> Tuple[int, int, int]:
     """The kernel's layout arguments ``(var_word, var_shift, chunk_mask)``.
 
     The kernels take the candidate's variable bytes as one contiguous run
     (thread byte, then chunk bytes 0..width-1), which is what packing
     builds for every model; any other layout raises.  A byte's position in
-    the tail is ``64 * block + 4 * word + offset``, where ``offset`` is
-    ``shift / 8`` in little-endian words and ``3 - shift / 8`` in
-    big-endian ones.  ``var_shift`` is the thread byte's own shift."""
+    the tail is ``block_bytes * block + 4 * word + offset``, where
+    ``offset`` is ``shift / 8`` in little-endian words and ``3 - shift / 8``
+    in big-endian ones.  ``var_word`` counts message words only,
+    ``words_per_block`` per block: a row's parameter words (blake2b's)
+    never hold a variable byte, so the run's second word is ``var_word +
+    1`` in this count even where the run crosses into the next block.
+    ``var_shift`` is the thread byte's own shift."""
+    byteorder, wpb = model.word_byteorder, model.words_per_block
     if byteorder not in ("little", "big"):
         raise ValueError(f"bad byte order {byteorder!r}")
 
     def pos(b, w, s):
-        return b * 64 + w * 4 + (s // 8 if byteorder == "little" else 3 - s // 8)
+        return b * model.block_bytes + w * 4 + (s // 8 if byteorder == "little" else 3 - s // 8)
 
     b, w, s = tb_loc
-    if s % 8 or not 0 <= s < 32 or not 0 <= w < 16 or b not in (0, 1):
+    if s % 8 or not 0 <= s < 32 or not 0 <= w < wpb or b not in (0, 1):
         raise ValueError(f"bad thread-byte location {tb_loc}")
     start = pos(b, w, s)
     for j, (cb, cw, cs) in enumerate(chunk_locs):
@@ -112,7 +123,7 @@ def kernel_layout(tb_loc, chunk_locs, byteorder: str) -> Tuple[int, int, int]:
     width = len(chunk_locs)
     if width > 4:
         raise ValueError("at most 4 variable chunk bytes")
-    return b * 16 + w, s, (1 << (8 * width)) - 1
+    return b * wpb + w, s, (1 << (8 * width)) - 1
 
 
 def default_grid(n: int, sm_count: int) -> int:
@@ -135,8 +146,10 @@ def _check_operands(ops: StepOperands, device: torch.device, model: HashModel) -
     n_state = len(model.init_state)
     if tuple(ops.init.shape) != (n_state,):
         raise ValueError(f"{model.name} init must be [{n_state}], got {tuple(ops.init.shape)}")
-    if ops.base.dim() != 2 or ops.base.shape[1] != 16 or ops.n_blocks not in (1, 2):
-        raise ValueError(f"base must be [1 or 2, 16], got {tuple(ops.base.shape)}")
+    row = model.row_words
+    if ops.base.dim() != 2 or ops.base.shape[1] != row or ops.n_blocks not in (1, 2):
+        raise ValueError(f"{model.name} base must be [1 or 2, {row}], "
+                         f"got {tuple(ops.base.shape)}")
     if ops.masks.dim() != 1 or not 1 <= ops.mask_words <= model.digest_words:
         raise ValueError(f"{model.name} masks must be [1..{model.digest_words}], "
                          f"got {tuple(ops.masks.shape)}")
@@ -166,8 +179,8 @@ def hash_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0:
         raise ValueError(f"hash_search runs on cuda or cpu, not {device}")
     if not torch.cuda.is_available():
         raise RuntimeError("hash_search on a CUDA device, but CUDA is not available")
-    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model.word_byteorder)
-    if var_word >= 16 * ops.n_blocks:
+    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
+    if var_word >= model.words_per_block * ops.n_blocks:
         raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
     from ._build import load_library
 

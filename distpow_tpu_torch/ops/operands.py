@@ -41,7 +41,7 @@ def u32_value(t: torch.Tensor) -> int:
 @dataclass(frozen=True)
 class StepOperands:
     init: torch.Tensor   # int32 [S], the model's state words
-    base: torch.Tensor   # int32 [n_blocks, 16]
+    base: torch.Tensor   # int32 [n_blocks, model.row_words]
     masks: torch.Tensor  # int32 [mask_words], the LAST digest words' masks
     tb_lo: int
     tb_count: int
@@ -61,10 +61,16 @@ class StepOperands:
 
 def make_operands(init: Sequence[int], base, masks: Sequence[int], tb_lo: int,
                   tb_count: int, device: Device = "cpu") -> StepOperands:
-    """Operands from host words (ints or numpy arrays of uint32 values)."""
+    """Operands from host words (ints or numpy arrays of uint32 values).
+    ``base`` is the tail's rows, ``[n_blocks][row words]``: the row width
+    is the model's (16, 32, 34 or 36 words), and the kernel wrapper holds
+    it to the model."""
+    base = u32_tensor(base, device)
+    if base.dim() != 2:
+        raise ValueError(f"base must be [n_blocks, row words], got {tuple(base.shape)}")
     return StepOperands(
         init=u32_tensor(init, device),
-        base=u32_tensor(base, device).reshape(-1, 16),
+        base=base,
         masks=u32_tensor(masks, device).reshape(-1),
         tb_lo=int(tb_lo),
         tb_count=int(tb_count),
@@ -74,12 +80,10 @@ def make_operands(init: Sequence[int], base, masks: Sequence[int], tb_lo: int,
 def operands_from_numpy(init, base, masks, tb_lo: int, tb_count: int,
                         device: Device = "cpu") -> StepOperands:
     """The reference package's ``step_operands(...)`` output, as numpy
-    arrays (``init[S]``, ``base[n_blocks, 16]``, ``masks[mask_words]``, S
-    and mask_words up to the model's state and digest words), turned into
-    the port's operands, so a test feeds both packages from one source."""
-    base = np.asarray(base, dtype=np.uint32)
-    if base.ndim != 2 or base.shape[1] != 16:
-        raise ValueError(f"base must be [n_blocks, 16], got {base.shape}")
-    return make_operands(np.asarray(init, dtype=np.uint32), base,
+    arrays (``init[S]``, ``base[n_blocks, W]``, ``masks[mask_words]``, with
+    S, W and mask_words the model's state, row and up to its digest words),
+    turned into the port's operands, so a test feeds both packages from one
+    source."""
+    return make_operands(np.asarray(init, dtype=np.uint32), np.asarray(base, dtype=np.uint32),
                          np.asarray(masks, dtype=np.uint32), tb_lo, tb_count,
                          device)

@@ -1,15 +1,22 @@
 """Arithmetic candidate -> message-word packing.
 
-A candidate is the pair ``(thread_byte, chunk_int)``; the 16 message
-words of the hash's final block(s) are computed from those two integers
-and a constant template (``TailSpec``), built once per (nonce, chunk
-width) on the host:
+A candidate is the pair ``(thread_byte, chunk_int)``; the message words of
+the hash's final block(s) are computed from those two integers and a
+constant template (``TailSpec``), built once per (nonce, chunk width) on
+the host:
 
-* every complete 64-byte block of the nonce is absorbed into the hash
-  state on the host, so long nonces cost nothing per candidate;
-* the tail ``nonce_remainder ‖ tb ‖ chunk ‖ extra ‖ 0x80 ‖ 0… ‖ len64``
-  spans one or two blocks whose constant bytes are ``base_words`` and
-  whose variable bytes are (block, word, shift) locations.
+* every complete block of the nonce is absorbed into the hash state on the
+  host, so long nonces cost nothing per candidate;
+* the tail ``nonce_remainder ‖ tb ‖ chunk ‖ extra ‖ padding`` spans one or
+  two blocks whose constant words are ``base_words`` and whose variable
+  bytes are (block, word, shift) locations.  Each block's row is the
+  model's ``words_per_block`` message words, then its ``param_words``
+  (blake2b's byte count and finalization word).
+
+The padding follows the model's family: "md" (``0x80``, zeros, the bit
+length), "sha3" (``0x06`` after the message, ``0x80`` into the last rate
+byte, merged to ``0x86`` when they meet, no length) or "blake2" (zero
+fill only).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ class TailSpec:
     width: int                       # variable chunk bytes (0..4)
     init_state: Tuple[int, ...]      # state after the absorbed nonce blocks
     n_blocks: int                    # tail blocks hashed per candidate (1-2)
-    base_words: Tuple[Tuple[int, ...], ...]  # [n_blocks][16] constant words
+    base_words: Tuple[Tuple[int, ...], ...]  # [n_blocks][model.row_words] constant words
     tb_loc: ByteLoc                  # where the thread byte lands
     chunk_locs: Tuple[ByteLoc, ...]  # where chunk byte j (LE) lands
 
@@ -60,7 +67,7 @@ def build_tail_spec(
     state, rem, _ = model.py_absorb(nonce)
     msg_len = len(nonce) + 1 + width + len(extra_const_chunk)
     content = len(rem) + 1 + width + len(extra_const_chunk)
-    min_pad = 1 + model.length_bytes
+    min_pad = {"md": 1 + model.length_bytes, "sha3": 1, "blake2": 0}[model.padding]
     n_blocks = (content + min_pad + model.block_bytes - 1) // model.block_bytes
     tail = bytearray(n_blocks * model.block_bytes)
     tail[: len(rem)] = rem
@@ -68,17 +75,24 @@ def build_tail_spec(
     chunk_pos0 = tb_pos + 1
     extra_pos = chunk_pos0 + width
     tail[extra_pos : extra_pos + len(extra_const_chunk)] = extra_const_chunk
-    tail[extra_pos + len(extra_const_chunk)] = 0x80
-    tail[-model.length_bytes:] = (msg_len * 8).to_bytes(
-        model.length_bytes, model.length_byteorder)
+    end = extra_pos + len(extra_const_chunk)
+    if model.padding == "md":
+        tail[end] = 0x80
+        tail[-model.length_bytes:] = (msg_len * 8).to_bytes(
+            model.length_bytes, model.length_byteorder)
+    elif model.padding == "sha3":
+        tail[end] ^= 0x06
+        tail[-1] ^= 0x80
 
+    absorbed = len(nonce) - len(rem)
     base_words: List[Tuple[int, ...]] = []
     for b in range(n_blocks):
         blk = tail[b * model.block_bytes : (b + 1) * model.block_bytes]
-        base_words.append(tuple(
-            int.from_bytes(blk[4 * w : 4 * w + 4], model.word_byteorder)
-            for w in range(model.words_per_block)
-        ))
+        row = tuple(int.from_bytes(blk[4 * w : 4 * w + 4], model.word_byteorder)
+                    for w in range(model.words_per_block))
+        if model.param_words:
+            row += tuple(model.block_param_words(absorbed, content, b, n_blocks))
+        base_words.append(row)
 
     return TailSpec(
         model_name=model.name,
@@ -96,8 +110,9 @@ def make_words(spec: TailSpec, tb, chunk) -> List[List]:
     """Tail block word lists for a batch of candidates.
 
     ``tb`` and ``chunk`` are broadcast-compatible int64 tensors (or
-    ints).  Returns ``spec.n_blocks`` lists of 16 entries, each an int
-    (a constant word) or an int64 tensor (a word holding variable bytes).
+    ints).  Returns ``spec.n_blocks`` rows of ``model.row_words`` entries,
+    each an int (a constant word) or an int64 tensor (a word holding
+    variable bytes).
     """
     blocks: List[List] = [list(bw) for bw in spec.base_words]
     b, w, s = spec.tb_loc

@@ -52,7 +52,8 @@ def mask_words_for(difficulty: int, model: HashModel) -> int:
 def eval_dyn_candidates(model, n_blocks, tb_loc, chunk_locs, init, base, tb, chunk):
     """Hash a batch of candidates against runtime-operand nonce words.
 
-    ``init[S]`` and ``base[n_blocks, 16]`` are int64 word tensors; ``tb``
+    ``init[S]`` and ``base[n_blocks, W]`` (W the model's row words) are
+    int64 word tensors; ``tb``
     and ``chunk`` int64 tensors (or ints).  Returns the state tuple, after
     the model's ``finalize`` stage where it has one (sha256d)."""
     state = tuple(init[i] for i in range(len(model.init_state)))

@@ -39,11 +39,14 @@ def test_explicit_cpu_device_is_served(no_gpu):
 
 
 def test_cuda_backend_serves_md5_only():
-    """Named for the first slice; the backend now serves every ported model
-    and raises for those still queued."""
-    for name in ("sha512", "sha3_256"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_backend("cuda", hash_model=name, device="cpu")
+    """Named for the first slice; the backend now serves all nine models,
+    the last four of them added by the third slice, and raises for an
+    unknown one."""
+    for name in ("sha512", "sha384", "sha3_256", "blake2b_256"):
+        be = get_backend("cuda", hash_model=name, device="cpu")
+        assert isinstance(be, CudaBackend) and be.model.name == name
+    with pytest.raises(ValueError, match="unknown hash model"):
+        get_backend("cuda", hash_model="whirlpool", device="cpu")
 
 
 def test_wrapper_on_a_cuda_path_raises_and_launches_nothing(no_gpu):
@@ -72,7 +75,7 @@ def test_wrapper_checks_operands():
 @pytest.mark.parametrize("width", range(5))
 def test_kernel_layout_covers_every_tail(nonce_len, width):
     spec = build_tail_spec(bytes(nonce_len), width, MD5, b"\x01" if width == 4 else b"")
-    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, "little")
+    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, MD5)
     b, w, s = spec.tb_loc
     assert (var_word, var_shift) == (16 * b + w, s)
     assert var_word < 16 * spec.n_blocks
@@ -81,7 +84,7 @@ def test_kernel_layout_covers_every_tail(nonce_len, width):
 
 def test_kernel_layout_rejects_a_split_run():
     with pytest.raises(ValueError, match="contiguous"):
-        kernel_layout((0, 1, 0), ((0, 1, 16),), "little")
+        kernel_layout((0, 1, 0), ((0, 1, 16),), MD5)
 
 
 def test_launch_geometry():

@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+from distpow_tpu_torch.models.registry import get_hash_model
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "chip_smoke.py")
 
@@ -51,6 +53,10 @@ ptxas info    : Compiling entry function '_ZN7distpow18hash_search_kernelINS_9Ri
 ptxas info    : Function properties for _ZN7distpow18hash_search_kernelINS_9Ripemd160ELi4ELi2ELb0EEEvPKjS3_S3_NS_6LayoutEjPj
     24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
 ptxas info    : Used 80 registers, used 1 barriers, 24 bytes cumulative stack size, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow18hash_search_kernelINS_6Sha512ELi16ELi2ELb1EEEvPKjS3_S3_NS_6LayoutEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow18hash_search_kernelINS_6Sha512ELi16ELi2ELb1EEEvPKjS3_S3_NS_6LayoutEjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 224 bytes smem
 """
 
 SASS = """
@@ -71,6 +77,7 @@ def test_parsers_read_both_kernel_name_forms():
     assert cs.parse_ptxas(PTXAS) == {
         (2, 1, True): {"registers": 54, "spill_bytes": 0},
         (4, 2, False): {"registers": 80, "spill_bytes": 40},
+        (16, 2, True): {"registers": 168, "spill_bytes": 0},
     }
     # the loop body between the backward branch and its target, NOPs excluded
     assert cs.parse_sass_loops(SASS) == {(8, 1, True): {"IADD3": 1, "LOP3": 1, "BRA": 1}}
@@ -82,9 +89,13 @@ def test_needed_ops_of_the_timed_launches():
     cs = _load()
     got = {m: cs.needed_ops(m, 1, 2, {1, 2}) for m in cs.MODELS}
     assert got == {"md5": 215, "sha256": 1221, "sha256d": 2545, "sha1": 548,
-                   "ripemd160": 643}
+                   "ripemd160": 643, "sha512": 3163, "sha384": 3259, "sha3_256": 4145,
+                   "blake2b_256": 2014}
     for m in cs.MODELS:
-        # more live digest words or a second block cost more, never less
+        # more live digest words, a second block or more varying words cost
+        # more, never less
         counts = [cs.needed_ops(m, 1, mw, {1, 2}) for mw in range(1, 5)]
         assert counts == sorted(counts)
-        assert cs.needed_ops(m, 2, 2, {15, 16}) > got[m]
+        wpb = get_hash_model(m).words_per_block
+        assert cs.needed_ops(m, 2, 2, {wpb - 1, wpb}) > got[m]
+        assert cs.needed_ops(m, 1, 2, set(range(wpb))) > got[m]

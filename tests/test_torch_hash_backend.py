@@ -1,9 +1,12 @@
-"""The backends and the kernel wrapper for sha256, sha256d, sha1 and
-ripemd160, on the CPU: the CUDA backend (whose wrapper takes the plain path
-for CPU tensors) and the torch backend against ``PythonBackend`` and the
-JAX package's driver, the layout helper in both byte orders, and the
-wrapper's checks against the model.  Without a GPU the CUDA entry points
-raise; the tests that say so skip on a machine that has one."""
+"""The backends and the kernel wrapper for every model but md5 (sha256,
+sha256d, sha1, ripemd160, sha512, sha384, sha3_256, blake2b_256), on the
+CPU: the CUDA backend (whose wrapper takes the plain path for CPU tensors)
+and the torch backend against ``PythonBackend`` and the JAX package's
+driver, the layout helper in both byte orders and every block size, and
+the wrapper's checks against the model.  Without a GPU the CUDA entry
+points raise; the tests that say so skip on a machine that has one."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ from distpow_tpu.models import registry as jax_registry
 from distpow_tpu.parallel.search import search as jax_search
 from distpow_tpu_torch.backends import CudaBackend, PythonBackend, get_backend
 from distpow_tpu_torch.models import puzzle
-from distpow_tpu_torch.models.registry import NOT_YET_PORTED, get_hash_model
+from distpow_tpu_torch.models.registry import get_hash_model
 from distpow_tpu_torch.ops.hash_cuda import (KERNELS, LAUNCHES, hash_search, kernel_layout,
                                              kernel_mask_words, kernel_name)
 from distpow_tpu_torch.ops.operands import make_operands
@@ -22,7 +25,8 @@ from distpow_tpu_torch.ops.search_step import step_operands
 from distpow_tpu_torch.parallel.partition import contiguous_bounds, thread_bytes, worker_bits
 from distpow_tpu_torch.parallel.search import search
 
-MODELS = ("sha256", "sha256d", "sha1", "ripemd160")
+MODELS = ("sha256", "sha256d", "sha1", "ripemd160", "sha512", "sha384", "sha3_256",
+          "blake2b_256")
 BATCH = 1 << 12
 LAUNCH = 1 << 14
 
@@ -73,12 +77,10 @@ def test_cuda_backend_launch_budget_scales_with_cost(name):
     assert be.max_launch == (1 << 30) * 584 // get_hash_model(name).cost_ops
 
 
-@pytest.mark.parametrize("name", MODELS + NOT_YET_PORTED)
+@pytest.mark.parametrize("name", MODELS)
 def test_auto_raises_without_a_gpu(no_gpu, name):
-    with pytest.raises((RuntimeError, ValueError)) as err:
+    with pytest.raises(RuntimeError, match="GPU"):
         get_backend("auto", hash_model=name)
-    want = "not ported yet" if name in NOT_YET_PORTED else "GPU"
-    assert want in str(err.value)
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -113,58 +115,69 @@ def test_wrapper_checks_operands_against_the_model(name):
 def test_kernels_cover_the_registry_and_nothing_else():
     for name in MODELS + ("md5",):
         assert kernel_name(get_hash_model(name)) == f"{name}_search"
+    assert len(KERNELS) == len(LAUNCHES) == 9
     with pytest.raises(ValueError, match="no CUDA kernel"):
-        kernel_name(jax_registry.get_hash_model("sha512"))
+        kernel_name(dataclasses.replace(get_hash_model("sha512"), name="whirlpool"))
     # mask words: 1-4 run as they are, wider counts on the full digest
     assert [kernel_mask_words(m, get_hash_model("sha256")) for m in range(1, 9)] == \
         [1, 2, 3, 4, 8, 8, 8, 8]
     assert [kernel_mask_words(m, get_hash_model("sha1")) for m in range(1, 6)] == [1, 2, 3, 4, 5]
+    assert [kernel_mask_words(m, get_hash_model("sha384")) for m in range(1, 13)] == \
+        [1, 2, 3, 4] + [12] * 8
 
 
 @pytest.mark.parametrize("name", MODELS + ("md5",))
 @pytest.mark.parametrize("width", range(5))
 def test_kernel_layout_covers_every_tail_in_its_byte_order(name, width):
-    """The run's first byte is the thread byte, at ``var_shift`` in word
-    ``var_word``; each chunk byte follows in the model's byte order."""
+    """The run's first byte is the thread byte, at ``var_shift`` in message
+    word ``var_word``; each chunk byte follows in the model's byte order."""
     model = get_hash_model(name)
     big = model.word_byteorder == "big"
-    for nonce_len in range(0, 130, 7):
+    wpb = model.words_per_block
+    other = dataclasses.replace(model, word_byteorder="little" if big else "big")
+    for nonce_len in range(0, 300, 7):
         spec = build_tail_spec(bytes(nonce_len), width, model, b"\x01" if width == 4 else b"")
-        var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs,
-                                                        model.word_byteorder)
+        var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, model)
         b, w, s = spec.tb_loc
-        assert (var_word, var_shift) == (16 * b + w, s)
-        assert var_word < 16 * spec.n_blocks
+        assert (var_word, var_shift) == (wpb * b + w, s)
+        assert var_word < wpb * spec.n_blocks
         assert chunk_mask == (1 << (8 * width)) - 1
-        # the run starts at byte nonce_len % 64 of the tail
-        assert 4 * var_word + (3 - s // 8 if big else s // 8) == nonce_len % 64
+        # the run starts at byte nonce_len % block_bytes of the tail
+        assert 4 * var_word + (3 - s // 8 if big else s // 8) == nonce_len % model.block_bytes
         if width:
             # read in the other byte order, the run is not contiguous
             with pytest.raises(ValueError, match="contiguous"):
-                kernel_layout(spec.tb_loc, spec.chunk_locs, "little" if big else "big")
+                kernel_layout(spec.tb_loc, spec.chunk_locs, other)
 
 
 def test_kernel_layout_rejects_bad_input():
+    sha256, sha512 = get_hash_model("sha256"), get_hash_model("sha512")
     with pytest.raises(ValueError, match="contiguous"):
-        kernel_layout((0, 1, 24), ((0, 1, 8),), "big")
+        kernel_layout((0, 1, 24), ((0, 1, 8),), sha256)
     with pytest.raises(ValueError, match="byte order"):
-        kernel_layout((0, 1, 24), (), "middle")
+        kernel_layout((0, 1, 24), (), dataclasses.replace(sha256, word_byteorder="middle"))
     with pytest.raises(ValueError, match="thread-byte location"):
-        kernel_layout((0, 16, 0), (), "big")
+        kernel_layout((0, 16, 0), (), sha256)
+    with pytest.raises(ValueError, match="thread-byte location"):
+        kernel_layout((0, 32, 0), (), sha512)
+    assert kernel_layout((0, 16, 0), (), sha512)[0] == 16
 
 
 @pytest.mark.parametrize("name", MODELS)
 def test_run_bytes_land_where_packing_puts_them(name):
-    """The variable bits the kernel ORs into its two words (the 64-bit
-    window of hash_search.cuh var_words, here in Python) equal what
-    packing's per-byte locations give, for every width and offset."""
+    """The variable bits the kernel ORs into its two message words (the
+    64-bit window of hash_search.cuh var_words, here in Python) equal what
+    packing's per-byte locations give, for every width and offset; the
+    words count message words only, so a run that crosses the block
+    boundary continues in the next block's first word."""
     model = get_hash_model(name)
     big = model.word_byteorder == "big"
+    wpb = model.words_per_block
     rng = np.random.default_rng(9)
-    for nonce_len in range(0, 64):
+    for nonce_len in range(0, model.block_bytes):
         for width in range(5):
             spec = build_tail_spec(bytes(nonce_len), width, model)
-            var_word, s, mask = kernel_layout(spec.tb_loc, spec.chunk_locs, model.word_byteorder)
+            var_word, s, mask = kernel_layout(spec.tb_loc, spec.chunk_locs, model)
             tb, chunk = int(rng.integers(0, 256)), int(rng.integers(0, 1 << 32))
             c = chunk & mask
             if big:
@@ -173,13 +186,13 @@ def test_run_bytes_land_where_packing_puts_them(name):
             else:
                 v = (tb | (c << 8)) << s
                 first, second = v & 0xFFFFFFFF, v >> 32
-            words = [0] * 32
+            words = [0] * 2 * wpb
             bb, w, sh = spec.tb_loc
-            words[16 * bb + w] |= tb << sh
+            words[wpb * bb + w] |= tb << sh
             for j, (cb, cw, cs) in enumerate(spec.chunk_locs):
-                words[16 * cb + cw] |= ((chunk >> (8 * j)) & 0xFF) << cs
-            want = [0] * 32
+                words[wpb * cb + cw] |= ((chunk >> (8 * j)) & 0xFF) << cs
+            want = [0] * 2 * wpb
             want[var_word] |= first
-            if var_word + 1 < 32:
+            if var_word + 1 < 2 * wpb:
                 want[var_word + 1] |= second
             assert words == want, (nonce_len, width)

@@ -110,7 +110,7 @@ def _arr(values):
 
 
 def _layout(spec, chunk0, tb_lo, tbc):
-    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, "little")
+    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, MD5)
     log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
     return [chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask]
 

@@ -71,13 +71,15 @@ def test_meets_difficulty_matches_trailing_nibbles():
 
 
 def test_registry_serves_md5_and_names_the_queue_for_the_rest():
-    """Named for the first slice; md5 and the second slice's four models are
-    served, the four still queued name the queue."""
+    """Named for the first slice; the registry now serves all nine models of
+    the reference registry and raises for an unknown one."""
+    from distpow_tpu.models import registry as jax_registry
+
     assert get_hash_model("MD5") is MD5
-    for name in ("sha256", "sha256d", "sha1", "ripemd160"):
+    names = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha512", "sha384", "sha3_256",
+             "blake2b_256")
+    for name in names:
         assert get_hash_model(name.upper()).name == name
-    for name in ("sha512", "sha384", "sha3_256", "blake2b_256"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            get_hash_model(name)
+    assert set(names) == set(jax_registry._REGISTRY)
     with pytest.raises(ValueError, match="unknown"):
         get_hash_model("crc32")
