@@ -11,7 +11,9 @@ worker's full launch), mines through ``get_backend("auto", hash_model=...)``
 at the worker's full size (batch 2^20, the model's cost-scaled launch)
 with the launch counts set to 0 just before and read just after
 (``mine``), and times the kernel and the plain version on the same
-main-path launch, whose results must agree (``rate``).  md5's phases keep their names
+main-path launch, whose results must agree (``rate``; it also gives the
+timed loop's instructions by pipe and the SM clock during the timed
+launches).  md5's phases keep their names
 (``kernel_parity``, ``full_parity``, ``mine``, ``cancel``, ``rate``); the
 other models' carry the model's name as a suffix.  Every phase prints one
 JSON line; the line before the card's name lists every kernel; the last
@@ -74,10 +76,19 @@ PARTITIONS = ((0, 256, 64), (64, 64, 256), (7, 1, 4096), (16, 96, 128))
 LAUNCH_STEPS = (1, 3)
 
 # Hopper issues at most one warp instruction per clock from each of an SM's
-# four schedulers: 4 x 32 = 128 thread results per clock per SM, whatever
-# the pipe.  The programming guide's 64 per clock for 32-bit integer ops is
-# no floor for these kernels: md5's measured faster than that rate allows.
+# four schedulers: 4 x 32 = 128 thread results per clock per SM.  The bound
+# (needed_ops) is taken at that rate.  The integer pipes are narrower.  The
+# ALU pipe retires 64 thread results per clock per SM (LOP3, SHF and IADD3
+# measured by python3 -m distpow_tpu_torch.tools.pipe_rates; LEA, ISETP,
+# SEL, PRMT and MOV issue there too).  IMAD and VIADD go to the FMA pipe,
+# IMAD at another 64 per clock (IMAD.HI at half that, IMAD.WIDE lower), so
+# a loop that mixes the two pipes can issue up to 128.  A loop of ALU-pipe
+# instructions alone issues at 64 per clock at best; md5's measured 76
+# because ptxas put its 61 constant adds (VIADD) on the FMA pipe.
 ISSUED_RESULTS_PER_CLOCK_PER_SM = 128
+ALU_PIPE_RESULTS_PER_CLOCK_PER_SM = 64
+ALU_PIPE = frozenset({"LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "MOV"})
+FMA_PIPE = frozenset({"IMAD", "VIADD"})
 
 # The main path's launch: batch 2^20 x k sub-batches of a width-4 segment,
 # k from the model's cost-scaled dispatch budget (1024 for md5)
@@ -145,8 +156,8 @@ class Smoke:
 
 
 # A kernel specialization's key in its mangled name: md5_search_kernel<MW, NB, POW2>
-# or hash_search_kernel<Hash, MW, NB, POW2>; MW has two digits for the full
-# digests of sha512 (16) and sha384 (12)
+# or (resident_)hash_search_kernel<Hash, MW, NB, POW2>; MW has two digits for
+# the full digests of sha512 (16) and sha384 (12)
 KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
 
 
@@ -167,18 +178,16 @@ def parse_ptxas(log: str):
     return out
 
 
-def parse_sass_loops(sass: str):
-    """Per kernel specialization ``(mask_words, n_blocks, pow2)``: the
-    opcodes of its grid-stride loop body (one candidate; the loop is not
-    unrolled), counted between the widest backward branch and its target,
-    NOPs excluded, as a Counter (its total is the loop's length)."""
+def sass_loops(sass: str):
+    """Per function of a ``cuobjdump -sass`` listing, by its mangled name:
+    the opcodes of its widest loop's body, counted between the widest
+    backward branch and its target, NOPs excluded, each opcode with its
+    modifiers (``IMAD.HI.U32``), as a Counter (its total is the body's
+    length)."""
     out = {}
     parts = re.split(r"\n\s*Function : ", sass)
     for part in parts[1:]:
         name = part.split("\n", 1)[0].strip()
-        m = re.search(KERNEL_KEY, name)
-        if not m:
-            continue
         instrs, labels = [], {}
         pending = []
         for line in part.splitlines():
@@ -206,9 +215,61 @@ def parse_sass_loops(sass: str):
         if best is None:
             continue
         body = [re.sub(r"^@!?U?P\w+\s+", "", t) for a, t in instrs if best[0] <= a <= best[1]]
-        out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = collections.Counter(
-            t.split()[0].split(".")[0] for t in body if not t.startswith("NOP"))
+        out[name] = collections.Counter(t.split()[0] for t in body if not t.startswith("NOP"))
     return out
+
+
+def parse_sass_loops(sass: str):
+    """Per kernel specialization ``(mask_words, n_blocks, pow2)``: the
+    opcodes of its grid-stride loop body (one candidate; the loop is not
+    unrolled), without their modifiers, as a Counter."""
+    out = {}
+    for name, body in sass_loops(sass).items():
+        m = re.search(KERNEL_KEY, name)
+        if not m:
+            continue
+        ops = collections.Counter()
+        for op, c in body.items():
+            ops[op.split(".")[0]] += c
+        out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = ops
+    return out
+
+
+def pipe_split(ops) -> dict:
+    """Instructions of a loop body (base opcodes) by the pipe they issue to."""
+    alu = sum(c for op, c in ops.items() if op in ALU_PIPE)
+    fma = sum(c for op, c in ops.items() if op in FMA_PIPE)
+    return {"alu": alu, "fma": fma, "other": sum(ops.values()) - alu - fma}
+
+
+class SmClock(threading.Thread):
+    """The SM clock in MHz, read by one ``nvidia-smi`` call after another
+    while a ``with`` block runs; ``mhz`` keeps the readings whose call
+    overlapped the block."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.done = threading.Event()
+        self.readings = []
+        self.mhz = []
+
+    def run(self):
+        while not self.done.is_set():
+            t0 = time.monotonic()
+            value = nvidia_smi("clocks.sm").split()[0]
+            self.readings.append((t0, time.monotonic(), float(value)))
+
+    def __enter__(self):
+        self.start()
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.monotonic()
+        self.done.set()
+        self.join(timeout=120)
+        self.mhz = [v for a, b, v in self.readings if b > self.t0 and a < t1]
+        return False
 
 
 def md5_needed_ops(n_blocks: int, mask_words: int, var_words) -> int:
@@ -595,13 +656,14 @@ def main() -> int:
             loop_counts[kernel] = {spec_label(k): sum(v.values())
                                    for k, v in sorted(loops[kernel].items())}
             _build.load_library(kernel)
-        # the timed specialization's loop by opcode: ISETP and SEL are the
-        # byte placement against the runtime layout
+        # the timed specialization's loop by opcode (ISETP and SEL are the
+        # byte placement against the runtime layout) and by pipe
         timed = {k: dict(loops[k][(2, 1, True)].most_common()) for k in loops}
         return {"build_s": build_s, "libraries": {k: os.path.relpath(v, HERE)
                                                   for k, v in paths.items()},
                 "ptxas": ptxas, "loop_instructions": loop_counts,
-                "timed_loop_opcodes": timed}
+                "timed_loop_opcodes": timed,
+                "timed_loop_pipes": {k: pipe_split(loops[k][(2, 1, True)]) for k in loops}}
 
     smoke.phase("build", build, needs=("device",))
 
@@ -845,11 +907,12 @@ def main() -> int:
 
         first = sync_value(launch())  # warm-up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(RATE_LAUNCHES):
-            launch()
-        end.record()
-        end.synchronize()
+        with SmClock() as clock:
+            start.record()
+            for _ in range(RATE_LAUNCHES):
+                launch()
+            end.record()
+            end.synchronize()
         ms = start.elapsed_time(end) / RATE_LAUNCHES
 
         # the plain version on the same inputs: no yardstick of speed, it
@@ -873,25 +936,32 @@ def main() -> int:
 
         # the bound: the operations the hash needs per candidate (no hit at
         # this difficulty, so every candidate is hashed) at the issue rate;
-        # the kernel's own SASS loop count is a diagnostic beside it
+        # the kernel's own SASS loop count is a diagnostic beside it, at the
+        # issue rate (sass_issue_ms) and its ALU-pipe instructions at that
+        # pipe's rate (alu_pipe_ms)
         mw = mask_words_for(RATE_DIFFICULTY, model)
         var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
         needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
         dev_info = smoke.info["device"]
-        sass = sum(loops[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks,
-                                                True)].values())
-        ops_per_s = ISSUED_RESULTS_PER_CLOCK_PER_SM * dev_info["sm_count"] * \
-            dev_info["clock_mhz"] * 1e6
+        loop = loops[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks, True)]
+        sass, pipes = sum(loop.values()), pipe_split(loop)
+        clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
+        ops_per_s = ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s
         bound_ms = n * needed / ops_per_s * 1e3
         return {"difficulty": RATE_DIFFICULTY, "mask_words": mw, "candidates_per_launch": n,
                 "launch_steps": steps, "grid": grid, "launches_timed": RATE_LAUNCHES,
                 "ms": ms, "ghs": n / ms / 1e6, "result": first,
+                "sm_clock_mhz_timed": clock.mhz,
                 "plain_ms_full_launch": plain_ms,
                 "plain_ms_2p16_no_yardstick": plain_small_ms,
                 "needed_ops_per_hash": needed, "bound_ms": bound_ms,
                 "bound_ghs": n / bound_ms / 1e6, "bound_share": bound_ms / ms,
                 "sass_instructions_per_hash": sass,
+                "alu_pipe_instructions_per_hash": pipes["alu"],
+                "fma_pipe_instructions_per_hash": pipes["fma"],
                 "sass_issue_ms": n * sass / ops_per_s * 1e3,
+                "alu_pipe_ms": n * pipes["alu"] / (ALU_PIPE_RESULTS_PER_CLOCK_PER_SM *
+                                                   clocks_per_s) * 1e3,
                 "card": dev_info["nvidia_smi"]}
 
     for i, model_name in enumerate(MODELS):

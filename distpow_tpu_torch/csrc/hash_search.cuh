@@ -19,6 +19,11 @@
 //                                  after which only the MW trailing digest
 //                                  words of st are defined: the rounds that
 //                                  feed only the others are never computed
+// and, where the hash wants it (sha3.cuh, sha256.cuh's Sha256d),
+//   MIN_BLOCKS_PER_SM              resident 256-thread blocks per SM that
+//                                  its kernel asks ptxas for; such a
+//                                  kernel also reads the launch's
+//                                  operands anew for every candidate
 // All words are uint32; a 64-bit hash pairs them in its own limb order
 // and works in uint64_t inside its struct.
 //
@@ -30,6 +35,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "md5.cuh"
 
@@ -53,6 +60,40 @@ DISTPOW_HD uint32_t rotr32(uint32_t x, int s) { return rotl32(x, 32 - s); }
 // shifts (none for s = 32 or 0).
 DISTPOW_HD uint64_t rotr64(uint64_t x, int s) { return (x >> s) | (x << ((64 - s) & 63)); }
 DISTPOW_HD uint64_t rotl64(uint64_t x, int s) { return (x << s) | (x >> ((64 - s) & 63)); }
+
+// Integer work on the FMA pipe.  An SM retires 64 thread results a clock of
+// the ALU pipe (LOP3, SHF, IADD3, LEA, ISETP, SEL, PRMT) and, besides, 64 of
+// IMAD and VIADD on the FMA pipe (python3 -m
+// distpow_tpu_torch.tools.pipe_rates); IMAD.HI runs there at half rate.  A
+// product with a power of two that ptxas can see becomes a shift or an add
+// on the ALU pipe again, so the factors are read from constant memory,
+// whose values ptxas does not assume, as an IMAD operand.  On the host the
+// same helpers are plain C++.
+#if defined(__CUDACC__)
+__constant__ uint32_t kPow2[32] = {
+    0x1u, 0x2u, 0x4u, 0x8u, 0x10u, 0x20u, 0x40u, 0x80u, 0x100u, 0x200u, 0x400u,
+    0x800u, 0x1000u, 0x2000u, 0x4000u, 0x8000u, 0x10000u, 0x20000u, 0x40000u, 0x80000u,
+    0x100000u, 0x200000u, 0x400000u, 0x800000u, 0x1000000u, 0x2000000u, 0x4000000u,
+    0x8000000u, 0x10000000u, 0x20000000u, 0x40000000u, 0x80000000u};
+#endif
+
+// x + y as one IMAD, x * 1 + y
+DISTPOW_HD uint32_t add_fma(uint32_t x, uint32_t y) {
+#if defined(__CUDA_ARCH__)
+  return x * kPow2[0] + y;
+#else
+  return x + y;
+#endif
+}
+
+// x >> s for 0 < s < 32 as one IMAD.HI, the high word of x * 2^(32 - s)
+DISTPOW_HD uint32_t shr_fma(uint32_t x, int s) {
+#if defined(__CUDA_ARCH__)
+  return __umulhi(x, kPow2[32 - s]);
+#else
+  return x >> s;
+#endif
+}
 
 DISTPOW_HD uint32_t bswap32(uint32_t x) {
 #if defined(__CUDA_ARCH__)
@@ -86,6 +127,26 @@ DISTPOW_HD void var_words(const Layout& L, uint32_t tb, uint32_t chunk, uint32_t
   }
 }
 
+// Does hash H ask for H::MIN_BLOCKS_PER_SM resident blocks per SM?  Its
+// kernel then tells ptxas so (__launch_bounds__), which caps its registers
+// at 65536 / (256 * blocks); the other hashes' kernels keep the bare
+// __launch_bounds__(256), under which ptxas allocates as before.
+template <class H, class = void>
+struct AsksResidentBlocks : std::false_type {};
+template <class H>
+struct AsksResidentBlocks<H, std::void_t<decltype(H::MIN_BLOCKS_PER_SM)>> : std::true_type {};
+
+// Word i of a launch operand (the prefix state, the tail's rows).  They are
+// loop invariants, so the compiler keeps them in registers across the
+// grid-stride loop (sha3_256's 84 words took 172 registers).  A hash that
+// asks for resident blocks reads them anew for every candidate instead, a
+// volatile read from shared memory, one LDS a word.
+template <class H>
+DISTPOW_HD uint32_t operand(const uint32_t* p, int i) {
+  if constexpr (AsksResidentBlocks<H>::value) return static_cast<const volatile uint32_t*>(p)[i];
+  else return p[i];
+}
+
 // The row of tail block blk: the constant words, with the variable bits
 // ORed into the run's two message words.
 template <class H>
@@ -94,7 +155,7 @@ DISTPOW_HD void message_block(const uint32_t* base, const Layout& L, uint32_t fi
   DISTPOW_UNROLL
   for (int w = 0; w < H::ROW_WORDS; ++w) {
     const int word = blk * H::BLOCK_WORDS + w;
-    m[w] = base[blk * H::ROW_WORDS + w];
+    m[w] = operand<H>(base, blk * H::ROW_WORDS + w);
     if (w < H::BLOCK_WORDS)
       m[w] |= (word == L.var_word ? first : 0u) | (word == L.var_word + 1 ? second : 0u);
   }
@@ -109,7 +170,7 @@ DISTPOW_HD void hash_tail_state(const uint32_t* init, const uint32_t* base, cons
   uint32_t first, second, m[H::ROW_WORDS];
   var_words<H::BIG_ENDIAN_WORDS>(L, tb, chunk, first, second);
   DISTPOW_UNROLL
-  for (int i = 0; i < H::STATE_WORDS; ++i) st[i] = init[i];
+  for (int i = 0; i < H::STATE_WORDS; ++i) st[i] = operand<H>(init, i);
   if constexpr (N_BLOCKS == 2) {
     message_block<H>(base, L, first, second, 0, m);
     H::block(st, m);
@@ -154,7 +215,7 @@ namespace distpow {
 //   spill 200-224 bytes at 128 registers and sha512's and sha384's
 //   two-block ones 224-296 bytes; from shared memory no one-block kernel
 //   spills at mask words 1-4, and the 32-bit hashes take 32-58 registers
-//   instead of 56-98.
+//   instead of 56-98 (but see operand() above).
 // * The min across the grid: per thread, per warp (__reduce_min_sync), then
 //   one atomicMin per block into a cell the wrapper set to SENTINEL on the
 //   same stream.
@@ -178,11 +239,13 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
   return SENTINEL;
 }
 
+// The kernels' body, one block's search.
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
-__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
-hash_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
-                   const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
-                   uint32_t* __restrict__ out) {
+__device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ init_g,
+                                                  const uint32_t* __restrict__ base_g,
+                                                  const uint32_t* __restrict__ masks_g,
+                                                  const Layout& L, uint32_t n,
+                                                  uint32_t* __restrict__ out) {
   constexpr int BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
   uint32_t masks[MASK_WORDS];
 #pragma unroll
@@ -206,16 +269,47 @@ hash_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restri
   }
 }
 
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
+hash_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                   const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
+                   uint32_t* __restrict__ out) {
+  hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out);
+}
+
+// The same kernel for a hash that asks for H::MIN_BLOCKS_PER_SM blocks.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS, H::MIN_BLOCKS_PER_SM)
+resident_hash_search_kernel(const uint32_t* __restrict__ init_g,
+                            const uint32_t* __restrict__ base_g,
+                            const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
+                            uint32_t* __restrict__ out) {
+  hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out);
+}
+
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+void launch_search_kernel(const uint32_t* init, const uint32_t* base, const uint32_t* masks,
+                          const Layout& L, uint32_t n, uint32_t* out, int grid,
+                          cudaStream_t stream) {
+  if constexpr (AsksResidentBlocks<H>::value) {
+    resident_hash_search_kernel<H, MASK_WORDS, N_BLOCKS, POW2>
+        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
+  } else {
+    hash_search_kernel<H, MASK_WORDS, N_BLOCKS, POW2>
+        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
+  }
+}
+
 template <class H, int MASK_WORDS, int N_BLOCKS>
 void launch_hash_kernel(bool pow2, const uint32_t* init, const uint32_t* base,
                         const uint32_t* masks, const Layout& L, uint32_t n, uint32_t* out,
                         int grid, cudaStream_t stream) {
   if (pow2) {
-    hash_search_kernel<H, MASK_WORDS, N_BLOCKS, true>
-        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
+    launch_search_kernel<H, MASK_WORDS, N_BLOCKS, true>(init, base, masks, L, n, out, grid,
+                                                        stream);
   } else {
-    hash_search_kernel<H, MASK_WORDS, N_BLOCKS, false>
-        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
+    launch_search_kernel<H, MASK_WORDS, N_BLOCKS, false>(init, base, masks, L, n, out, grid,
+                                                         stream);
   }
 }
 

@@ -44,30 +44,51 @@ DISTPOW_HD constexpr int keccak_rot(int x, int y) {
   return rot[x][y];
 }
 
+// pi moves lane x + 5y to lane y + 5((2x + 3y) mod 5).  Lane 0 stays; the
+// other 24 form one cycle, and keccak_cycle(i) is its i-th lane from lane 1.
+DISTPOW_HD constexpr int keccak_cycle(int i) {
+  constexpr int lanes[24] = {1,  10, 7,  11, 17, 18, 3, 5,  16, 8,  21, 24,
+                             4,  15, 23, 19, 13, 12, 2, 20, 14, 22, 9,  6};
+  return lanes[i % 24];
+}
+
 // Rounds R..23 of Keccak-f[1600] on A; the last round's chi and iota write
-// only the lanes in the bit mask LAST_LANES (bit i: lane i).
+// only the lanes in the bit mask LAST_LANES (bit i: lane i).  The round
+// works in place, so few 64-bit values are live at once: the 25 lanes, the
+// five column sums C[x] and their rotates, and a temporary or two.  Theta
+// is applied to each lane as rho and pi consume it, as one three-input XOR
+// a half (A ^ C[x - 1] ^ rotl(C[x + 1], 1): D[x] is never formed); rho and
+// pi walk pi's cycle, each lane taking the rotated value of the one before
+// it; chi goes plane by plane, keeping the plane's first two lanes.
 template <int R, uint32_t LAST_LANES>
 DISTPOW_HD void keccak_rounds(uint64_t A[25]) {
   if constexpr (R < 24) {
     constexpr uint32_t lanes = R == 23 ? LAST_LANES : 0x1FFFFFFu;
-    uint64_t C[5], B[25];
+    uint64_t C[5], Cr[5];
     DISTPOW_UNROLL
     for (int x = 0; x < 5; ++x) C[x] = A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20];
     DISTPOW_UNROLL
-    for (int x = 0; x < 5; ++x) {
-      const uint64_t d = C[(x + 4) % 5] ^ rotl64(C[(x + 1) % 5], 1);
-      DISTPOW_UNROLL
-      for (int y = 0; y < 5; ++y) {
-        // theta, then rho and pi: lane (x, y) moves to (y, 2x + 3y)
-        B[y + 5 * ((2 * x + 3 * y) % 5)] = rotl64(A[x + 5 * y] ^ d, keccak_rot(x, y));
-      }
-    }
+    for (int x = 0; x < 5; ++x) Cr[x] = rotl64(C[x], 1);
+    // theta of lane a in column x
+#define KECCAK_THETA(a, x) ((a) ^ C[((x) + 4) % 5] ^ Cr[((x) + 1) % 5])
+    uint64_t t = KECCAK_THETA(A[1], 1);
     DISTPOW_UNROLL
-    for (int i = 0; i < 25; ++i) {
-      if (lanes >> i & 1) {
-        const int x = i % 5, y5 = i - x;
-        A[i] = B[i] ^ (~B[(x + 1) % 5 + y5] & B[(x + 2) % 5 + y5]);
-      }
+    for (int i = 1; i <= 24; ++i) {
+      const int src = keccak_cycle(i - 1), dst = keccak_cycle(i);
+      const uint64_t next = KECCAK_THETA(A[dst], dst % 5);  // unused at i = 24 (lane 1 again)
+      A[dst] = rotl64(t, keccak_rot(src % 5, src / 5));
+      t = next;
+    }
+    A[0] = KECCAK_THETA(A[0], 0);
+#undef KECCAK_THETA
+    DISTPOW_UNROLL
+    for (int y5 = 0; y5 < 25; y5 += 5) {
+      const uint64_t b0 = A[y5], b1 = A[y5 + 1];
+      if (lanes >> y5 & 1) A[y5] = b0 ^ (~b1 & A[y5 + 2]);
+      if (lanes >> (y5 + 1) & 1) A[y5 + 1] = b1 ^ (~A[y5 + 2] & A[y5 + 3]);
+      if (lanes >> (y5 + 2) & 1) A[y5 + 2] ^= ~A[y5 + 3] & A[y5 + 4];
+      if (lanes >> (y5 + 3) & 1) A[y5 + 3] ^= ~A[y5 + 4] & b0;
+      if (lanes >> (y5 + 4) & 1) A[y5 + 4] ^= ~b0 & b1;
     }
     if constexpr (lanes & 1) A[0] ^= keccak_rc(R);
     keccak_rounds<R + 1, LAST_LANES>(A);
@@ -96,7 +117,18 @@ DISTPOW_HD void sha3_absorb(uint32_t st[50], const uint32_t m[34]) {
   }
 }
 
+// Every instruction of the rounds (LOP3, SHF) issues on the ALU pipe, at
+// 64 thread results a clock per SM, so the kernel needs enough resident
+// warps to keep that pipe busy.  Left to itself ptxas kept the launch's 84
+// operand words in registers across the grid-stride loop and took 172
+// registers, one 256-thread block per SM.  MIN_BLOCKS_PER_SM = 2 reads
+// them anew for every candidate (84 LDS a hash) and holds the kernel at
+// two blocks (at most 128 registers; 90 at mask words 2, one tail block,
+// and no specialization spills).  Moving rho's rotates to the FMA pipe as
+// IMAD.WIDE pairs was slower, and a third block spills in the two-block
+// tails.
 struct Sha3_256 {
+  static constexpr int MIN_BLOCKS_PER_SM = 2;
   static constexpr int STATE_WORDS = 50;
   static constexpr int DIGEST_WORDS = 8;
   static constexpr int BLOCK_WORDS = 34;

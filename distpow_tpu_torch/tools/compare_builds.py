@@ -1,0 +1,93 @@
+"""This checkout's search kernels against another checkout's, on one card.
+
+Builds both checkouts' kernels (each with its own sources and build code,
+in its own process, the two at once), then prints per model: whether
+ptxas gave every specialization the same registers, whether every
+specialization's SASS loop has the same length, the timed specialization's
+(mask words 2, one tail block, power-of-two run) registers, spills and
+loop instructions by pipe on each side, and the main-path launch time
+(difficulty 16, as ``operand_placement`` times it) in turns: other, this,
+this, other, each in its own process.  Both sides must agree on each
+launch's result and on a difficulty-6 first hit.  The card's name and
+power limit come first.
+
+Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc,
+with the other checkout unpacked in a directory, for example the parent
+commit (``git archive HEAD~1 | tar -x -C archive_tree/parent``)::
+
+    python3 -m distpow_tpu_torch.tools.compare_builds archive_tree/parent [model ...]
+
+No model named: all nine.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+from distpow_tpu_torch.tools.operand_placement import REPO, child, finish
+
+
+def build_side(proc, what: str, cs) -> dict:
+    """Per kernel: ptxas per specialization and the SASS loop per
+    specialization, from one side's build child."""
+    from distpow_tpu_torch.ops import _build
+
+    out = finish(proc, f"build ({what})")
+    kernels = {}
+    for kernel, path in out["paths"].items():
+        sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", path],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        kernels[kernel] = {"ptxas": cs.parse_ptxas(out["log"].get(kernel, "")),
+                           "loops": cs.parse_sass_loops(sass)}
+    return kernels
+
+
+def main(argv) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from distpow_tpu_torch.ops.hash_cuda import KERNELS
+
+    other = os.path.abspath(argv[0])
+    models = list(argv[1:]) or list(cs.MODELS)
+    print(cs.nvidia_smi("name,power.limit"), flush=True)
+    roots = {"other": other, "this": REPO}
+    procs = {side: child(root, "build") for side, root in roots.items()}
+    built = {side: build_side(proc, side, cs) for side, proc in procs.items()}
+    runs = {"other": [], "this": []}
+    for side in ("other", "this", "this", "other"):
+        runs[side].append(finish(child(roots[side], "time", models), f"timing ({side})"))
+    agree = True
+    timed = (2, 1, True)
+    for m in models:
+        k = KERNELS[m]
+        a, b = built["other"][k], built["this"][k]
+        same = all(r[m]["result"] == runs["other"][0][m]["result"]
+                   and r[m]["first_hit_d6"] == runs["other"][0][m]["first_hit_d6"]
+                   for side in runs for r in runs[side])
+        agree &= same
+        ms = {side: [r[m]["ms"] for r in runs[side]] for side in runs}
+        print(json.dumps({
+            "model": m, "ms": ms,
+            "this_over_other": statistics.mean(ms["this"]) / statistics.mean(ms["other"]),
+            "same_registers": {s: v["registers"] for s, v in a["ptxas"].items()} ==
+                              {s: v["registers"] for s, v in b["ptxas"].items()},
+            "same_loop_lengths": {s: sum(v.values()) for s, v in a["loops"].items()} ==
+                                 {s: sum(v.values()) for s, v in b["loops"].items()},
+            "timed": {side: {**built[side][k]["ptxas"][timed],
+                             "loop": sum(built[side][k]["loops"][timed].values()),
+                             **cs.pipe_split(built[side][k]["loops"][timed])}
+                      for side in built},
+            "results_agree": same}), flush=True)
+    print(json.dumps({"results_agree": agree}), flush=True)
+    return 0 if agree else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

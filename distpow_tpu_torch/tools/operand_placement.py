@@ -49,15 +49,16 @@ REGISTERS = """\
 """
 
 # Run in a child process with the build's root first on sys.path:
-# "build" compiles it, "time" times each model's main-path launch.
+# "build" compiles it (nvcc's log and the libraries' paths), "time" times
+# each model's main-path launch.
 CHILD = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
 sys.path.insert(1, sys.argv[2])
 from distpow_tpu_torch.ops import _build
 if sys.argv[3] == "build":
-    _build.build()
-    print(json.dumps(_build.last_build_log))
+    paths = _build.build()
+    print(json.dumps({"log": _build.last_build_log, "paths": paths}))
     sys.exit(0)
 import torch
 import chip_smoke as cs
@@ -144,7 +145,7 @@ def main() -> int:
     builds = {v: child(root, "build") for v, root in roots.items()}
     ptxas = {}
     for v, proc in builds.items():
-        log = finish(proc, f"build ({v})")
+        log = finish(proc, f"build ({v})")["log"]
         ptxas[v] = {k: {cs.spec_label(s): r for s, r in sorted(cs.parse_ptxas(log[k]).items())}
                     for k in sorted(log) if k != "md5_search"}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -99,3 +99,45 @@ def test_needed_ops_of_the_timed_launches():
         wpb = get_hash_model(m).words_per_block
         assert cs.needed_ops(m, 2, 2, {wpb - 1, wpb}) > got[m]
         assert cs.needed_ops(m, 1, 2, set(range(wpb))) > got[m]
+
+
+PROBE_SASS = """
+        Function : _Z12probe_kernelILi1ELi4EEvjjPj
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_0:
+        /*0010*/                   SHF.L.W.U32.HI R2, R2, 0x7, R3 ;
+        /*0020*/                   IMAD.HI.U32 R3, R3, c[0x0][0x214], R4 ;
+        /*0030*/                   VIADD R5, R5, 0x1 ;
+        /*0040*/                   ISETP.GE.U32.AND P0, PT, R5, c[0x0][0x210], PT ;
+        /*0050*/              @!P0 BRA `(.L_x_0) ;
+        /*0060*/                   EXIT ;
+"""
+
+
+def test_sass_loops_keep_modifiers_and_split_by_pipe():
+    """``sass_loops`` keeps each opcode's modifiers (what the pipe probe
+    checks), ``parse_sass_loops`` drops them, and ``pipe_split`` counts a
+    loop by the pipe each opcode issues to."""
+    cs = _load()
+    assert cs.sass_loops(SASS) == {
+        "_ZN7distpow18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEvPKjS3_S3_NS_6LayoutEjPj":
+            {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
+    loops = cs.sass_loops(PROBE_SASS)
+    assert loops == {"_Z12probe_kernelILi1ELi4EEvjjPj": {
+        "SHF.L.W.U32.HI": 1, "IMAD.HI.U32": 1, "VIADD": 1, "ISETP.GE.U32.AND": 1, "BRA": 1}}
+    assert cs.pipe_split({"IMAD": 3, "VIADD": 1, "LOP3": 5, "SHF": 2, "ISETP": 1, "BRA": 1,
+                          "LDS": 2}) == {"alu": 8, "fma": 4, "other": 3}
+
+
+def test_pipe_probe_names_what_ptxas_issued():
+    """The pipe probe names a probe from its kernel's template keys and
+    counts the loop in the probes' own opcode kinds."""
+    from distpow_tpu_torch.tools import pipe_rates
+
+    assert pipe_rates.opcode_kind("IMAD.HI.U32") == "IMAD.HI"
+    assert pipe_rates.opcode_kind("IMAD.WIDE.U32") == "IMAD.WIDE"
+    assert pipe_rates.opcode_kind("IMAD.U32") == "IMAD"
+    assert pipe_rates.opcode_kind("SHF.L.W.U32.HI") == "SHF"
+    loops = pipe_rates.probe_loops(PROBE_SASS, _load().sass_loops)
+    assert loops == {pipe_rates.PROBES.index("SHF+IMAD.HI"): {
+        "SHF": 1, "IMAD.HI": 1, "VIADD": 1, "ISETP": 1, "BRA": 1}}

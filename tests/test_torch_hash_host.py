@@ -10,7 +10,9 @@ BLAKE2b-256), rows with parameter words (BLAKE2b's), rounds with their
 mask-word pruning, and mask check, one candidate at a time.  Every
 ``(MASK_WORDS, N_BLOCKS, POW2)`` the launcher instantiates is held to the
 port's plain step, and the full-width state to hashlib, exactly (integer
-hashing).
+hashing).  The in-place Keccak permutation is also held, lane for lane, to
+the straightforward formulation with a full rho-pi copy (kept here as the
+reference) for every last-round lane mask the kernels use.
 """
 
 import ctypes
@@ -309,3 +311,126 @@ def test_wide_twin_first_hit_matches_plain_step(twins, name, mask_words, tail, t
     full, full_p = _arr([0xFFFFFFFF] * kmw)
     assert twins[name].host_search(spec.n_blocks, kmw, init_p, base_p, full_p,
                                    *layout, 256) == SENTINEL
+
+
+def _sha256d_width_cases():
+    """(mask words, nonce length, tb_lo, tbc): mask words 1-4 and the full
+    digest, one- and two-block tails, power-of-two and other thread-byte
+    counts."""
+    return [(mw, n, tb_lo, tbc) for mw in (1, 2, 3, 4, 8) for n in (9, 58)
+            for tb_lo, tbc in ((0, 128), (40, 80))]
+
+
+@pytest.mark.parametrize("mask_words,nonce_len,tb_lo,tbc", _sha256d_width_cases())
+def test_sha256d_twin_first_hit_every_width(twins, mask_words, nonce_len, tb_lo, tbc):
+    """sha256d's stage 2 folds its constant words and state, and puts the
+    other sums on the FMA pipe; its first hit is the plain step's at every
+    width (exact: an integer index)."""
+    model = get_hash_model("sha256d")
+    rng = np.random.default_rng(7 * mask_words + nonce_len + tbc)
+    nonce = rng.integers(0, 256, size=nonce_len, dtype=np.uint8).tobytes()
+    for width in (1, 2, 4):
+        spec = build_tail_spec(nonce, width, model)
+        assert spec.n_blocks == (1 if nonce_len < 55 - width else 2)
+        masks = [0] * mask_words
+        for b in rng.choice(32 * mask_words, size=8, replace=False):
+            masks[int(b) // 32] |= 1 << (int(b) % 32)
+        chunk0, batch = 3 if width == 1 else 300, 30 * tbc
+        ops = make_operands(spec.init_state, spec.base_words, masks, tb_lo, tbc, "cpu")
+        want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
+                                      model=model))
+        init, init_p = _arr(spec.init_state)
+        base, base_p = _arr(spec.base_words)
+        m, m_p = _arr(masks)
+        layout = _layout(spec, model, chunk0, tb_lo, tbc)
+        got = twins["sha256d"].host_search(spec.n_blocks, mask_words, init_p, base_p, m_p,
+                                           *layout, batch)
+        assert got == want, width
+
+
+# The Keccak rounds as the kernel had them before the in-place form: theta
+# through D[x], then rho and pi into a full copy B, then chi from B.
+KECCAK_SOURCE = r"""
+#include "sha3.cuh"
+using namespace distpow;
+
+template <int R, uint32_t LAST_LANES>
+static void reference_rounds(uint64_t A[25]) {
+  if constexpr (R < 24) {
+    constexpr uint32_t lanes = R == 23 ? LAST_LANES : 0x1FFFFFFu;
+    uint64_t C[5], B[25];
+    for (int x = 0; x < 5; ++x) C[x] = A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20];
+    for (int x = 0; x < 5; ++x) {
+      const uint64_t d = C[(x + 4) % 5] ^ rotl64(C[(x + 1) % 5], 1);
+      for (int y = 0; y < 5; ++y)
+        B[y + 5 * ((2 * x + 3 * y) % 5)] = rotl64(A[x + 5 * y] ^ d, keccak_rot(x, y));
+    }
+    for (int i = 0; i < 25; ++i) {
+      if (lanes >> i & 1) {
+        const int x = i % 5, y5 = i - x;
+        A[i] = B[i] ^ (~B[(x + 1) % 5 + y5] & B[(x + 2) % 5 + y5]);
+      }
+    }
+    if constexpr (lanes & 1) A[0] ^= keccak_rc(R);
+    reference_rounds<R + 1, LAST_LANES>(A);
+  }
+}
+
+template <uint32_t MASK>
+static void both(uint64_t* a, uint64_t* b) {
+  keccak_rounds<0, MASK>(a);
+  reference_rounds<0, MASK>(b);
+}
+
+extern "C" int permute(uint32_t mask, uint64_t* a, uint64_t* b) {
+  switch (mask) {
+    case 0x1FFFFFFu: both<0x1FFFFFFu>(a, b); return 0;
+    case 0x8u: both<0x8u>(a, b); return 0;
+    case 0xCu: both<0xCu>(a, b); return 0;
+    case 0xEu: both<0xEu>(a, b); return 0;
+    case 0xFu: both<0xFu>(a, b); return 0;
+  }
+  return 1;
+}
+"""
+
+# Sha3_256::last<MW>'s lane masks (lanes (8 - MW) / 2..3) and block's (all)
+KECCAK_MASKS = [0x1FFFFFF] + sorted({0xF & (0xF << (8 - mw) // 2) for mw in range(1, 9)})
+
+
+@pytest.fixture(scope="module")
+def keccak_twin(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host twins cannot be built")
+    d = tmp_path_factory.mktemp("keccak_twin")
+    src, lib = d / "keccak.cpp", d / "libkeccak.so"
+    src.write_text(KECCAK_SOURCE)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-o",
+                           str(lib), str(src)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    dll = ctypes.CDLL(str(lib))
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    dll.permute.argtypes = [ctypes.c_uint32, u64p, u64p]
+    dll.permute.restype = ctypes.c_int
+    return dll
+
+
+@pytest.mark.parametrize("mask", KECCAK_MASKS, ids=hex)
+def test_keccak_in_place_matches_reference(keccak_twin, mask):
+    """The in-place permutation equals the reference on random states in
+    every lane the mask keeps (exact), and with all lanes live, the port's
+    pure-Python Keccak-f."""
+    from distpow_tpu_torch.models.sha3 import keccak_f
+
+    assert mask in (0x1FFFFFF, 0x8, 0xC, 0xE, 0xF)
+    rng = np.random.default_rng(mask)
+    live = [i for i in range(25) if mask >> i & 1]
+    for trial in range(48):
+        state = rng.integers(0, 1 << 63, size=25, dtype=np.uint64) * np.uint64(2 - trial % 2)
+        a, b = np.ascontiguousarray(state.copy()), np.ascontiguousarray(state.copy())
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        assert keccak_twin.permute(mask, a.ctypes.data_as(u64p), b.ctypes.data_as(u64p)) == 0
+        assert a[live].tolist() == b[live].tolist(), trial
+        if mask == 0x1FFFFFF:
+            assert a.tolist() == keccak_f([int(v) for v in state]), trial
