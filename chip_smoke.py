@@ -81,14 +81,18 @@ LAUNCH_STEPS = (1, 3)
 # ALU pipe retires 64 thread results per clock per SM (LOP3, SHF and IADD3
 # measured by python3 -m distpow_tpu_torch.tools.pipe_rates; LEA, ISETP,
 # SEL, PRMT and MOV issue there too).  IMAD and VIADD go to the FMA pipe,
-# IMAD at another 64 per clock (IMAD.HI at half that, IMAD.WIDE lower), so
-# a loop that mixes the two pipes can issue up to 128.  A loop of ALU-pipe
-# instructions alone issues at 64 per clock at best; md5's measured 76
-# because ptxas put its 61 constant adds (VIADD) on the FMA pipe.
+# IMAD at another 64 per clock, so a loop that mixes the two pipes can issue
+# up to 128.  A loop of ALU-pipe instructions alone issues at 64 per clock
+# at best; md5's measured 76 because ptxas put its 61 constant adds (VIADD)
+# on the FMA pipe.  IMAD.HI and IMAD.WIDE take two of the FMA pipe's slots
+# (FMA_TWO_SLOTS, by the same probes), so a loop's FMA-pipe time counts
+# them twice.
 ISSUED_RESULTS_PER_CLOCK_PER_SM = 128
 ALU_PIPE_RESULTS_PER_CLOCK_PER_SM = 64
+FMA_PIPE_SLOTS_PER_CLOCK_PER_SM = 64
 ALU_PIPE = frozenset({"LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "MOV"})
 FMA_PIPE = frozenset({"IMAD", "VIADD"})
+FMA_TWO_SLOTS = frozenset({"IMAD.HI", "IMAD.WIDE"})
 
 # The main path's launch: batch 2^20 x k sub-batches of a width-4 segment,
 # k from the model's cost-scaled dispatch budget (1024 for md5)
@@ -178,12 +182,15 @@ def parse_ptxas(log: str):
     return out
 
 
-def sass_loops(sass: str):
+def sass_loops(sass: str, path: bool = False):
     """Per function of a ``cuobjdump -sass`` listing, by its mangled name:
     the opcodes of its widest loop's body, counted between the widest
     backward branch and its target, NOPs excluded, each opcode with its
     modifiers (``IMAD.HI.U32``), as a Counter (its total is the body's
-    length)."""
+    length).  With ``path``, only the instructions one iteration issues on
+    the path that takes no conditional branch, follows every unconditional
+    forward one and enters a jump table (``BRX``) at its first case: a
+    ``switch`` in the body counts one case, not all of them."""
     out = {}
     parts = re.split(r"\n\s*Function : ", sass)
     for part in parts[1:]:
@@ -203,43 +210,77 @@ def sass_loops(sass: str):
                 labels[p] = addr
             pending = []
             instrs.append((addr, ins.group(2)))
-        best = None
-        for addr, text in instrs:
+
+        def target(text):
             br = re.search(r"\bBRA\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)", text)
             if not br:
-                continue
+                return None
             tgt = br.group(1)
-            tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+            return int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+
+        best = None
+        for addr, text in instrs:
+            tgt = target(text)
             if tgt is not None and tgt < addr and (best is None or addr - tgt > best[1] - best[0]):
                 best = (tgt, addr)
         if best is None:
             continue
-        body = [re.sub(r"^@!?U?P\w+\s+", "", t) for a, t in instrs if best[0] <= a <= best[1]]
-        out[name] = collections.Counter(t.split()[0] for t in body if not t.startswith("NOP"))
+        body = [(a, t) for a, t in instrs if best[0] <= a <= best[1]]
+        if path:
+            at = {a: i for i, (a, _) in enumerate(body)}
+            walk, i = [], 0
+            while i < len(body) and len(walk) < len(body):
+                a, t = body[i]
+                walk.append((a, t))
+                tgt = None if t.startswith("@") else target(t)
+                i = at[tgt] if tgt is not None and a < tgt <= best[1] else i + 1
+            body = walk
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", t) for _, t in body]
+        out[name] = collections.Counter(t.split()[0] for t in ops if not t.startswith("NOP"))
     return out
 
 
-def parse_sass_loops(sass: str):
+def spec_sass_loops(sass: str, path: bool = False):
     """Per kernel specialization ``(mask_words, n_blocks, pow2)``: the
     opcodes of its grid-stride loop body (one candidate; the loop is not
-    unrolled), without their modifiers, as a Counter."""
+    unrolled), each with its modifiers, as a Counter; with ``path``, those
+    one candidate issues (``sass_loops``)."""
     out = {}
-    for name, body in sass_loops(sass).items():
+    for name, body in sass_loops(sass, path).items():
         m = re.search(KERNEL_KEY, name)
-        if not m:
-            continue
-        ops = collections.Counter()
-        for op, c in body.items():
-            ops[op.split(".")[0]] += c
-        out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = ops
+        if m:
+            out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = body
     return out
+
+
+def opcode_kind(op: str) -> str:
+    """A SASS opcode by its kind: the base opcode, and the form of an IMAD
+    (``IMAD.HI.U32`` is ``IMAD.HI``, ``IMAD.U32`` is ``IMAD``)."""
+    parts = op.split(".")
+    if parts[0] == "IMAD" and len(parts) > 1 and parts[1] in ("HI", "SHL", "MOV", "IADD",
+                                                               "WIDE", "X"):
+        return ".".join(parts[:2])
+    return parts[0]
 
 
 def pipe_split(ops) -> dict:
-    """Instructions of a loop body (base opcodes) by the pipe they issue to."""
-    alu = sum(c for op, c in ops.items() if op in ALU_PIPE)
-    fma = sum(c for op, c in ops.items() if op in FMA_PIPE)
-    return {"alu": alu, "fma": fma, "other": sum(ops.values()) - alu - fma}
+    """Instructions of a loop body by the pipe they issue to, and the FMA
+    pipe's slots they take (``FMA_TWO_SLOTS`` count two; without modifiers
+    every FMA-pipe opcode counts one)."""
+    alu = sum(c for op, c in ops.items() if op.split(".")[0] in ALU_PIPE)
+    fma = sum(c for op, c in ops.items() if op.split(".")[0] in FMA_PIPE)
+    slots = fma + sum(c for op, c in ops.items() if opcode_kind(op) in FMA_TWO_SLOTS)
+    return {"alu": alu, "fma": fma, "fma_slots": slots, "other": sum(ops.values()) - alu - fma}
+
+
+def pipe_ms(pipes, n: int, clocks_per_s: float) -> dict:
+    """The least ms each integer pipe needs for ``n`` hashes of a loop split
+    by ``pipe_split``: its ALU-pipe instructions at that pipe's rate and its
+    FMA-pipe slots at that pipe's."""
+    return {"alu_pipe_ms": n * pipes["alu"] / (ALU_PIPE_RESULTS_PER_CLOCK_PER_SM *
+                                               clocks_per_s) * 1e3,
+            "fma_pipe_ms": n * pipes["fma_slots"] / (FMA_PIPE_SLOTS_PER_CLOCK_PER_SM *
+                                                     clocks_per_s) * 1e3}
 
 
 class SmClock(threading.Thread):
@@ -626,7 +667,9 @@ def main() -> int:
     smoke.phase("device", device)
 
     # 2. build ----------------------------------------------------------
-    loops = {}  # kernel -> {(mask_words, n_blocks, pow2): SASS loop opcodes}
+    # kernel -> {(mask_words, n_blocks, pow2): SASS loop opcodes}: the whole
+    # loop body, and what one candidate issues (spec_sass_loops)
+    loops, issued = {}, {}
 
     def build():
         paths = _build.build()
@@ -649,21 +692,28 @@ def main() -> int:
                                   timeout=300).stdout
             with gzip.open(os.path.join(OUT_DIR, f"{kernel}.sass.gz"), "wt") as fh:
                 fh.write(sass)
-            loops[kernel] = parse_sass_loops(sass)
+            loops[kernel] = spec_sass_loops(sass)
+            issued[kernel] = spec_sass_loops(sass, path=True)
             if len(loops[kernel]) != expect:
                 raise RuntimeError(f"found the loop of {len(loops[kernel])} of {expect} "
                                    f"{kernel} specializations")
             loop_counts[kernel] = {spec_label(k): sum(v.values())
                                    for k, v in sorted(loops[kernel].items())}
             _build.load_library(kernel)
-        # the timed specialization's loop by opcode (ISETP and SEL are the
-        # byte placement against the runtime layout) and by pipe
-        timed = {k: dict(loops[k][(2, 1, True)].most_common()) for k in loops}
+        # what one candidate of the timed specialization issues, by opcode
+        # (ISETP and SEL are the byte placement against the runtime layout;
+        # the IMAD forms apart) and by pipe
+        timed = {}
+        for k in issued:
+            kinds = collections.Counter()
+            for op, c in issued[k][(2, 1, True)].items():
+                kinds[opcode_kind(op)] += c
+            timed[k] = dict(kinds.most_common())
         return {"build_s": build_s, "libraries": {k: os.path.relpath(v, HERE)
                                                   for k, v in paths.items()},
                 "ptxas": ptxas, "loop_instructions": loop_counts,
                 "timed_loop_opcodes": timed,
-                "timed_loop_pipes": {k: pipe_split(loops[k][(2, 1, True)]) for k in loops}}
+                "timed_loop_pipes": {k: pipe_split(issued[k][(2, 1, True)]) for k in issued}}
 
     smoke.phase("build", build, needs=("device",))
 
@@ -937,13 +987,15 @@ def main() -> int:
         # the bound: the operations the hash needs per candidate (no hit at
         # this difficulty, so every candidate is hashed) at the issue rate;
         # the kernel's own SASS loop count is a diagnostic beside it, at the
-        # issue rate (sass_issue_ms) and its ALU-pipe instructions at that
-        # pipe's rate (alu_pipe_ms)
+        # issue rate (sass_issue_ms), its ALU-pipe instructions at that
+        # pipe's rate (alu_pipe_ms) and its FMA-pipe slots at that pipe's
+        # (fma_pipe_ms): the larger of the two is the pace the loop can keep
         mw = mask_words_for(RATE_DIFFICULTY, model)
         var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
         needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
         dev_info = smoke.info["device"]
-        loop = loops[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks, True)]
+        key = (kernel_mask_words(mw, model), spec.n_blocks, True)
+        loop = issued[KERNELS[model.name]][key]
         sass, pipes = sum(loop.values()), pipe_split(loop)
         clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
         ops_per_s = ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s
@@ -957,11 +1009,12 @@ def main() -> int:
                 "needed_ops_per_hash": needed, "bound_ms": bound_ms,
                 "bound_ghs": n / bound_ms / 1e6, "bound_share": bound_ms / ms,
                 "sass_instructions_per_hash": sass,
+                "sass_loop_instructions": sum(loops[KERNELS[model.name]][key].values()),
                 "alu_pipe_instructions_per_hash": pipes["alu"],
                 "fma_pipe_instructions_per_hash": pipes["fma"],
                 "sass_issue_ms": n * sass / ops_per_s * 1e3,
-                "alu_pipe_ms": n * pipes["alu"] / (ALU_PIPE_RESULTS_PER_CLOCK_PER_SM *
-                                                   clocks_per_s) * 1e3,
+                "fma_pipe_slots_per_hash": pipes["fma_slots"],
+                **pipe_ms(pipes, n, clocks_per_s),
                 "card": dev_info["nvidia_smi"]}
 
     for i, model_name in enumerate(MODELS):

@@ -120,6 +120,16 @@ DISTPOW_HD void blake2b_compress(uint32_t st[16], const uint32_t m[36]) {
   }
 }
 
+// The loop is ALU-pipe work at that pipe's rate: a G is 8 LOP3, 6 SHF
+// and 6 IADD3 (ptxas already puts the high limbs of c + d on the FMA pipe
+// as IMAD.X; a three-term sum keeps two ALU-pipe instructions in any
+// form, and a rotate's limb on the FMA pipe needs IMAD.HI, which does not
+// issue beside ALU work: python3 -m distpow_tpu_torch.tools.pipe_rates;
+// tools/round_variants.py times each such form of the rounds, all slower).
+// So the kernel cuts what is not the hash: a 32-word block places the
+// run's two words with one branch on the launch's var_word instead of a
+// select for each message word (hash_search.cuh message_block), about 120
+// ALU-pipe instructions a candidate fewer.
 struct Blake2b_256 {
   static constexpr int STATE_WORDS = 16;
   static constexpr int DIGEST_WORDS = 8;

@@ -147,17 +147,53 @@ DISTPOW_HD uint32_t operand(const uint32_t* p, int i) {
   else return p[i];
 }
 
+// ORs the run's words first and second into words k and k + 1 of a
+// 32-word block: k = -1 is a run that started in the block before (only
+// second lands, in word 0), k = 31 one that goes on into the next (only
+// first lands), any other k outside 0..30 misses the block.
+#define DISTPOW_PLACE(K) \
+  case K: m[K] |= first; m[K + 1] |= second; break;
+DISTPOW_HD void place_run32(int k, uint32_t first, uint32_t second, uint32_t* m) {
+  switch (k) {
+    case -1: m[0] |= second; break;
+    DISTPOW_PLACE(0) DISTPOW_PLACE(1) DISTPOW_PLACE(2) DISTPOW_PLACE(3) DISTPOW_PLACE(4)
+    DISTPOW_PLACE(5) DISTPOW_PLACE(6) DISTPOW_PLACE(7) DISTPOW_PLACE(8) DISTPOW_PLACE(9)
+    DISTPOW_PLACE(10) DISTPOW_PLACE(11) DISTPOW_PLACE(12) DISTPOW_PLACE(13) DISTPOW_PLACE(14)
+    DISTPOW_PLACE(15) DISTPOW_PLACE(16) DISTPOW_PLACE(17) DISTPOW_PLACE(18) DISTPOW_PLACE(19)
+    DISTPOW_PLACE(20) DISTPOW_PLACE(21) DISTPOW_PLACE(22) DISTPOW_PLACE(23) DISTPOW_PLACE(24)
+    DISTPOW_PLACE(25) DISTPOW_PLACE(26) DISTPOW_PLACE(27) DISTPOW_PLACE(28) DISTPOW_PLACE(29)
+    DISTPOW_PLACE(30)
+    case 31: m[31] |= first; break;
+    default: break;
+  }
+}
+#undef DISTPOW_PLACE
+
 // The row of tail block blk: the constant words, with the variable bits
-// ORed into the run's two message words.
+// ORed into the run's two message words.  A 16-word block compares each
+// message word with the run's two.  A 32-word block (sha512, sha384,
+// blake2b_256) would spend about 64 SEL and 34 ISETP a candidate on that,
+// all on the ALU pipe, so it reads the row anew for every candidate
+// (volatile LDS, so no register copy of it has to be restored) and ORs the
+// two words in with one switch on var_word, which is the same in every
+// thread: ptxas makes it a short compare tree and a jump table, no
+// divergence, a few instructions a candidate.
 template <class H>
 DISTPOW_HD void message_block(const uint32_t* base, const Layout& L, uint32_t first,
                               uint32_t second, int blk, uint32_t m[H::ROW_WORDS]) {
-  DISTPOW_UNROLL
-  for (int w = 0; w < H::ROW_WORDS; ++w) {
-    const int word = blk * H::BLOCK_WORDS + w;
-    m[w] = operand<H>(base, blk * H::ROW_WORDS + w);
-    if (w < H::BLOCK_WORDS)
-      m[w] |= (word == L.var_word ? first : 0u) | (word == L.var_word + 1 ? second : 0u);
+  if constexpr (H::BLOCK_WORDS == 32) {
+    DISTPOW_UNROLL
+    for (int w = 0; w < H::ROW_WORDS; ++w)
+      m[w] = static_cast<const volatile uint32_t*>(base)[blk * H::ROW_WORDS + w];
+    place_run32(L.var_word - blk * H::BLOCK_WORDS, first, second, m);
+  } else {
+    DISTPOW_UNROLL
+    for (int w = 0; w < H::ROW_WORDS; ++w) {
+      const int word = blk * H::BLOCK_WORDS + w;
+      m[w] = operand<H>(base, blk * H::ROW_WORDS + w);
+      if (w < H::BLOCK_WORDS)
+        m[w] |= (word == L.var_word ? first : 0u) | (word == L.var_word + 1 ? second : 0u);
+    }
   }
 }
 

@@ -104,6 +104,11 @@ DISTPOW_HD void sha512_compress(uint32_t st[16], const uint32_t m[32]) {
   }
 }
 
+// As in blake2b.cuh: the rounds are ALU-pipe work at that pipe's rate (a
+// round with its schedule word is about 24 SHF, 12 LOP3 and 10 IADD3, the
+// high limbs of two-term sums already IMAD.X), and its 32-word block
+// places the run by a switch, not by a select for each message word
+// (hash_search.cuh message_block).
 struct Sha512 {
   static constexpr int STATE_WORDS = 16;
   static constexpr int DIGEST_WORDS = 16;

@@ -6,10 +6,18 @@ ptxas gave every specialization the same registers, whether every
 specialization's SASS loop has the same length, the timed specialization's
 (mask words 2, one tail block, power-of-two run) registers, spills and
 loop instructions by pipe on each side, and the main-path launch time
-(difficulty 16, as ``operand_placement`` times it) in turns: other, this,
-this, other, each in its own process.  Both sides must agree on each
-launch's result and on a difficulty-6 first hit.  The card's name and
-power limit come first.
+(difficulty 16, as ``operand_placement`` times it) in ``PAIRS`` pairs of
+turns, each turn in its own process, the pairs in alternating order (other
+then this, this then other, ...).  Both sides must agree on each launch's
+result and on a difficulty-6 first hit.  The card's name and power limit
+come first.  "loop" is the loop body's length, "issued" and the pipe
+split what one candidate issues (a ``switch`` counts one case).
+
+Each pair gives a ratio this / other; a model's ``this_over_other`` is the
+median of its pairs.  The models whose registers and loop lengths are the
+same on both sides are the controls: their pair ratios are the spread of
+code that did not change.  A changed model is "faster" if its median lies
+below every control pair, "slower" if above every one, else "unresolved".
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc,
 with the other checkout unpacked in a directory, for example the parent
@@ -30,6 +38,8 @@ import sys
 
 from distpow_tpu_torch.tools.operand_placement import REPO, child, finish
 
+PAIRS = 6
+
 
 def build_side(proc, what: str, cs) -> dict:
     """Per kernel: ptxas per specialization and the SASS loop per
@@ -42,7 +52,8 @@ def build_side(proc, what: str, cs) -> dict:
         sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", path],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         kernels[kernel] = {"ptxas": cs.parse_ptxas(out["log"].get(kernel, "")),
-                           "loops": cs.parse_sass_loops(sass)}
+                           "loops": cs.spec_sass_loops(sass),
+                           "issued": cs.spec_sass_loops(sass, path=True)}
     return kernels
 
 
@@ -61,10 +72,12 @@ def main(argv) -> int:
     procs = {side: child(root, "build") for side, root in roots.items()}
     built = {side: build_side(proc, side, cs) for side, proc in procs.items()}
     runs = {"other": [], "this": []}
-    for side in ("other", "this", "this", "other"):
-        runs[side].append(finish(child(roots[side], "time", models), f"timing ({side})"))
+    for i in range(PAIRS):
+        for side in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            runs[side].append(finish(child(roots[side], "time", models), f"timing ({side})"))
     agree = True
     timed = (2, 1, True)
+    rows = {}
     for m in models:
         k = KERNELS[m]
         a, b = built["other"][k], built["this"][k]
@@ -73,20 +86,44 @@ def main(argv) -> int:
                    for side in runs for r in runs[side])
         agree &= same
         ms = {side: [r[m]["ms"] for r in runs[side]] for side in runs}
-        print(json.dumps({
-            "model": m, "ms": ms,
-            "this_over_other": statistics.mean(ms["this"]) / statistics.mean(ms["other"]),
+        ratios = [t / o for t, o in zip(ms["this"], ms["other"])]
+        rows[m] = {
+            "model": m, "ms": ms, "pair_ratios": ratios,
+            "this_over_other": statistics.median(ratios),
             "same_registers": {s: v["registers"] for s, v in a["ptxas"].items()} ==
                               {s: v["registers"] for s, v in b["ptxas"].items()},
             "same_loop_lengths": {s: sum(v.values()) for s, v in a["loops"].items()} ==
                                  {s: sum(v.values()) for s, v in b["loops"].items()},
             "timed": {side: {**built[side][k]["ptxas"][timed],
                              "loop": sum(built[side][k]["loops"][timed].values()),
-                             **cs.pipe_split(built[side][k]["loops"][timed])}
+                             "issued": sum(built[side][k]["issued"][timed].values()),
+                             **cs.pipe_split(built[side][k]["issued"][timed])}
                       for side in built},
-            "results_agree": same}), flush=True)
+            "results_agree": same}
+    print(json.dumps({"verdicts": verdicts(rows.values())}), flush=True)
+    for row in rows.values():
+        print(json.dumps(row), flush=True)
     print(json.dumps({"results_agree": agree}), flush=True)
     return 0 if agree else 1
+
+
+def verdicts(rows) -> dict:
+    """The controls' pair-ratio spread and, per changed model, its median
+    ratio against it."""
+    rows = list(rows)
+    control = [r for row in rows if row["same_registers"] and row["same_loop_lengths"]
+               for r in row["pair_ratios"]]
+    out = {"controls": sorted(row["model"] for row in rows
+                              if row["same_registers"] and row["same_loop_lengths"]),
+           "control_spread": [min(control), max(control)] if control else None, "changed": {}}
+    for row in rows:
+        if row["same_registers"] and row["same_loop_lengths"]:
+            continue
+        med = row["this_over_other"]
+        verdict = ("unresolved" if not control else "faster" if med < min(control)
+                   else "slower" if med > max(control) else "unresolved")
+        out["changed"][row["model"]] = {"this_over_other": med, "verdict": verdict}
+    return out
 
 
 if __name__ == "__main__":

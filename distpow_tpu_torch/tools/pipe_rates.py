@@ -1,10 +1,18 @@
 """Issue rates of the H100's integer pipes, one instruction kind at a time.
 
 ``pipe_rates.cu`` (beside this file) holds one probe kernel per kind:
-independent chains of LOP3, SHF (funnel shift), IADD3, IMAD, IMAD.HI and
-IMAD.WIDE, and the mixes LOP3+IMAD, SHF+IMAD.HI, LOP3+VIADD, SHF+IMAD and
-IMAD+VIADD, which issue the two kinds in equal numbers (ptxas folds a
-chain of VIADDs alone, so VIADD is measured only in mixes).  This script
+independent chains of LOP3, SHF (funnel shift), IADD3, IMAD, IMAD.HI,
+IMAD.WIDE and PRMT, and the mixes LOP3+IMAD, SHF+IMAD.HI, LOP3+VIADD,
+SHF+IMAD, IMAD+VIADD, PRMT+IMAD and PRMT+LOP3, which issue the two kinds in
+equal numbers (ptxas folds a chain of VIADDs alone, so VIADD is measured
+only in mixes).  Then chains of 64-bit operations: a sum of two and of
+three terms as IADD3 + IADD3.X (``ADD64``, ``ADD3_64``), with the high
+limb as IMAD.X (``.CARRY``) or through IMAD.WIDE (``.WIDE``), an XOR and a
+rotate by 24 (``XROT64``: LOP3 and SHF; ``.PRMT``: LOP3 and PRMT;
+``.HALF`` and ``.FMA``: one or both limbs of the rotate as IMAD and
+IMAD.HI), and mixes of four chains of one kind with four of another
+(``XROT64x4+...``): the forms that could move a 64-bit hash's work onto
+the FMA pipe.  This script
 builds it with nvcc, reads each probe's loop out of ``cuobjdump -sass`` (so a probe counts what
 ptxas issued, and says whether that is the instruction it names), times
 each probe on 8 blocks of 256 threads per SM for about 0.3 s a launch, and
@@ -37,23 +45,30 @@ REPO = os.path.dirname(PKG)
 SOURCE = os.path.join(PKG, "tools", "pipe_rates.cu")
 BUILD = os.path.join(PKG, "build", "pipe_rates")
 
-# pipe_probe's probe index -> name; a name with "+" alternates two kinds
+# pipe_probe's probe index -> name; a name with "+" alternates two kinds,
+# or gives "xN" chains of each 64-bit kind
 PROBES = ("LOP3", "SHF", "IADD3", "IMAD", "IMAD.HI", "IMAD.WIDE", "LOP3+IMAD", "SHF+IMAD.HI",
-          "LOP3+VIADD", "SHF+IMAD", "IMAD+VIADD")
+          "LOP3+VIADD", "SHF+IMAD", "IMAD+VIADD", "PRMT", "PRMT+IMAD", "PRMT+LOP3",
+          "ADD64", "ADD64.CARRY", "ADD64.WIDE", "ADD3_64", "ADD3_64.CARRY", "ADD3_64.WIDE",
+          "XROT64", "XROT64.PRMT", "XROT64x4+ADD64.CARRYx4", "XROT64x4+ADD64.WIDEx4",
+          "XROT64x4+ADD3_64.CARRYx4", "XROT64x4+ADD3_64.WIDEx4", "LOP3+IMAD.HI",
+          "XROT64.HALF", "XROT64.FMA", "XROT64x4+XROT64.HALFx4", "XROT64.HALFx4+XROT64.FMAx4")
+# pipe_rates.cu's Op and Op64 kinds, in enum order
+KINDS = ("LOP3", "SHF", "IADD3", "IMAD", "IMAD.HI", "VIADD", "IMAD.WIDE", "PRMT")
+KINDS64 = ("ADD64", "ADD64.CARRY", "ADD64.WIDE", "ADD3_64", "ADD3_64.CARRY", "ADD3_64.WIDE",
+           "XROT64", "XROT64.PRMT", "XROT64.HALF", "XROT64.FMA")
+# the opcodes (chip_smoke's opcode_kind) a 64-bit kind should issue
+ISSUES64 = {"ADD64": ("IADD3",), "ADD64.CARRY": ("IADD3", "IMAD.X"),
+            "ADD64.WIDE": ("IMAD.WIDE", "IMAD"), "ADD3_64": ("IADD3",),
+            "ADD3_64.CARRY": ("IADD3", "IMAD.X"), "ADD3_64.WIDE": ("IMAD.WIDE", "IMAD"),
+            "XROT64": ("LOP3", "SHF"), "XROT64.PRMT": ("LOP3", "PRMT"),
+            "XROT64.HALF": ("LOP3", "SHF", "IMAD", "IMAD.HI"),
+            "XROT64.FMA": ("LOP3", "IMAD", "IMAD.HI")}
+CHAINS, STEPS = 8, 8
 THREADS, BLOCKS_PER_SM = 256, 8
 TARGET_MS = 300.0
 REPS = 3
 K = 0x9E3779B1  # the probes' runtime operand: odd, so multiplies keep their bits moving
-
-
-def opcode_kind(op: str) -> str:
-    """A SASS opcode as the probes name it: the base opcode, and the form of
-    an IMAD (``IMAD.HI.U32`` is ``IMAD.HI``, ``IMAD.U32`` is ``IMAD``)."""
-    parts = op.split(".")
-    if parts[0] == "IMAD" and len(parts) > 1 and parts[1] in ("HI", "SHL", "MOV", "IADD",
-                                                               "WIDE", "X"):
-        return ".".join(parts[:2])
-    return parts[0]
 
 
 def build() -> str:
@@ -61,26 +76,53 @@ def build() -> str:
 
     os.makedirs(BUILD, exist_ok=True)
     lib = os.path.join(BUILD, "libpipe_rates.so")
-    subprocess.run([_build.find_cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", lib, SOURCE],
-                   check=True, capture_output=True, text=True, timeout=600)
+    subprocess.run([_build.find_cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+                    "-o", lib, SOURCE], check=True, capture_output=True, text=True, timeout=600)
     return lib
 
 
-def probe_loops(sass: str, sass_loops) -> dict:
-    """Probe index -> its loop's opcodes (``opcode_kind``), read from the
-    ``cuobjdump -sass`` listing with ``sass_loops`` (chip_smoke's)."""
-    kinds = {"0": "LOP3", "1": "SHF", "2": "IADD3", "3": "IMAD", "4": "IMAD.HI", "5": "VIADD",
-             "6": "IMAD.WIDE"}
+def probe_label(kernel: str):
+    """The PROBES name of a probe kernel's mangled name, or None."""
+    m = re.search(r"probe_kernelILi(\d)ELi(\d)E", kernel)
+    if m:
+        even, odd = KINDS[int(m.group(1))], KINDS[int(m.group(2))]
+        return even if even == odd else f"{even}+{odd}"
+    m = re.search(r"probe64_kernelILi(\d)ELi(\d)ELi(\d)E", kernel)
+    if m:
+        op0, n0, op1 = KINDS64[int(m.group(1))], int(m.group(2)), KINDS64[int(m.group(3))]
+        return op0 if n0 == CHAINS else f"{op0}x{n0}+{op1}x{CHAINS - n0}"
+    return None
+
+
+def named_kinds(probe: str):
+    """(opcode kinds the probe names, named operations per loop iteration
+    by kind): a 32-bit probe issues CHAINS * STEPS instructions of the kinds
+    it names, a 64-bit one CHAINS * STEPS operations of the ISSUES64 opcodes."""
+    parts = [m.groups() if (m := re.fullmatch(r"(.+)x(\d+)", p)) else (p, None)
+             for p in probe.split("+")]
+    kinds, ops = set(), {}
+    for kind, n in parts:
+        if kind in ISSUES64:
+            kinds.update(ISSUES64[kind])
+            ops[kind] = STEPS * (int(n) if n else CHAINS)
+        else:
+            kinds.add(kind)
+            ops[kind] = STEPS * CHAINS // len(parts)
+    return kinds, ops
+
+
+def probe_loops(sass: str, cs) -> dict:
+    """Probe index -> its loop's opcodes by kind, read from the ``cuobjdump
+    -sass`` listing with the module ``cs`` (chip_smoke): ``sass_loops`` and
+    ``opcode_kind``."""
     out = {}
-    for name, body in sass_loops(sass).items():
-        m = re.search(r"probe_kernelILi(\d)ELi(\d)E", name)
-        if not m:
+    for name, body in cs.sass_loops(sass).items():
+        label = probe_label(name)
+        if label is None:
             continue
-        even, odd = kinds[m.group(1)], kinds[m.group(2)]
-        label = even if even == odd else f"{even}+{odd}"
         ops = {}
         for op, c in body.items():
-            ops[opcode_kind(op)] = ops.get(opcode_kind(op), 0) + c
+            ops[cs.opcode_kind(op)] = ops.get(cs.opcode_kind(op), 0) + c
         out[PROBES.index(label)] = ops
     return out
 
@@ -103,7 +145,7 @@ def main() -> int:
     lib_path = build()
     sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", lib_path],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    loops = probe_loops(sass, cs.sass_loops)
+    loops = probe_loops(sass, cs)
     lib = ctypes.CDLL(lib_path)
     lib.pipe_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
                                ctypes.c_void_p, ctypes.c_void_p]
@@ -132,9 +174,11 @@ def main() -> int:
             ms = statistics.median(launch_ms(p, iters) for _ in range(REPS))
         mhz = statistics.median(clock.mhz)
         per_clock = grid * THREADS * iters / (ms * 1e-3 * mhz * 1e6 * sm_count)
+        kinds, named = named_kinds(name)
         rows.append({
             "probe": name, "loop_opcodes": ops,
-            "named_share": sum(ops.get(k, 0) for k in name.split("+")) / per_iter,
+            "named_share": sum(ops.get(k, 0) for k in kinds) / per_iter,
+            "named_per_clock_per_sm": {k: per_clock * n for k, n in named.items()},
             "iterations": iters, "ms": ms, "sm_clock_mhz": mhz, "sm_clock_readings": clock.mhz,
             "thread_instructions_per_clock_per_sm": per_clock * per_iter,
             "per_opcode_per_clock_per_sm": {k: per_clock * c for k, c in ops.items()}})

@@ -1,0 +1,211 @@
+// Formulations of the BLAKE2b-256 and SHA-512/384 rounds that move work
+// onto Hopper's FMA pipe, as hashes for the search scaffold
+// (hash_search.cuh): the designs that round_variants.py builds and times
+// beside the kernels in csrc/.  None of them is a kernel of the port.
+//
+// A variant differs from csrc/blake2b.cuh or csrc/sha512.cuh only in the
+// form of its 64-bit sums (SumForm) and rotates (RotForm, fma_forms.cuh),
+// and in the resident blocks it asks for (Resident):
+//   Blake2bAs<BlakeForms<SUM, R24, R16, R63, EVERY_OTHER>>
+//       every sum of a G in form SUM, its rotates by 24, 16 and 63 in forms
+//       R24, R16 and R63 (in every G, or with EVERY_OTHER in G 0, 2, 4 and
+//       6 of a round only, the others funnel shifts); the rotate by 32 stays
+//       a swap
+//   Sha512As<ShaForms<SUM, BIG, SMALL, SHR_FMA>, D>
+//       every sum of a round and of a schedule word in form SUM, the six
+//       Sigma rotates in form BIG, the four sigma rotates in form SMALL,
+//       with SHR_FMA the high limb of the schedule's >> 6 and >> 7 as
+//       IMAD.HI; D = 16 is SHA-512, 12 SHA-384
+// On the host the forms are plain arithmetic, so the g++ build of a
+// variant computes the csrc/ hash exactly.
+#pragma once
+
+#include <type_traits>
+
+#include "blake2b.cuh"
+#include "fma_forms.cuh"
+#include "sha512.cuh"
+
+namespace distpow {
+
+enum SumForm : int { SUM_PLAIN, SUM_CARRY, SUM_WIDE };
+
+template <int F>
+DISTPOW_HD uint64_t add64_form(uint64_t x, uint64_t y) {
+  if constexpr (F == SUM_CARRY) return add64_carry(x, y);
+  else if constexpr (F == SUM_WIDE) return add64_wide(x, y);
+  else return x + y;
+}
+
+// x >> S, 0 < S < 32, with the high limb as IMAD.HI (shr_fma) or not
+template <bool FMA, int S>
+DISTPOW_HD uint64_t shr64_form(uint64_t x) {
+  if constexpr (FMA) {
+    const uint32_t lo = (uint32_t)(x >> S), hi = shr_fma((uint32_t)(x >> 32), S);
+    return (uint64_t)hi << 32 | lo;
+  } else {
+    return x >> S;
+  }
+}
+
+// A hash that asks for N resident blocks: hash_search.cuh gives it
+// resident_hash_search_kernel and reads its operands anew per candidate.
+template <class H, int N>
+struct Resident : H {
+  static constexpr int MIN_BLOCKS_PER_SM = N;
+};
+
+// ---- BLAKE2b-256 -------------------------------------------------------
+
+// (all int keys: chip_smoke.py reads a kernel's own keys from its mangled
+// name as int, int, bool)
+template <int SUM_, int R24_, int R16_, int R63_, int EVERY_OTHER_>
+struct BlakeForms {
+  static constexpr int SUM = SUM_, R24 = R24_, R16 = R16_, R63 = R63_;
+  static constexpr bool EVERY_OTHER = EVERY_OTHER_ != 0;
+};
+
+// blake2b.cuh's blake2b_g in the forms of P (ROUTE false: rotates as
+// funnel shifts)
+template <class P, bool ROUTE>
+DISTPOW_HD void blake2b_g_as(uint64_t& a, uint64_t& b, uint64_t& c, uint64_t& d, uint64_t x,
+                             uint64_t y) {
+  constexpr int R24 = ROUTE ? P::R24 : ROT_SHF, R16 = ROUTE ? P::R16 : ROT_SHF,
+                R63 = ROUTE ? P::R63 : ROT_SHF;
+  a = add64_form<P::SUM>(add64_form<P::SUM>(a, b), x);
+  d = rotr64(d ^ a, 32);
+  c = add64_form<P::SUM>(c, d);
+  b = rotr64_form<R24, 24>(b ^ c);
+  a = add64_form<P::SUM>(add64_form<P::SUM>(a, b), y);
+  d = rotr64_form<R16, 16>(d ^ a);
+  c = add64_form<P::SUM>(c, d);
+  b = rotr64_form<R63, 63>(b ^ c);
+}
+
+template <class P, int R, uint32_t LIVE>
+DISTPOW_HD void blake2b_rounds_as(uint64_t v[16], const uint64_t m[16]) {
+  if constexpr (R < 12) {
+    DISTPOW_UNROLL
+    for (int g = 0; g < 8; ++g) {
+      if (R < 11 || g < 4 || blake2b_g_live(g, LIVE)) {
+        uint64_t &a = v[blake2b_lane(g, 0)], &b = v[blake2b_lane(g, 1)],
+                 &c = v[blake2b_lane(g, 2)], &d = v[blake2b_lane(g, 3)];
+        const uint64_t x = m[blake2b_sigma(R, 2 * g)], y = m[blake2b_sigma(R, 2 * g + 1)];
+        if (P::EVERY_OTHER && g % 2) blake2b_g_as<P, false>(a, b, c, d, x, y);
+        else blake2b_g_as<P, true>(a, b, c, d, x, y);
+      }
+    }
+    blake2b_rounds_as<P, R + 1, LIVE>(v, m);
+  }
+}
+
+// blake2b.cuh's blake2b_compress over blake2b_rounds_as
+template <class P, uint32_t LIVE>
+DISTPOW_HD void blake2b_compress_as(uint32_t st[16], const uint32_t m[36]) {
+  uint64_t h[8], v[16], w[16];
+  DISTPOW_UNROLL
+  for (int i = 0; i < 8; ++i) {
+    h[i] = ((uint64_t)st[2 * i + 1] << 32) | st[2 * i];
+    v[i] = h[i];
+    v[i + 8] = blake2b_iv(i);
+  }
+  DISTPOW_UNROLL
+  for (int i = 0; i < 16; ++i) w[i] = ((uint64_t)m[2 * i + 1] << 32) | m[2 * i];
+  v[12] ^= ((uint64_t)m[33] << 32) | m[32];
+  v[14] ^= ((uint64_t)m[35] << 32) | m[34];
+  blake2b_rounds_as<P, 0, LIVE>(v, w);
+  DISTPOW_UNROLL
+  for (int j = 0; j < 8; ++j) {
+    if (LIVE >> j & 1) {
+      const uint64_t out = h[j] ^ v[j] ^ v[j + 8];
+      st[2 * j] = (uint32_t)out;
+      st[2 * j + 1] = (uint32_t)(out >> 32);
+    }
+  }
+}
+
+template <class P>
+struct Blake2bAs : Blake2b_256 {
+  static DISTPOW_HD void block(uint32_t st[16], const uint32_t m[36]) {
+    blake2b_compress_as<P, 0xFFu>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[16], const uint32_t m[36]) {
+    blake2b_compress_as<P, 0xFu & (0xFu << (8 - MW) / 2)>(st, m);
+  }
+};
+
+// ---- SHA-512 and SHA-384 -----------------------------------------------
+
+template <int SUM_, int BIG_, int SMALL_, int SHR_FMA_>
+struct ShaForms {
+  static constexpr int SUM = SUM_, BIG = BIG_, SMALL = SMALL_;
+  static constexpr bool SHR_FMA = SHR_FMA_ != 0;
+};
+
+// sha512.cuh's sha512_rounds in the forms of P
+template <class P, int R, int MAX_A, int MAX_E>
+DISTPOW_HD void sha512_rounds_as(uint64_t* A, uint64_t* E, uint64_t* w) {
+  constexpr int S = P::SUM, B = P::BIG, L = P::SMALL;
+  if constexpr (R <= MAX_E) {
+    if constexpr (R >= 16) {
+      const uint64_t w15 = w[R - 15], w2 = w[R - 2];
+      const uint64_t s1 = rotr64_form<L, 19>(w2) ^ rotr64_form<L, 61>(w2) ^
+                          shr64_form<P::SHR_FMA, 6>(w2);
+      const uint64_t s0 = rotr64_form<L, 1>(w15) ^ rotr64_form<L, 8>(w15) ^
+                          shr64_form<P::SHR_FMA, 7>(w15);
+      w[R] = add64_form<S>(add64_form<S>(add64_form<S>(s1, w[R - 7]), s0), w[R - 16]);
+    }
+    const uint64_t e1 = E[R + 3], f1 = E[R + 2], g1 = E[R + 1], h1 = E[R];
+    constexpr uint64_t k = sha512_k(R);
+    const uint64_t big1 = rotr64_form<B, 14>(e1) ^ rotr64_form<B, 18>(e1) ^ rotr64_form<B, 41>(e1);
+    const uint64_t t1 = add64_form<S>(add64_form<S>(add64_form<S>(h1, big1),
+                                                    (e1 & f1) ^ (~e1 & g1)),
+                                      add64_form<S>(k, w[R]));
+    E[R + 4] = add64_form<S>(A[R], t1);
+    if constexpr (R <= MAX_A) {
+      const uint64_t a1 = A[R + 3], b1 = A[R + 2], c1 = A[R + 1];
+      const uint64_t big0 =
+          rotr64_form<B, 28>(a1) ^ rotr64_form<B, 34>(a1) ^ rotr64_form<B, 39>(a1);
+      A[R + 4] = add64_form<S>(add64_form<S>(t1, big0), (a1 & b1) ^ (a1 & c1) ^ (b1 & c1));
+    }
+    sha512_rounds_as<P, R + 1, MAX_A, MAX_E>(A, E, w);
+  }
+}
+
+// sha512.cuh's sha512_compress over sha512_rounds_as
+template <class P, int D, int MW>
+DISTPOW_HD void sha512_compress_as(uint32_t st[16], const uint32_t m[32]) {
+  constexpr int J0 = (D - MW) / 2;
+  constexpr int MAX_E = J0 < 4 ? 79 : 83 - J0;
+  constexpr int MAX_A = 79 - J0;
+  uint64_t h[8], w[MAX_E + 1], A[MAX_A + 5], E[MAX_E + 5];
+  DISTPOW_UNROLL
+  for (int i = 0; i < 8; ++i) h[i] = ((uint64_t)st[2 * i] << 32) | st[2 * i + 1];
+  DISTPOW_UNROLL
+  for (int i = 0; i < 16; ++i) w[i] = ((uint64_t)m[2 * i] << 32) | m[2 * i + 1];
+  A[0] = h[3]; A[1] = h[2]; A[2] = h[1]; A[3] = h[0];
+  E[0] = h[7]; E[1] = h[6]; E[2] = h[5]; E[3] = h[4];
+  sha512_rounds_as<P, 0, MAX_A, MAX_E>(A, E, w);
+  DISTPOW_UNROLL
+  for (int j = J0; j < D / 2; ++j) {
+    const uint64_t v = h[j] + (j < 4 ? A[83 - j] : E[87 - j]);
+    st[2 * j] = (uint32_t)(v >> 32);
+    st[2 * j + 1] = (uint32_t)v;
+  }
+}
+
+template <class P, int D>
+struct Sha512As : std::conditional_t<D == 16, Sha512, Sha384> {
+  static DISTPOW_HD void block(uint32_t st[16], const uint32_t m[32]) {
+    sha512_compress_as<P, 16, 16>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[16], const uint32_t m[32]) {
+    sha512_compress_as<P, D, MW>(st, m);
+  }
+};
+
+}  // namespace distpow

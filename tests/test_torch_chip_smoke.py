@@ -80,7 +80,7 @@ def test_parsers_read_both_kernel_name_forms():
         (16, 2, True): {"registers": 168, "spill_bytes": 0},
     }
     # the loop body between the backward branch and its target, NOPs excluded
-    assert cs.parse_sass_loops(SASS) == {(8, 1, True): {"IADD3": 1, "LOP3": 1, "BRA": 1}}
+    assert cs.spec_sass_loops(SASS) == {(8, 1, True): {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
 
 
 def test_needed_ops_of_the_timed_launches():
@@ -116,8 +116,8 @@ PROBE_SASS = """
 
 def test_sass_loops_keep_modifiers_and_split_by_pipe():
     """``sass_loops`` keeps each opcode's modifiers (what the pipe probe
-    checks), ``parse_sass_loops`` drops them, and ``pipe_split`` counts a
-    loop by the pipe each opcode issues to."""
+    checks), and ``pipe_split`` counts a loop by the pipe each opcode
+    issues to, with or without modifiers."""
     cs = _load()
     assert cs.sass_loops(SASS) == {
         "_ZN7distpow18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEvPKjS3_S3_NS_6LayoutEjPj":
@@ -126,7 +126,89 @@ def test_sass_loops_keep_modifiers_and_split_by_pipe():
     assert loops == {"_Z12probe_kernelILi1ELi4EEvjjPj": {
         "SHF.L.W.U32.HI": 1, "IMAD.HI.U32": 1, "VIADD": 1, "ISETP.GE.U32.AND": 1, "BRA": 1}}
     assert cs.pipe_split({"IMAD": 3, "VIADD": 1, "LOP3": 5, "SHF": 2, "ISETP": 1, "BRA": 1,
-                          "LDS": 2}) == {"alu": 8, "fma": 4, "other": 3}
+                          "LDS": 2}) == {"alu": 8, "fma": 4, "fma_slots": 4, "other": 3}
+
+
+ROUTED_SASS = """
+        Function : _ZN7distpow27resident_hash_search_kernelINS_11Blake2b_256ELi2ELi1ELb1EEEvPKjS3_S3_NS_6LayoutEjPj
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_3:
+        /*0010*/                   IMAD.WIDE.U32 R4, R2, c[0x3][0x0], R4 ;
+        /*0020*/                   IMAD R5, R3, c[0x3][0x0], R5 ;
+        /*0030*/                   IADD3 R6, P0, R6, R8, RZ ;
+        /*0040*/                   IMAD.X R7, R7, c[0x3][0x0], R9, P0 ;
+        /*0050*/                   IMAD.HI.U32 R10, R10, c[0x3][0x68], RZ ;
+        /*0060*/                   IMAD.WIDE.U32 R14, R2, c[0x3][0x0], R14 ;
+        /*0070*/                   LOP3.LUT R11, R4, R6, RZ, 0x3c, !PT ;
+        /*0080*/                   SHF.R.W.U32 R12, R11, 0x18, R5 ;
+        /*0090*/                   LDS R13, [UR4+0x10] ;
+        /*00a0*/                   VIADD R0, R0, 0x1 ;
+        /*00b0*/               @P1 BRA `(.L_x_3) ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_fma_pipe_slots_weigh_half_rate_opcodes():
+    """``pipe_split`` reads the IMAD forms from a loop with modifiers:
+    IMAD.HI and IMAD.WIDE take two FMA-pipe slots, IMAD, IMAD.X and VIADD
+    one.  ``pipe_ms``
+    then shows the pipe that sets the pace: here the FMA pipe's 9 slots a
+    hash against 3 ALU-pipe instructions."""
+    cs = _load()
+    loops = cs.spec_sass_loops(ROUTED_SASS)
+    loop = loops[(2, 1, True)]
+    assert loop["IMAD.WIDE.U32"] == 2 and loop["IMAD.X"] == 1 and loop["IMAD.HI.U32"] == 1
+    pipes = cs.pipe_split(loop)
+    assert pipes == {"alu": 3, "fma": 6, "fma_slots": 9, "other": 2}
+    # 64 thread results a clock per SM on each pipe: one clock a second on
+    # one SM hashes 64 candidates of the loop in 3 / 64 s and 9 / 64 s
+    ms = cs.pipe_ms(pipes, 64, 1.0)
+    assert ms == {"alu_pipe_ms": 3000.0, "fma_pipe_ms": 9000.0}
+
+
+SWITCH_SASS = """
+        Function : _ZN7distpow18hash_search_kernelINS_6Sha512ELi2ELi1ELb1EEEvPKjS3_S3_NS_6LayoutEjPj
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_5:
+        /*0010*/                   LDS R4, [R20+0x4] ;
+        /*0020*/                   ISETP.GT.AND P1, PT, R62, 0x2, PT ;
+        /*0030*/               @P1 BRA `(.L_x_6) ;
+        /*0040*/                   VIMNMX.U32 R61, R62, 0x2, PT ;
+        /*0050*/                   LDC R62, c[0x2][R61+0xc] ;
+        /*0060*/                   BRX R62 -0x70 ;
+        /*0070*/                   LOP3.LUT R31, R31, R60, RZ, 0xfc, !PT ;
+        /*0080*/                   LOP3.LUT R30, R30, R59, RZ, 0xfc, !PT ;
+        /*0090*/                   BRA `(.L_x_7) ;
+        /*00a0*/                   LOP3.LUT R30, R30, R60, RZ, 0xfc, !PT ;
+        /*00b0*/                   BRA `(.L_x_7) ;
+.L_x_6:
+        /*00c0*/                   LOP3.LUT R29, R29, R60, RZ, 0xfc, !PT ;
+        /*00d0*/                   BRA `(.L_x_7) ;
+.L_x_7:
+        /*00e0*/                   SHF.L.W.U32.HI R2, R31, 0x8, R30 ;
+        /*00f0*/                   IADD3 R3, P0, R2, R29, RZ ;
+        /*0100*/                   IMAD.X R4, R4, 0x1, R5, P0 ;
+        /*0110*/               @P2 BRA `(.L_x_5) ;
+        /*0120*/                   EXIT ;
+"""
+
+
+def test_issued_path_counts_one_switch_case():
+    """A switch in the loop (a compare tree, a jump table, cases that jump
+    to one merge point) is counted whole in the loop body, but one candidate
+    issues one case: ``path`` follows the fall-through path, unconditional
+    forward branches and the jump table's first case.  A loop without such
+    jumps issues its whole body."""
+    cs = _load()
+    whole = cs.spec_sass_loops(SWITCH_SASS)[(2, 1, True)]
+    issued = cs.spec_sass_loops(SWITCH_SASS, path=True)[(2, 1, True)]
+    assert sum(whole.values()) == 17
+    # the tree's untaken branch, case 0's jump to the merge, the loop's branch
+    assert issued == {"LDS": 1, "ISETP.GT.AND": 1, "BRA": 3, "VIMNMX.U32": 1, "LDC": 1,
+                      "BRX": 1, "LOP3.LUT": 2, "SHF.L.W.U32.HI": 1, "IADD3": 1, "IMAD.X": 1}
+    assert cs.pipe_split(issued) == {"alu": 5, "fma": 1, "fma_slots": 1, "other": 7}
+    for listing in (SASS, PROBE_SASS, ROUTED_SASS):
+        assert cs.sass_loops(listing, path=True) == cs.sass_loops(listing)
 
 
 def test_pipe_probe_names_what_ptxas_issued():
@@ -134,10 +216,31 @@ def test_pipe_probe_names_what_ptxas_issued():
     counts the loop in the probes' own opcode kinds."""
     from distpow_tpu_torch.tools import pipe_rates
 
-    assert pipe_rates.opcode_kind("IMAD.HI.U32") == "IMAD.HI"
-    assert pipe_rates.opcode_kind("IMAD.WIDE.U32") == "IMAD.WIDE"
-    assert pipe_rates.opcode_kind("IMAD.U32") == "IMAD"
-    assert pipe_rates.opcode_kind("SHF.L.W.U32.HI") == "SHF"
-    loops = pipe_rates.probe_loops(PROBE_SASS, _load().sass_loops)
+    cs = _load()
+    assert cs.opcode_kind("IMAD.HI.U32") == "IMAD.HI"
+    assert cs.opcode_kind("IMAD.WIDE.U32") == "IMAD.WIDE"
+    assert cs.opcode_kind("IMAD.U32") == "IMAD"
+    assert cs.opcode_kind("SHF.L.W.U32.HI") == "SHF"
+    loops = pipe_rates.probe_loops(PROBE_SASS, cs)
     assert loops == {pipe_rates.PROBES.index("SHF+IMAD.HI"): {
         "SHF": 1, "IMAD.HI": 1, "VIADD": 1, "ISETP": 1, "BRA": 1}}
+
+
+@pytest.mark.parametrize("kernel,label,kinds", [
+    ("_Z14probe64_kernelILi1ELi8ELi1EEvjjPj", "ADD64.CARRY", {"IADD3", "IMAD.X"}),
+    ("_Z14probe64_kernelILi5ELi8ELi5EEvjjPj", "ADD3_64.WIDE", {"IMAD.WIDE", "IMAD"}),
+    ("_Z14probe64_kernelILi6ELi4ELi2EEvjjPj", "XROT64x4+ADD64.WIDEx4",
+     {"LOP3", "SHF", "IMAD.WIDE", "IMAD"}),
+    ("_Z12probe_kernelILi7ELi3EEvjjPj", "PRMT+IMAD", {"PRMT", "IMAD"}),
+])
+def test_pipe_probe_names_64_bit_and_prmt_probes(kernel, label, kinds):
+    """The 64-bit chain probes and the byte-permute probes are named from
+    their kernels' template keys, and each names the opcodes it should
+    issue and how many of its operations a loop iteration holds."""
+    from distpow_tpu_torch.tools import pipe_rates
+
+    assert pipe_rates.probe_label(kernel) == label
+    assert label in pipe_rates.PROBES
+    named, per_iteration = pipe_rates.named_kinds(label)
+    assert named == kinds
+    assert sum(per_iteration.values()) == pipe_rates.CHAINS * pipe_rates.STEPS

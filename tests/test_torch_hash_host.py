@@ -434,3 +434,120 @@ def test_keccak_in_place_matches_reference(keccak_twin, mask):
         assert a[live].tolist() == b[live].tolist(), trial
         if mask == 0x1FFFFFF:
             assert a.tolist() == keccak_f([int(v) for v in state]), trial
+
+
+def _wide_width_cases():
+    """(model, mask words, tail): blake2b_256, sha512 and sha384 at mask
+    words 1-4 and their full digest, one and two tail blocks."""
+    out = []
+    for name in ("blake2b_256", "sha512", "sha384"):
+        d = get_hash_model(name).digest_words
+        out += [(name, mw, tail) for mw in (1, 2, 3, 4, d) for tail in ("one_block", "two_blocks")]
+    return out
+
+
+@pytest.mark.parametrize("name,mask_words,tail", _wide_width_cases())
+def test_wide_twin_first_hit_every_width(twins, name, mask_words, tail):
+    """The 64-bit hashes, which place the run by a switch on var_word:
+    their first hit is the plain step's at every width 0-4 (exact: an
+    integer index), on power-of-two and other thread-byte counts."""
+    from distpow_tpu_torch.ops.search_step import plain_search_w0
+
+    model = get_hash_model(name)
+    rng = np.random.default_rng(11 * mask_words + len(name) + (tail == "two_blocks"))
+    # two blocks: a run that starts at the end of the first block and, from
+    # width 2 (blake2b_256: 1), crosses into the second; a blake2b_256 tail
+    # of 128 bytes or fewer is one block, so its width 0 is
+    two = name != "blake2b_256"
+    nonce_len = 9 if tail == "one_block" else model.block_bytes - (2 if two else 1)
+    nonce = rng.integers(0, 256, size=nonce_len, dtype=np.uint8).tobytes()
+    for width in range(5):
+        spec = build_tail_spec(nonce, width, model)
+        assert spec.n_blocks == (2 if tail == "two_blocks" and (two or width) else 1), width
+        masks = [0] * mask_words
+        for b in rng.choice(32 * mask_words, size=7, replace=False):
+            masks[int(b) // 32] |= 1 << (int(b) % 32)
+        for tb_lo, tbc in ((0, 128), (40, 80)):
+            ops = make_operands(spec.init_state, spec.base_words, masks, tb_lo, tbc, "cpu")
+            if width == 0:
+                chunk0, batch = 0, tbc
+                want = u32_value(plain_search_w0(ops, spec.tb_loc, spec.chunk_locs, model=model))
+            else:
+                chunk0, batch = (3 if width == 1 else 300), 12 * tbc
+                want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
+                                              model=model))
+            init, init_p = _arr(spec.init_state)
+            base, base_p = _arr(spec.base_words)
+            m, m_p = _arr(masks)
+            layout = _layout(spec, model, chunk0, tb_lo, tbc)
+            got = twins[name].host_search(spec.n_blocks, mask_words, init_p, base_p, m_p,
+                                          *layout, batch)
+            assert got == want, (width, tb_lo, tbc)
+
+
+# The run placed into a tail block's row by the switch on var_word
+# (hash_search.cuh message_block, place_run32): a struct with the 64-bit
+# hashes' block width and either row width.
+PLACE_SOURCE = r"""
+#include "hash_search.cuh"
+using namespace distpow;
+
+template <int ROW>
+struct Row {
+  static constexpr int BLOCK_WORDS = 32, ROW_WORDS = ROW;
+};
+
+extern "C" int place(int row_words, int var_word, int blk, uint32_t first, uint32_t second,
+                     const uint32_t* base, uint32_t* m) {
+  Layout L{0, 0, 1, 0, var_word, 0, 0};
+  if (row_words == 32) message_block<Row<32>>(base, L, first, second, blk, m);
+  else if (row_words == 36) message_block<Row<36>>(base, L, first, second, blk, m);
+  else return 1;
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def place_twin(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host twins cannot be built")
+    d = tmp_path_factory.mktemp("place_twin")
+    src, lib = d / "place.cpp", d / "libplace.so"
+    src.write_text(PLACE_SOURCE)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-o",
+                           str(lib), str(src)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    dll = ctypes.CDLL(str(lib))
+    u32 = ctypes.c_uint32
+    dll.place.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, u32, u32, U32P, U32P]
+    dll.place.restype = ctypes.c_int
+    return dll
+
+
+@pytest.mark.parametrize("row_words", [32, 36])  # sha512/sha384 and blake2b_256 rows
+@pytest.mark.parametrize("blk", [0, 1])
+def test_switch_placement_matches_selects(place_twin, row_words, blk):
+    """The switch on var_word places the run's two words where a plain
+    per-word placement does (word 32 * blk + w gets first if it is
+    var_word, second if it is var_word + 1), for every var_word of a
+    two-block tail (and past it), in either block, with the parameter
+    words of a 36-word row untouched: a run in one block, one that crosses
+    into the next, one in the other block (exact)."""
+    rng = np.random.default_rng(row_words + blk)
+    base = rng.integers(0, 1 << 32, size=2 * row_words, dtype=np.uint64).astype(np.uint32)
+    base_a, base_p = _arr(base)
+    row = base[blk * row_words:(blk + 1) * row_words]
+    placed = 0
+    for var_word in range(-1, 66):
+        first, second = (int(v) for v in rng.integers(1, 1 << 32, size=2, dtype=np.uint64))
+        want = row.copy()
+        for w in range(32):
+            word = 32 * blk + w
+            want[w] |= (first if word == var_word else 0) | (second if word == var_word + 1 else 0)
+        m, m_p = _arr([0] * row_words)
+        assert place_twin.place(row_words, var_word, blk, first, second, base_p, m_p) == 0
+        assert m.tolist() == want.tolist(), var_word
+        placed += m.tolist() != row.tolist()
+    assert placed == 33  # var_word 32 * blk - 1 .. 32 * blk + 31 touch the block
