@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's mining path on one NVIDIA GPU, for every
 hash model, each through its own CUDA kernel: md5, sha256, sha256d, sha1,
-ripemd160, sha512, sha384, sha3_256, blake2b_256.
+ripemd160, sha512, sha384, sha3_256, blake2b_256; and the batching
+scheduler, through each model's group kernel.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``distpow_tpu_torch/csrc`` (one nvcc per source, all
@@ -13,9 +14,22 @@ with the launch counts set to 0 just before and read just after
 (``mine``), and times the kernel and the plain version on the same
 main-path launch, whose results must agree (``rate``; it also gives the
 timed loop's instructions by pipe and the SM clock during the timed
-launches).  md5's phases keep their names
-(``kernel_parity``, ``full_parity``, ``mine``, ``cancel``, ``rate``); the
-other models' carry the model's name as a suffix.  Every phase prints one
+launches).  The group kernels (the scheduler's search of a group of slots
+in one launch): ``group_parity`` holds each against the plain group step
+on random slot sets, and ``rate_group`` times one engine launch of 8 slots
+(the kernel with CUDA events, the engine's launches by wall clock, the
+device's idle share).  md5's phases keep their names
+(``kernel_parity``, ``full_parity``, ``mine``, ``cancel``, ``rate``,
+``group_parity``, ``rate_group``); the other models' carry the model's
+name as a suffix.  Then the scheduler serves concurrent requests through
+``BatchingScheduler`` with the counts set to 0 just before and read just
+after: ``sched_md5`` (8 requests from 8 threads), ``sched_mixed`` (seven
+models in shared launches, and sha512 refused), ``sched_sha512`` and
+``sched_sha384`` (the wide kernels as the default model), each secret
+checked with hashlib and against the solo backend's; ``sched_cancel``
+cancels a request in flight, and times the cancel of a first request made
+after ``CudaBackend.warmup`` in a fresh process with a fresh build
+directory.  Every phase prints one
 JSON line; the line before the card's name lists every kernel; the last
 line, printed only when every phase passed, is ``{"ok": true, "device":
 {...}}``.  It imports neither JAX nor the JAX package.  Long outputs (the
@@ -34,6 +48,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -45,6 +60,8 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha512", "sha384", "sha3_256",
           "blake2b_256")
+# the TPU code every group kernel replaces
+REPLACES_GROUP = "distpow_tpu/sched/lanes.py:143"
 # model -> the TPU code its kernel replaces (distpow_tpu/ops/md5_pallas.py:
 # the scaffold _dyn_pallas_step, ported with md5, and each model's tile)
 REPLACES = {"md5": "distpow_tpu/ops/md5_pallas.py:698",
@@ -99,11 +116,58 @@ FMA_TWO_SLOTS = frozenset({"IMAD.HI", "IMAD.WIDE"})
 MAIN_BATCH, MAIN_CHUNK0 = 1 << 20, 1 << 24
 
 RATE_LAUNCHES = 10
+# kernel_parity: candidates the plain version evaluates in one call
+JUDGE_CANDIDATES = 1 << 21
 RATE_DIFFICULTY = 16
 # full_parity: nonces tried for a difficulty-7 first hit deep in the launch
 FULL_PARITY_TRIES = 256
 # mine: difficulties solved per model; the first is also held to python_search
 MINE_DIFFICULTIES = {m: (5, 6, 8) if m == "md5" else (3, 6, 8) for m in MODELS}
+# group_parity: slots per launch, power-of-two runs (log2), candidates per
+# slot (log2), and the width cases: 0-4, and 5 (a width-4 run below one
+# fixed high byte)
+GROUP_SLOTS = (1, 3, 8)
+GROUP_LOG_TBC = (0, 1, 4, 8)
+GROUP_LOG_BATCH = (12, 13, 14, 15, 16)
+GROUP_WIDTHS = (0, 1, 2, 3, 4, 5)
+# the scheduler's serving size: the worker's default BatchSize and SchedMaxSlots
+SCHED_BATCH, SCHED_SLOTS = 1 << 20, 8
+# rate_group: seconds the engine runs 8 difficulty-16 slots
+RATE_GROUP_WINDOW_S = 2.0
+SCHED_SEED = 20261017
+# sched_mixed: md5 (the default) and the models it admits besides
+MIXED_MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha3_256", "blake2b_256")
+
+# sched_cancel: run in a fresh process with a fresh build directory
+# (DISTPOW_TORCH_BUILD_DIR): CudaBackend.warmup builds and loads md5's
+# library and launches each layout once, then a difficulty-16 request is
+# cancelled 0.5 s after it starts; prints one JSON line.
+WARM_CANCEL = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from distpow_tpu_torch.backends.cuda_backend import CudaBackend
+from distpow_tpu_torch.ops import _build
+empty = not (os.path.isdir(_build.BUILD_DIR) and os.listdir(_build.BUILD_DIR))
+t0 = time.monotonic()
+backend = CudaBackend(hash_model="md5")
+backend.warmup([4], [0, 1, 2, 3, 4])
+warmup_s, build_s = time.monotonic() - t0, _build.last_build_s
+flagged = []
+t1 = time.monotonic()
+def cancel_check():
+    if time.monotonic() - t1 > 0.5:
+        flagged.append(time.monotonic())
+        return True
+    return False
+res = backend.search(bytes([9, 9, 9, 9]), 16, range(256), cancel_check)
+t_ret = time.monotonic()
+torch.cuda.synchronize()
+print(json.dumps({"build_dir_was_empty": empty, "warmup_s": warmup_s, "build_s": build_s,
+                  "returned": None if res is None else res.hex(),
+                  "time_to_cancel_s": t_ret - t1 - 0.5, "poll_to_return_s": t_ret - flagged[0],
+                  "return_s": t_ret - t1}))
+"""
 # message word of MD5 round i
 MD5_G = tuple(i if i < 16 else (5 * i + 1) % 16 if i < 32 else (3 * i + 5) % 16 if i < 48
               else (7 * i) % 16 for i in range(64))
@@ -163,6 +227,33 @@ class Smoke:
 # or (resident_)hash_search_kernel<Hash, MW, NB, POW2>; MW has two digits for
 # the full digests of sha512 (16) and sha384 (12)
 KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
+
+
+# A group kernel's key in its mangled name: md5_group_search_kernel<NB> or
+# (resident_)hash_group_search_kernel<Hash, NB>
+GROUP_KEY = r"group_search_kernelI(?:N\w*?E)?Li(\d)EE"
+
+
+def parse_group_ptxas(log: str):
+    """Per group kernel specialization ``n_blocks``: registers and spill
+    bytes, from nvcc's ``-Xptxas -v`` output."""
+    out = {}
+    pattern = (GROUP_KEY + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+               r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
+    for nb, _, st, ld, regs in re.findall(pattern, log):
+        out[int(nb)] = {"registers": int(regs), "spill_bytes": int(st) + int(ld)}
+    return out
+
+
+def group_sass_loops(sass: str, path: bool = False):
+    """Per group kernel specialization ``n_blocks``: its loop's opcodes, as
+    ``spec_sass_loops`` gives the solo kernels'."""
+    out = {}
+    for name, body in sass_loops(sass, path).items():
+        m = re.search(GROUP_KEY, name)
+        if m:
+            out[int(m.group(1))] = body
+    return out
 
 
 def spec_label(key) -> str:
@@ -633,8 +724,14 @@ def main() -> int:
                                                  hash_search, kernel_mask_words)
     from distpow_tpu_torch.ops.operands import make_operands, u32_value
     from distpow_tpu_torch.ops.packing import build_tail_spec
+    from distpow_tpu_torch.ops.difficulty import nibble_masks
+    from distpow_tpu_torch.ops.hash_cuda import hash_group_search
+    from distpow_tpu_torch.ops.operands import group_operands
     from distpow_tpu_torch.ops.search_step import (
-        SENTINEL, mask_words_for, plain_search, plain_search_w0, step_operands)
+        SENTINEL, mask_words_for, plain_first_hits, plain_group_search, plain_search,
+        step_operands)
+    from distpow_tpu_torch.runtime.metrics import Metrics
+    from distpow_tpu_torch.sched import BatchingScheduler
     from distpow_tpu_torch.parallel.partition import thread_bytes, worker_bits
     from distpow_tpu_torch.parallel.search import launch_steps_for
     from distpow_tpu_torch.runtime.metrics import REGISTRY
@@ -668,8 +765,10 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------
     # kernel -> {(mask_words, n_blocks, pow2): SASS loop opcodes}: the whole
-    # loop body, and what one candidate issues (spec_sass_loops)
+    # loop body, and what one candidate issues (spec_sass_loops); the group
+    # kernels' by n_blocks
     loops, issued = {}, {}
+    group_loops, group_issued = {}, {}
 
     def build():
         paths = _build.build()
@@ -678,7 +777,7 @@ def main() -> int:
         log = "\n".join(f"== {k}\n{v}" for k, v in build_log.items())
         with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as fh:
             fh.write(log)
-        ptxas, loop_counts = {}, {}
+        ptxas, loop_counts, group_info = {}, {}, {}
         for model_name in MODELS:
             kernel = KERNELS[model_name]
             # md5: mask words 1-4; the others 1-4 and the full digest
@@ -699,6 +798,22 @@ def main() -> int:
                                    f"{kernel} specializations")
             loop_counts[kernel] = {spec_label(k): sum(v.values())
                                    for k, v in sorted(loops[kernel].items())}
+            # the group kernel, one specialization per tail length: the solo
+            # kernel's full-digest power-of-two body, beside which it is shown
+            gspecs = parse_group_ptxas(build_log.get(kernel, ""))
+            group_loops[kernel] = group_sass_loops(sass)
+            group_issued[kernel] = group_sass_loops(sass, path=True)
+            if (build_log and len(gspecs) != 2) or len(group_loops[kernel]) != 2:
+                raise RuntimeError(f"{kernel}: ptxas reported {len(gspecs)} and the SASS "
+                                   f"{len(group_loops[kernel])} of 2 group kernels")
+            full = 4 if model_name == "md5" else get_hash_model(model_name).digest_words
+            group_info[kernel] = {
+                f"nb{nb}": {**gspecs.get(nb, {}),
+                            "loop_instructions": sum(group_loops[kernel][nb].values()),
+                            "solo_full_digest": {
+                                **ptxas[kernel].get(spec_label((full, nb, True)), {}),
+                                "loop_instructions": sum(loops[kernel][(full, nb, True)].values())}}
+                for nb in (1, 2)}
             _build.load_library(kernel)
         # what one candidate of the timed specialization issues, by opcode
         # (ISETP and SEL are the byte placement against the runtime layout;
@@ -713,7 +828,9 @@ def main() -> int:
                                                   for k, v in paths.items()},
                 "ptxas": ptxas, "loop_instructions": loop_counts,
                 "timed_loop_opcodes": timed,
-                "timed_loop_pipes": {k: pipe_split(issued[k][(2, 1, True)]) for k in issued}}
+                "timed_loop_pipes": {k: pipe_split(issued[k][(2, 1, True)]) for k in issued},
+                "group_kernels": group_info,
+                "group_loop_pipes": {k: pipe_split(group_issued[k][1]) for k in group_issued}}
 
     smoke.phase("build", build, needs=("device",))
 
@@ -759,14 +876,14 @@ def main() -> int:
                     cases.append((f"mask{mw}_n{n_len}_tbc{tbc}_bits{bits}", ops, spec, 70000,
                                   chunks * tbc, 3, grid))
         mismatches, hits, max_err = [], 0, 0
-        for label, ops, spec, chunk0, batch, steps, grid in cases:
-            got = sync_value(hash_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
-                                         steps, device=dev, grid=grid))
-            if spec.width == 0:
-                want = u32_value(plain_search_w0(ops, spec.tb_loc, spec.chunk_locs, model=model))
-            else:
-                want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0,
-                                              batch, steps, model=model))
+        kernel_out = [hash_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
+                                  device=dev, grid=grid)
+                      for _, ops, spec, chunk0, batch, steps, grid in cases]
+        torch.cuda.synchronize()
+        plain = judge_cases(model, [(ops, spec, chunk0, batch * steps)
+                                    for _, ops, spec, chunk0, batch, steps, _ in cases])
+        for (label, *_), got, want in zip(cases, kernel_out, plain):
+            got = u32_value(got)
             hits += want != SENTINEL
             max_err = max(max_err, abs(got - want))
             if got != want:
@@ -777,6 +894,36 @@ def main() -> int:
         return {"cases": len(cases), "mismatches": 0, "hit_cases": hits,
                 "sentinel_cases": len(cases) - hits, "max_abs_err": max_err,
                 "tolerance": "exact (integer first-hit index)"}
+
+    def judge_cases(model, cases):
+        """The plain version's first hit of each case ``(ops, spec, chunk0,
+        n)``: the cases of one tail layout evaluated together
+        (``plain_first_hits``, which computes ``plain_search`` and
+        ``plain_search_w0`` case by case), at most ``JUDGE_CANDIDATES`` at a
+        time."""
+        by_layout = collections.defaultdict(list)
+        for i, (ops, spec, chunk0, n) in enumerate(cases):
+            by_layout[(spec.n_blocks, spec.tb_loc, spec.chunk_locs)].append(i)
+        out = [None] * len(cases)
+        d = model.digest_words
+        for (n_blocks, tb_loc, chunk_locs), idx in by_layout.items():
+            while idx:
+                take, total = [], 0
+                while idx and (not take or total + cases[idx[0]][3] <= JUDGE_CANDIDATES):
+                    total += cases[idx[0]][3]
+                    take.append(idx.pop(0))
+                ops = [cases[i][0] for i in take]
+                first = plain_first_hits(
+                    model, n_blocks, tb_loc, chunk_locs,
+                    torch.stack([o.init for o in ops]), torch.stack([o.base for o in ops]),
+                    torch.stack([torch.nn.functional.pad(o.masks, (d - o.mask_words, 0))
+                                 for o in ops]),
+                    [o.tb_lo for o in ops], [o.tb_count for o in ops],
+                    [cases[i][2] for i in take],
+                    [cases[i][3] for i in take]).tolist()
+                for i, v in zip(take, first):
+                    out[i] = v
+        return out
 
     # 3b. full_parity: the main path's launch (the wrapper's grid) against
     # the plain version, on inputs with hits --------------------------------
@@ -1017,6 +1164,302 @@ def main() -> int:
                 **pipe_ms(pipes, n, clocks_per_s),
                 "card": dev_info["nvidia_smi"]}
 
+    # 7. group_parity: the group kernel against the plain group step -----
+    def group_rows(model, nonces, vw, extra, masks, log_tbc, tb_lo, chunk0):
+        """A group's tail layout and its slots' operands on the card."""
+        specs = [build_tail_spec(n, vw, model, extra) for n in nonces]
+        if len({(sp.n_blocks, sp.tb_loc, sp.chunk_locs) for sp in specs}) != 1:
+            raise AssertionError("the slots of a group must share one tail layout")
+        ops = group_operands([sp.init_state for sp in specs], [sp.base_words for sp in specs],
+                             masks, tb_lo, log_tbc, [c & 0xFFFFFFFF for c in chunk0], dev)
+        return specs[0], ops
+
+    def group_parity(model, seed, nonce_lens):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        mismatches, cases, slots, hits, max_err, tails, i = [], 0, 0, 0, 0, set(), 0
+        for wcase in GROUP_WIDTHS:
+            # width 5: a width-4 run below one fixed high chunk byte
+            vw, extra = (4, bytes([int(rng.integers(1, 256))])) if wcase == 5 else (wcase, b"")
+            for n_slots in GROUP_SLOTS:
+                for half in (0, 1):
+                    n_len = nonce_lens[(2 * i + half) % len(nonce_lens)]
+                    log_batch = GROUP_LOG_BATCH[i % len(GROUP_LOG_BATCH)]
+                    i += 1
+                    batch = 1 << log_batch
+                    nonces = [rng.integers(0, 256, size=n_len, dtype=np.uint8).tobytes()
+                              for _ in range(n_slots)]
+                    ds = [int(rng.integers(1, min(8, model.max_difficulty) + 1))
+                          for _ in range(n_slots)]
+                    if n_slots == GROUP_SLOTS[-1]:
+                        ds[-1] = model.max_difficulty  # a check over every digest word
+                    logs = [GROUP_LOG_TBC[int(rng.integers(0, len(GROUP_LOG_TBC)))]
+                            for _ in range(n_slots)]
+                    tb_lo = [int(rng.integers(0, 256 >> lg)) << lg for lg in logs]
+                    if vw == 0:
+                        chunk0 = [0] * n_slots
+                    elif vw == 4:
+                        # every other slot's run wraps past 2^32
+                        chunk0 = [(1 << 32) - int(rng.integers(1, 1 << (log_batch - lg + 1)))
+                                  if s % 2 else int(rng.integers(0, 1 << 32))
+                                  for s, lg in enumerate(logs)]
+                    else:
+                        lo = 256 ** (vw - 1)
+                        chunk0 = [lo + int(rng.integers(0, 256 ** vw - lo)) for _ in logs]
+                    spec, ops = group_rows(model, nonces, vw, extra,
+                                           [nibble_masks(d, model) for d in ds], logs, tb_lo,
+                                           chunk0)
+                    tails.add(spec.n_blocks)
+                    got = hash_group_search(model, ops, spec.tb_loc, spec.chunk_locs, batch,
+                                            device=dev)
+                    torch.cuda.synchronize()
+                    got = [v & 0xFFFFFFFF for v in got.tolist()]
+                    want = plain_group_search(model, ops, spec.tb_loc, spec.chunk_locs,
+                                              batch).tolist()
+                    cases += 1
+                    slots += n_slots
+                    hits += sum(w != SENTINEL for w in want)
+                    max_err = max([max_err] + [abs(g - w) for g, w in zip(got, want)])
+                    if got != want:
+                        mismatches.append({"width": wcase, "slots": n_slots, "nonce_len": n_len,
+                                           "batch": batch, "kernel": got, "plain": want})
+        if mismatches:
+            raise AssertionError(f"{len(mismatches)} of {cases} group launches differ: "
+                                 f"{mismatches[:5]}")
+        if tails != {1, 2} or not 0 < hits < slots:
+            raise AssertionError(f"the grid missed a case: tails {tails}, {hits} of {slots} "
+                                 f"slots hit")
+        return {"launches": cases, "slots": slots, "mismatches": 0, "hit_slots": hits,
+                "sentinel_slots": slots - hits, "tails": sorted(tails), "max_abs_err": max_err,
+                "tolerance": "exact (integer first-hit index per slot)"}
+
+    # 8. rate_group: one engine launch of 8 slots x batch -----------------
+    def rate_group(model):
+        kernel = KERNELS[model.name]
+        nonces = [bytes([1, 2, 3, 4 + s]) for s in range(SCHED_SLOTS)]
+        spec, ops = group_rows(model, nonces, 4, b"", [nibble_masks(RATE_DIFFICULTY, model)] *
+                               SCHED_SLOTS, [8] * SCHED_SLOTS, [0] * SCHED_SLOTS,
+                               [MAIN_CHUNK0 + (SCHED_BATCH >> 8) * s for s in range(SCHED_SLOTS)])
+
+        def launch():
+            return hash_group_search(model, ops, spec.tb_loc, spec.chunk_locs, SCHED_BATCH,
+                                     device=dev)
+
+        first = [v & 0xFFFFFFFF for v in launch().tolist()]  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(RATE_LAUNCHES):
+            launch()
+        end.record()
+        end.synchronize()
+        kernel_ms = start.elapsed_time(end) / RATE_LAUNCHES
+        # the plain group step on the same inputs, the judge of the result
+        start.record()
+        plain = plain_group_search(model, ops, spec.tb_loc, spec.chunk_locs, SCHED_BATCH)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if plain.tolist() != first:
+            raise AssertionError(f"kernel {first} != plain {plain.tolist()}")
+
+        # the engine: 8 difficulty-16 slots (no hit) for a window of launches
+        m = Metrics()
+        eng = BatchingScheduler(hash_model=model.name, batch_size=SCHED_BATCH,
+                                max_slots=SCHED_SLOTS, start=False, metrics=m)
+        slots = [eng.submit(bytes([7, 7, 7, s]), RATE_DIFFICULTY, range(256))
+                 for s in range(SCHED_SLOTS)]
+        eng.start()
+        try:
+            time.sleep(0.5)  # past widths 0-2: every launch then has the timed shape
+            l0, t0 = m.get("sched.launches"), time.monotonic()
+            time.sleep(RATE_GROUP_WINDOW_S)
+            l1, t1 = m.get("sched.launches"), time.monotonic()
+            for s in slots:
+                s.cancel()
+            if any(s.result(timeout=60) is not None for s in slots):
+                raise AssertionError("a difficulty-16 slot found a secret")
+        finally:
+            eng.close()
+        if l1 <= l0:
+            raise AssertionError("the engine made no launch in the window")
+        host_ms = (t1 - t0) * 1e3 / (l1 - l0)
+        n = SCHED_SLOTS * SCHED_BATCH
+        d = model.digest_words
+        var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
+        needed = needed_ops(model.name, spec.n_blocks, d, var_words)
+        dev_info = smoke.info["device"]
+        clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
+        bound_ms = n * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s) * 1e3
+        loop = group_issued[kernel][spec.n_blocks]
+        pipes = pipe_split(loop)
+        return {"difficulty": RATE_DIFFICULTY, "slots": SCHED_SLOTS, "batch": SCHED_BATCH,
+                "candidates_per_launch": n, "launches_timed": RATE_LAUNCHES,
+                "kernel_ms": kernel_ms, "ghs": n / kernel_ms / 1e6, "result": first,
+                "plain_ms": plain_ms, "engine_launches": l1 - l0,
+                "engine_window_s": t1 - t0, "host_ms_per_engine_launch": host_ms,
+                "device_idle_share": max(0.0, 1 - kernel_ms / host_ms),
+                "needed_ops_per_hash": needed, "bound_ms": bound_ms,
+                "bound_share": bound_ms / kernel_ms,
+                "sass_instructions_per_hash": sum(loop.values()),
+                "sass_loop_instructions": sum(group_loops[kernel][spec.n_blocks].values()),
+                "alu_pipe_instructions_per_hash": pipes["alu"],
+                "fma_pipe_slots_per_hash": pipes["fma_slots"],
+                **pipe_ms(pipes, n, clocks_per_s), "card": dev_info["nvidia_smi"]}
+
+    # 9. sched_*: concurrent requests through the batching scheduler ------
+    def sched_serve(default, requests, extra=(), refuse=None, min_occupancy=1):
+        """``requests``: (model, nonce, difficulty, thread bytes), one thread
+        each, all released together on one scheduler; the launch counts are
+        set to 0 just before and read just after.  Each secret is checked
+        with hashlib and against the solo backend's for the same request."""
+        m = Metrics()
+        eng = BatchingScheduler(hash_model=default, batch_size=SCHED_BATCH,
+                                max_slots=SCHED_SLOTS, extra_models=extra, metrics=m)
+        results, errors = [None] * len(requests), []
+        barrier = threading.Barrier(len(requests))
+
+        def client(i):
+            model_name, nonce, d, tbs = requests[i]
+            try:
+                barrier.wait(timeout=60)
+                t0 = time.monotonic()
+                secret = eng.search(nonce, d, tbs, hash_model=model_name)
+                results[i] = (secret, time.monotonic() - t0)
+            except Exception as exc:  # surfaced below through errors
+                errors.append(f"request {i}: {exc!r}")
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(requests))]
+        for counter in LAUNCHES.values():
+            counter.reset()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches = {k: c.value for k, c in LAUNCHES.items()}
+        counts = {k: m.get(k) for k in ("sched.launches", "sched.mixed_hash_launches",
+                                        "sched.lane_launches.cuda", "sched.lane_launches.torch",
+                                        "sched.fallback_searches", "search.blocking_syncs",
+                                        "search.found")}
+        occupancy = m.get_observed("sched.batch_occupancy")
+        refused = None
+        try:
+            if refuse is not None:
+                try:
+                    eng.search(*refuse[1:], hash_model=refuse[0])
+                except ValueError as exc:
+                    refused = str(exc)
+                else:
+                    raise AssertionError(f"the scheduler served {refuse[0]}")
+        finally:
+            eng.close()
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"requests failed or hung: {errors}")
+        out = []
+        for (model_name, nonce, d, tbs), (secret, wall) in zip(requests, results):
+            h = puzzle.new_hash(model_name)
+            h.update(nonce + (secret or b""))
+            digest = h.hexdigest()
+            solo = CudaBackend(hash_model=model_name, device=dev).search(nonce, d, tbs)
+            if secret is None or not digest.endswith("0" * d) or secret[0] not in tbs:
+                raise AssertionError(f"{model_name} {nonce.hex()} d{d}: {secret!r} ({digest})")
+            if secret != solo:
+                raise AssertionError(f"{model_name} {nonce.hex()} d{d}: scheduler "
+                                     f"{secret.hex()} != solo {solo.hex()}")
+            out.append({"model": model_name, "nonce": nonce.hex(), "difficulty": d,
+                        "thread_bytes": [tbs[0], len(tbs)], "secret": secret.hex(),
+                        model_name: digest, "solo_secret": solo.hex(), "wall_s": wall})
+        served = {KERNELS[r[0]] for r in requests}
+        group = {k: launches[f"{k}_group"] for k in sorted(served)}
+        if min(group.values()) <= 0:
+            raise AssertionError(f"a group kernel of the path was launched no time: {group}")
+        solo_launches = {k: launches[k] for k in KERNELS.values() if launches[k]}
+        if solo_launches or counts["sched.lane_launches.torch"]:
+            raise AssertionError(f"the scheduler path left its group kernels: solo "
+                                 f"{solo_launches}, torch lane "
+                                 f"{counts['sched.lane_launches.torch']}")
+        if occupancy["max"] < min_occupancy:
+            raise AssertionError(f"occupancy reached {occupancy['max']}, not {min_occupancy}")
+        if counts["search.blocking_syncs"] != counts["sched.launches"]:
+            raise AssertionError(f"{counts['search.blocking_syncs']} host syncs for "
+                                 f"{counts['sched.launches']} engine launches")
+        return {"requests": out, "group_launches": group, **counts,
+                "batch_occupancy": occupancy, "refused": refused}
+
+    def sched_md5():
+        import numpy as np
+
+        rng = np.random.default_rng(SCHED_SEED)
+        bits = worker_bits(4)
+        reqs = []
+        for i in range(SCHED_SLOTS):
+            nonce = rng.integers(0, 256, size=4, dtype=np.uint8).tobytes()
+            # two requests on a 4-way partition (64 thread bytes), at 5
+            if i < 2:
+                reqs.append(("md5", nonce, 5, thread_bytes(1 + 2 * i, bits)))
+            else:
+                reqs.append(("md5", nonce, int(rng.integers(5, 8)), thread_bytes(0, 0)))
+        return sched_serve("md5", reqs, min_occupancy=2)
+
+    def sched_mixed():
+        import numpy as np
+
+        rng = np.random.default_rng(SCHED_SEED + 1)
+        models = MIXED_MODELS + ("md5",)
+        reqs = [(m, rng.integers(0, 256, size=6, dtype=np.uint8).tobytes(),
+                 int(rng.integers(4, 6)), thread_bytes(0, 0)) for m in models]
+        out = sched_serve("md5", reqs, extra=MIXED_MODELS[1:],
+                          refuse=("sha512", bytes([9, 2]), 2, thread_bytes(0, 0)))
+        if out["sched.mixed_hash_launches"] < 1 or not out["refused"] or \
+                "never admitted" not in out["refused"]:
+            raise AssertionError(f"no mixed launch, or sha512 not refused: {out['refused']}")
+        return out
+
+    def sched_wide(model_name):
+        reqs = [(model_name, bytes([0x51, 0x52, s]), 4, thread_bytes(0, 0)) for s in range(2)]
+        return sched_serve(model_name, reqs)
+
+    # 10. sched_cancel ------------------------------------------------------
+    def sched_cancel():
+        eng = BatchingScheduler(hash_model="md5", batch_size=SCHED_BATCH, max_slots=SCHED_SLOTS,
+                                metrics=Metrics())
+        flagged = []
+        t0 = time.monotonic()
+
+        def cancel_check():
+            if time.monotonic() - t0 > 1.0:
+                flagged.append(time.monotonic())
+                return True
+            return False
+
+        try:
+            res = eng.search(bytes([9, 9, 9, 9]), 16, thread_bytes(0, 0), cancel_check)
+            t_ret = time.monotonic()
+        finally:
+            eng.close()
+        if res is not None or not flagged:
+            raise AssertionError(f"cancelled request returned {res!r}")
+        # the first request of a fresh process after CudaBackend.warmup, with a
+        # build directory that holds nothing yet
+        fresh = os.path.join(HERE, "distpow_tpu_torch", "build", f"fresh-{os.getpid()}")
+        try:
+            proc = subprocess.run([sys.executable, "-c", WARM_CANCEL, HERE],
+                                  env={**os.environ, "DISTPOW_TORCH_BUILD_DIR": fresh},
+                                  capture_output=True, text=True, timeout=600)
+        finally:
+            shutil.rmtree(fresh, ignore_errors=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"warm-up process failed: {proc.stderr[-3000:]}")
+        warm = json.loads(proc.stdout.strip().splitlines()[-1])
+        if warm["returned"] is not None or warm["build_s"] <= 0 or \
+                not warm["build_dir_was_empty"]:
+            raise AssertionError(f"warm-up process: {warm}")
+        # from the moment the cancel condition holds (the solo cancel phase's
+        # measure), and from the loop's first poll that saw it
+        return {"time_to_cancel_s": t_ret - t0 - 1.0, "poll_to_return_s": t_ret - flagged[0],
+                "return_s": t_ret - t0, "after_warmup_fresh_process": warm}
+
     for i, model_name in enumerate(MODELS):
         model = get_hash_model(model_name)
         sfx = suffix(model_name)
@@ -1032,6 +1475,18 @@ def main() -> int:
         if model_name == "md5":
             smoke.phase("cancel", cancel, needs=("build",))
         smoke.phase(f"rate{sfx}", lambda: rate(model), needs=("build", "device"))
+        smoke.phase(f"group_parity{sfx}", lambda: group_parity(model, grid_args[0] + 100,
+                                                               grid_args[1]),
+                    needs=("build",))
+        smoke.phase(f"rate_group{sfx}", lambda: rate_group(model),
+                    needs=("build", "device", f"group_parity{sfx}"))
+    smoke.phase("sched_md5", sched_md5, needs=("group_parity",))
+    smoke.phase("sched_mixed", sched_mixed,
+                needs=tuple(f"group_parity{suffix(m)}" for m in MIXED_MODELS))
+    for model_name in ("sha512", "sha384"):
+        smoke.phase(f"sched_{model_name}", lambda: sched_wide(model_name),
+                    needs=(f"group_parity_{model_name}",))
+    smoke.phase("sched_cancel", sched_cancel, needs=("build",))
 
     kernels = []
     for model_name in MODELS:
@@ -1047,6 +1502,21 @@ def main() -> int:
             "launches": smoke.info[f"mine{sfx}"]["kernel_launches"][kernel],
             "max_abs_err": max(smoke.info[p]["max_abs_err"] for p in phases[:2]),
             "ms": r["ms"], "plain_ms": r["plain_ms_full_launch"],
+            "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
+    for model_name in MODELS:
+        sfx = suffix(model_name)
+        served = {"md5": "sched_md5", "sha512": "sched_sha512",
+                  "sha384": "sched_sha384"}.get(model_name, "sched_mixed")
+        phases = [f"group_parity{sfx}", f"rate_group{sfx}", served]
+        if not all(p in smoke.info for p in phases):
+            continue
+        kernel, r = KERNELS[model_name], smoke.info[f"rate_group{sfx}"]
+        kernels.append({
+            "name": f"{kernel}_group", "route": "cuda",
+            "source": f"distpow_tpu_torch/csrc/{kernel}.cu", "replaces": REPLACES_GROUP,
+            "launches": smoke.info[served]["group_launches"][kernel],
+            "max_abs_err": smoke.info[f"group_parity{sfx}"]["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
     if kernels:
         emit({"kernels": kernels})

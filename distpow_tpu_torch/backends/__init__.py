@@ -7,6 +7,14 @@
                same driver (all nine models)
 * ``auto``   — ``cuda``
 
+``get_backend`` also takes the reference's ``Backend`` names:
+``pallas`` and ``jax`` are ``cuda`` (on the card the CUDA kernel is the
+device step; ``torch`` would put the plain version on the main path), and
+``jax-mesh``, ``pallas-mesh`` and ``native`` raise until they are ported
+(ROADMAP Queue 1 items 4 and 5).  The device backends take the keywords
+the reference worker passes (``mesh_devices``, ``interpret``, ``loop``;
+``cuda_backend.check_options``) and a boot ``warmup``.
+
 Every backend implements ``search(nonce, difficulty, thread_bytes,
 cancel_check) -> Optional[bytes]``: the first solving secret in reference
 enumeration order, or None when cancelled.  ``torch``, ``cuda`` and
@@ -16,14 +24,11 @@ that wants the CPU passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Optional
-
 from ..models import puzzle
 from ..models.registry import get_hash_model
-from ..ops.operands import Device
-from ..parallel.search import scaled_launch_candidates, search
+from ..parallel.search import default_step_factory
 from ..runtime.metrics import REGISTRY, Metrics
-from .cuda_backend import CudaBackend, _require_device
+from .cuda_backend import CudaBackend, DeviceBackend
 
 
 class PythonBackend:
@@ -50,39 +55,33 @@ class PythonBackend:
         )
 
 
-class TorchBackend:
+class TorchBackend(DeviceBackend):
     """The plain PyTorch step behind the pipelined driver."""
 
     name = "torch"
 
-    def __init__(self, hash_model: str = "md5", batch_size: int = 1 << 20,
-                 max_launch: Optional[int] = None, device: Device = "cuda",
-                 metrics: Metrics = REGISTRY):
-        self.model = get_hash_model(hash_model)
-        self.device = _require_device(device)
-        self.batch_size = batch_size
-        self.max_launch = max_launch or scaled_launch_candidates(self.model.cost_ops)
-        self.metrics = metrics
+    def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        return default_step_factory(nonce, difficulty, tb_lo, tbc, self.model, self.device)
 
-    def search(self, nonce, difficulty, thread_bytes, cancel_check=None):
-        res = search(
-            nonce, difficulty, thread_bytes,
-            model=self.model,
-            batch_size=self.batch_size,
-            cancel_check=cancel_check,
-            launch_candidates=self.max_launch,
-            device=self.device,
-            metrics=self.metrics,
-        )
-        return None if res is None else res.secret
+
+# The reference's Backend names that the port does not serve yet
+_NOT_PORTED = {
+    "jax-mesh": "the mesh (ROADMAP Queue 1 item 4)",
+    "pallas-mesh": "the mesh (ROADMAP Queue 1 item 4)",
+    "native": "the native miner (ROADMAP Queue 1 item 5)",
+}
 
 
 def get_backend(name: str = "auto", **kwargs):
     name = (name or "auto").lower()
-    if name in ("auto", "cuda"):
+    if name in ("auto", "cuda", "pallas", "jax"):
         return CudaBackend(**kwargs)
     if name == "python":
         return PythonBackend(**kwargs)
     if name == "torch":
         return TorchBackend(**kwargs)
-    raise ValueError(f"unknown worker backend {name!r}: python, torch, cuda or auto")
+    if name in _NOT_PORTED:
+        raise ValueError(f"worker backend {name!r} is not ported yet: it waits for "
+                         f"{_NOT_PORTED[name]}")
+    raise ValueError(f"unknown worker backend {name!r}: python, torch, cuda (pallas, jax) "
+                     f"or auto")

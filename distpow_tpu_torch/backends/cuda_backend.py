@@ -6,22 +6,38 @@ the step-factory protocol, with the kernel of the backend's hash model
 kernel takes every configuration the plain step takes (1- and 2-block
 tails, power-of-two or not thread-byte runs, widths 0-4, every difficulty),
 so there is no fallback path.
+
+``DeviceBackend`` is what the ``cuda`` backend shares with the ``torch``
+one (the plain step behind the same driver, ``backends/__init__.py``): the
+device rule, the keyword arguments the reference worker passes
+(``mesh_devices``, ``interpret``, ``loop``) and the boot ``warmup``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import logging
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..models.registry import get_hash_model
 from ..ops.hash_cuda import hash_search, kernel_name
-from ..ops.operands import Device
+from ..ops.operands import Device, u32_value
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
 from ..parallel.partition import contiguous_bounds
-from ..parallel.search import scaled_launch_candidates, search
+from ..parallel.search import (effective_batch, launch_steps_for, scaled_launch_candidates,
+                               search)
 from ..runtime.metrics import REGISTRY, Metrics
+from ..runtime.watchdog import FIRST_COMPILE_GRACE_S, WATCHDOG
+
+log = logging.getLogger("distpow.backends")
+
+# The search loops a reference worker may ask for (WorkerConfig.SearchLoop)
+SEARCH_LOOPS = ("persistent", "serial")
+# The difficulty of a warm-up launch: one mask word, and a hit at once
+WARMUP_DIFFICULTY = 1
+_noted_persistent = False
 
 
 def plan_launch_geometry(target_chunks: int, tbc: int, launch_steps: int,
@@ -50,18 +66,116 @@ def _require_device(device: Device) -> torch.device:
     return dev
 
 
-class CudaBackend:
-    name = "cuda"
+def check_options(mesh_devices: Optional[int], interpret: bool, loop: Optional[str]) -> str:
+    """Validate the reference worker's backend keywords; return the loop.
+
+    * ``mesh_devices`` 0 (all local devices) or 1 is one GPU; more raises
+      until the mesh is ported (ROADMAP Queue 1 item 4).
+    * ``interpret=True`` raises: CUDA has no interpret mode, and a caller
+      that wants the CPU passes ``device="cpu"``.
+    * ``loop`` is ``"persistent"`` (the reference's default) or
+      ``"serial"``; both are served by the serial driver until the
+      persistent loop is ported (ROADMAP Queue 1 item 2), which is logged
+      once."""
+    global _noted_persistent
+    if mesh_devices is not None and int(mesh_devices) > 1:
+        raise ValueError(f"mesh_devices={mesh_devices}: the port serves one GPU per backend "
+                         f"until the mesh is ported (ROADMAP Queue 1 item 4)")
+    if interpret:
+        raise ValueError("interpret=True: CUDA has no interpret mode; pass device='cpu' to "
+                         "run the plain PyTorch step on the CPU")
+    loop = (loop or "persistent").lower()
+    if loop not in SEARCH_LOOPS:
+        raise ValueError(f"unknown search loop {loop!r}: expected one of {SEARCH_LOOPS}")
+    if loop == "persistent" and not _noted_persistent:
+        _noted_persistent = True
+        log.info("search loop 'persistent' is served by the serial driver until the "
+                 "persistent loop is ported (ROADMAP Queue 1 item 2)")
+    return loop
+
+
+class DeviceBackend:
+    """A step factory behind the pipelined driver, on an explicit device.
+
+    Subclasses give ``_factory(nonce, difficulty, tb_lo, tbc)`` (a
+    ``parallel.search.StepFactory``) and ``_load()`` (what must be built
+    and loaded before the first launch).  ``mesh_devices``, ``interpret`` and ``loop``
+    are the reference worker's keywords (``check_options``)."""
+
+    name = "device"
 
     def __init__(self, hash_model: str = "md5", batch_size: int = 1 << 20,
                  max_launch: Optional[int] = None, device: Device = "cuda",
-                 metrics: Metrics = REGISTRY):
+                 metrics: Metrics = REGISTRY, mesh_devices: Optional[int] = 0,
+                 interpret: bool = False, loop: Optional[str] = "persistent"):
         self.model = get_hash_model(hash_model)
-        kernel_name(self.model)  # raises for a model without a kernel
+        self.loop = check_options(mesh_devices, interpret, loop)
         self.device = _require_device(device)
         self.batch_size = batch_size
         self.max_launch = max_launch or scaled_launch_candidates(self.model.cost_ops)
         self.metrics = metrics
+
+    def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        raise NotImplementedError
+
+    def _load(self) -> None:
+        pass
+
+    def warmup(self, nonce_lens: Sequence[int], widths: Sequence[int]) -> None:
+        """Build what the first request needs and launch each serving layout
+        once, before the first request (the reference's ``_warm_layouts`` /
+        ``_warm_factory``): for each nonce length and width, the step the
+        driver builds for the full partition (tbc 256, at the driver's
+        batch and launch multiplier) at difficulty 1, and read its result.
+        A kernel's layout is a runtime argument, so this builds and loads
+        the library and touches every layout; under the watchdog, one beat
+        and one first-compile grace per launch."""
+        tbc = 256
+        target = max(1, effective_batch(self.batch_size) // tbc)
+        with WATCHDOG.active():
+            with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
+                self._load()
+            for n_len in nonce_lens:
+                factory = self._factory(bytes(int(n_len)), WARMUP_DIFFICULTY, 0, tbc)
+                for vw in widths:
+                    vw = int(vw)
+                    WATCHDOG.beat()
+                    k = launch_steps_for(vw, target, tbc, self.max_launch)
+                    with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
+                        step, _ = factory(vw, b"", target, k)
+                        res = step(256 ** (vw - 1) if vw else 0)
+                        if res.device.type == "cuda":
+                            torch.cuda.synchronize(res.device)
+                        u32_value(res)
+
+    def search(self, nonce, difficulty, thread_bytes, cancel_check=None) -> Optional[bytes]:
+        nonce = bytes(nonce)
+        tb_lo, tbc = contiguous_bounds(thread_bytes)
+        res = search(
+            nonce, difficulty, thread_bytes,
+            model=self.model,
+            batch_size=self.batch_size,
+            cancel_check=cancel_check,
+            step_factory=self._factory(nonce, difficulty, tb_lo, tbc),
+            launch_candidates=self.max_launch,
+            device=self.device,
+            metrics=self.metrics,
+        )
+        return None if res is None else res.secret
+
+
+class CudaBackend(DeviceBackend):
+    name = "cuda"
+
+    def __init__(self, hash_model: str = "md5", **kwargs):
+        kernel_name(get_hash_model(hash_model))  # raises for a model without a kernel
+        super().__init__(hash_model, **kwargs)
+
+    def _load(self) -> None:
+        if self.device.type == "cuda":
+            from ..ops import _build
+
+            _build.load_library(kernel_name(self.model))
 
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         def factory(vw: int, extra: bytes, target_chunks: int, launch_steps: int = 1):
@@ -82,17 +196,3 @@ class CudaBackend:
             return step, chunks * k
 
         return factory
-
-    def search(self, nonce, difficulty, thread_bytes, cancel_check=None) -> Optional[bytes]:
-        nonce = bytes(nonce)
-        tb_lo, tbc = contiguous_bounds(thread_bytes)
-        res = search(
-            nonce, difficulty, thread_bytes,
-            model=self.model,
-            batch_size=self.batch_size,
-            cancel_check=cancel_check,
-            step_factory=self._factory(nonce, difficulty, tb_lo, tbc),
-            launch_candidates=self.max_launch,
-            metrics=self.metrics,
-        )
-        return None if res is None else res.secret

@@ -368,6 +368,89 @@ cudaError_t launch_hash_mw(int mask_words, bool pow2, const uint32_t* init,
   return cudaSuccess;
 }
 
+// The scheduler's kernel: the search of a group of slots in one launch.
+// Replaces distpow_tpu/sched/lanes.py build_pallas_group_step, which
+// launched _dyn_pallas_step once per slot under one jit.  blockIdx.y is the
+// slot; each slot searches its flat indices [0, batch) with its own prefix
+// state, rows, masks of every digest word (so slots at any difficulty share
+// the launch), power-of-two run and cursor (slot_layout), and its first hit
+// goes to out[s], which the wrapper set to SENTINEL on the same stream.
+// The tail layout (N_BLOCKS, var_word, var_shift, chunk_mask) is the
+// group's.  Each block is hash_search_block at MASK_WORDS = DIGEST_WORDS
+// and POW2, the solo kernel's full-digest specialization.
+#define DISTPOW_GROUP_PARAMS                                                                  \
+  const uint32_t *__restrict__ init_g, const uint32_t *__restrict__ base_g,                   \
+      const uint32_t *__restrict__ masks_g, const uint32_t *__restrict__ tb_lo,               \
+      const uint32_t *__restrict__ log_tbc, const uint32_t *__restrict__ chunk0, int var_word, \
+      int var_shift, uint32_t chunk_mask, uint32_t batch, uint32_t *__restrict__ out
+#define DISTPOW_GROUP_ARGS \
+  init_g, base_g, masks_g, tb_lo, log_tbc, chunk0, var_word, var_shift, chunk_mask, batch, out
+
+template <class H, int N_BLOCKS>
+__device__ __forceinline__ void hash_group_search_slot(DISTPOW_GROUP_PARAMS) {
+  const int s = blockIdx.y;
+  const Layout L = slot_layout(__ldg(chunk0 + s), __ldg(tb_lo + s), __ldg(log_tbc + s), var_word,
+                               var_shift, chunk_mask);
+  hash_search_block<H, H::DIGEST_WORDS, N_BLOCKS, true>(
+      init_g + s * H::STATE_WORDS, base_g + s * H::ROW_WORDS * N_BLOCKS,
+      masks_g + s * H::DIGEST_WORDS, L, batch, out + s);
+}
+
+template <class H, int N_BLOCKS>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
+hash_group_search_kernel(DISTPOW_GROUP_PARAMS) {
+  hash_group_search_slot<H, N_BLOCKS>(DISTPOW_GROUP_ARGS);
+}
+
+// The same kernel for a hash that asks for H::MIN_BLOCKS_PER_SM blocks.
+template <class H, int N_BLOCKS>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS, H::MIN_BLOCKS_PER_SM)
+resident_hash_group_search_kernel(DISTPOW_GROUP_PARAMS) {
+  hash_group_search_slot<H, N_BLOCKS>(DISTPOW_GROUP_ARGS);
+}
+
+template <class H, int N_BLOCKS>
+void launch_group_kernel(dim3 grid, cudaStream_t stream, DISTPOW_GROUP_PARAMS) {
+  if constexpr (AsksResidentBlocks<H>::value) {
+    resident_hash_group_search_kernel<H, N_BLOCKS>
+        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(DISTPOW_GROUP_ARGS);
+  } else {
+    hash_group_search_kernel<H, N_BLOCKS>
+        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(DISTPOW_GROUP_ARGS);
+  }
+}
+
+// The body of each kernel's second extern "C" function, the group search.
+// init[n_slots][STATE_WORDS], base[n_slots][ROW_WORDS * n_blocks],
+// masks[n_slots][DIGEST_WORDS], tb_lo, log_tbc, chunk0 and out[n_slots]
+// are device arrays; out already holds SENTINEL.  The grid is (grid_x,
+// n_slots).  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// configuration no kernel was built for.
+template <class H>
+int launch_hash_group_search(const void* init, const void* base, const void* masks,
+                             int n_blocks, int var_word, int var_shift, uint32_t chunk_mask,
+                             const void* tb_lo, const void* log_tbc, const void* chunk0,
+                             int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
+  if (n_slots == 0 || batch == 0) return 0;
+  if ((n_blocks != 1 && n_blocks != 2) || n_slots < 0 || n_slots > 65535 || grid_x < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, n_slots);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  if (n_blocks == 1) {
+    launch_group_kernel<H, 1>(grid, s, u(init), u(base), u(masks), u(tb_lo), u(log_tbc),
+                              u(chunk0), var_word, var_shift, chunk_mask, batch,
+                              static_cast<uint32_t*>(out));
+  } else {
+    launch_group_kernel<H, 2>(grid, s, u(init), u(base), u(masks), u(tb_lo), u(log_tbc),
+                              u(chunk0), var_word, var_shift, chunk_mask, batch,
+                              static_cast<uint32_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#undef DISTPOW_GROUP_ARGS
+#undef DISTPOW_GROUP_PARAMS
+
 // The body of each kernel's extern "C" launcher (the *_search.cu files).
 // init[STATE_WORDS], base[ROW_WORDS * n_blocks] and masks[mask_words] are
 // device arrays; out is the device result cell, already holding SENTINEL.

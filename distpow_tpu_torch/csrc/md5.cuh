@@ -109,6 +109,16 @@ struct Layout {
   uint32_t chunk_mask;
 };
 
+// The layout of one scheduler slot (the group kernels,
+// hash_group_search_kernel and md5_group_search_kernel): the group's
+// shared tail layout (var_word, var_shift, chunk_mask) with the slot's own
+// cursor and power-of-two thread-byte run tb_lo .. tb_lo + 2^log_tbc - 1.
+DISTPOW_HD Layout slot_layout(uint32_t chunk0, uint32_t tb_lo, uint32_t log_tbc, int var_word,
+                              int var_shift, uint32_t chunk_mask) {
+  return Layout{chunk0, tb_lo, 1u << log_tbc, static_cast<int32_t>(log_tbc), var_word,
+                var_shift, chunk_mask};
+}
+
 // Flat index -> (thread byte, chunk): chunk-major, thread-byte-minor, the
 // reference enumeration order (worker.go:318-319).  POW2 takes the shift
 // and mask of a power-of-two run; otherwise a divide.

@@ -39,8 +39,10 @@
 //   the latency of each thread's dependent chain.  The grid is sized by the
 //   caller (a few waves of blocks per SM), not by n.
 //
-// Interface: a plain C function, launched on the caller's stream; it does
-// not synchronise and allocates nothing.  It returns cudaGetLastError().
+// Interface: two plain C functions, the search of one request and the
+// scheduler's search of a group of slots, launched on the caller's stream;
+// they do not synchronise and allocate nothing.  Each returns
+// cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,6 +115,57 @@ void launch_mw(int mask_words, bool pow2, const uint32_t* init, const uint32_t* 
   }
 }
 
+// The scheduler's kernel for md5: the search of a group of slots in one
+// launch (replaces distpow_tpu/sched/lanes.py build_pallas_group_step).
+// blockIdx.y is the slot; each slot searches its flat indices [0, batch)
+// at its own prefix state, rows, masks of all four digest words, power-of-
+// two run and cursor (slot_layout), with the solo kernel's design: operands
+// in registers, the grid-stride loop, warp min and one atomicMin per block
+// into out[s], which the wrapper set to SENTINEL.  The tail layout
+// (N_BLOCKS, var_word, var_shift, chunk_mask) is the group's.
+template <int N_BLOCKS>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+md5_group_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                        const uint32_t* __restrict__ masks_g,
+                        const uint32_t* __restrict__ tb_lo_g,
+                        const uint32_t* __restrict__ log_tbc_g,
+                        const uint32_t* __restrict__ chunk0_g, int var_word, int var_shift,
+                        uint32_t chunk_mask, uint32_t batch, uint32_t* __restrict__ out) {
+  const int s = blockIdx.y;
+  const Layout L = slot_layout(__ldg(chunk0_g + s), __ldg(tb_lo_g + s), __ldg(log_tbc_g + s),
+                               var_word, var_shift, chunk_mask);
+  uint32_t init[4], base[16 * N_BLOCKS], masks[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) init[i] = __ldg(init_g + 4 * s + i);
+#pragma unroll
+  for (int i = 0; i < 16 * N_BLOCKS; ++i) base[i] = __ldg(base_g + 16 * N_BLOCKS * s + i);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) masks[i] = __ldg(masks_g + 4 * s + i);
+
+  uint32_t best = SENTINEL;
+  const uint32_t stride = gridDim.x * blockDim.x;
+#pragma unroll 1
+  for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < batch; f += stride) {
+    uint32_t tb, chunk;
+    decode<true>(L, f, tb, chunk);
+    if (candidate_hits<4, N_BLOCKS>(init, base, masks, L, tb, chunk)) {
+      best = f;
+      break;
+    }
+  }
+
+  __shared__ uint32_t warp_min[BLOCK_THREADS / 32];
+  best = __reduce_min_sync(0xFFFFFFFFu, best);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t m = warp_min[0];
+#pragma unroll
+    for (int w = 1; w < BLOCK_THREADS / 32; ++w) m = min(m, warp_min[w]);
+    if (m != SENTINEL) atomicMin(out + s, m);
+  }
+}
+
 }  // namespace distpow
 
 extern "C" {
@@ -138,6 +191,35 @@ int distpow_md5_search(const void* init, const void* base, const void* masks, in
     distpow::launch_mw<1>(mask_words, pow2, i, b, m, L, n, o, grid, s);
   } else {
     distpow::launch_mw<2>(mask_words, pow2, i, b, m, L, n, o, grid, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The search of a group of n_slots slots, each over flat indices [0, batch)
+// (md5_group_search_kernel).  init[n_slots][4], base[n_slots][16*n_blocks],
+// masks[n_slots][4], tb_lo, log_tbc, chunk0 and out[n_slots] are device
+// arrays; out already holds SENTINEL.  The grid is (grid_x, n_slots).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a configuration
+// no kernel was built for.
+int distpow_md5_group_search(const void* init, const void* base, const void* masks,
+                             int n_blocks, int var_word, int var_shift, uint32_t chunk_mask,
+                             const void* tb_lo, const void* log_tbc, const void* chunk0,
+                             int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
+  if (n_slots == 0 || batch == 0) return 0;
+  if ((n_blocks != 1 && n_blocks != 2) || n_slots < 0 || n_slots > 65535 || grid_x < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, n_slots);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  auto o = static_cast<uint32_t*>(out);
+  if (n_blocks == 1) {
+    distpow::md5_group_search_kernel<1><<<grid, distpow::BLOCK_THREADS, 0, s>>>(
+        u(init), u(base), u(masks), u(tb_lo), u(log_tbc), u(chunk0), var_word, var_shift,
+        chunk_mask, batch, o);
+  } else {
+    distpow::md5_group_search_kernel<2><<<grid, distpow::BLOCK_THREADS, 0, s>>>(
+        u(init), u(base), u(masks), u(tb_lo), u(log_tbc), u(chunk0), var_word, var_shift,
+        chunk_mask, batch, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,10 @@
 // The kernel, its design and what bounds it are in hash_search.cuh; the
 // rounds in sha512.cuh.
 //
-// Interface: a plain C function, launched on the caller's stream; it does
-// not synchronise and allocates nothing.  Arguments as in
-// distpow::launch_hash_search.
+// Interface: two plain C functions, launched on the caller's stream; they
+// do not synchronise and allocate nothing.  The search of one request
+// (arguments as in distpow::launch_hash_search) and the scheduler's search
+// of a group of slots (distpow::launch_hash_group_search).
 #include "sha512.cuh"
 
 extern "C" int distpow_sha384_search(const void* init, const void* base, const void* masks,
@@ -18,4 +19,13 @@ extern "C" int distpow_sha384_search(const void* init, const void* base, const v
   return distpow::launch_hash_search<distpow::Sha384>(init, base, masks, n_blocks, mask_words,
                                                       chunk0, tb_lo, tbc, log_tbc, var_word, var_shift,
                                                       chunk_mask, n, out, grid, stream);
+}
+
+extern "C" int distpow_sha384_group_search(
+    const void* init, const void* base, const void* masks, int n_blocks, int var_word,
+    int var_shift, uint32_t chunk_mask, const void* tb_lo, const void* log_tbc,
+    const void* chunk0, int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
+  return distpow::launch_hash_group_search<distpow::Sha384>(
+      init, base, masks, n_blocks, var_word, var_shift, chunk_mask, tb_lo, log_tbc, chunk0,
+      n_slots, batch, out, grid_x, stream);
 }

@@ -3,10 +3,17 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` (all started
 together) for ``sm_90a`` into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds) under
-``distpow_tpu_torch/build/``.  A library's file name carries a hash of its
-source, the shared headers and the flags, so a stale build is never
-loaded.  Nothing happens at import time: the first ``load_library`` call
-builds and loads.
+``distpow_tpu_torch/build/``, or the directory ``DISTPOW_TORCH_BUILD_DIR``
+names.  A library's file name carries a hash of its source, the shared
+headers and the flags, so a stale build is never loaded.  Nothing happens
+at import time: the first ``load_library`` call builds that one library
+and loads it; ``build()`` builds them all (a backend's ``warmup`` builds its
+own before the first request).
+
+Each library ``<model>_search`` exports two C functions:
+``distpow_<model>_search``, the search of one request, and
+``distpow_<model>_group_search``, the scheduler's search of a group of
+slots (``hash_cuda.hash_group_search``).
 """
 
 from __future__ import annotations
@@ -19,11 +26,11 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "build")
+BUILD_DIR = os.environ.get("DISTPOW_TORCH_BUILD_DIR") or os.path.join(PKG_DIR, "build")
 
 # -Xptxas -v prints each kernel's registers and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -65,11 +72,12 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> Dict[str, str]:
-    """Compile every source not built at its current contents, one nvcc
-    each, all at once; return ``{name: library path}``."""
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile every source (or those of ``names``) not built at its
+    current contents, one nvcc each, all at once; return ``{name: library
+    path}``."""
     global last_build_s, last_build_log
-    paths = {name: library_path(name) for name in sources()}
+    paths = {name: library_path(name) for name in (sources() if names is None else names)}
     todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
     last_build_s, last_build_log = 0.0, {}
     if not todo:
@@ -97,9 +105,15 @@ def build() -> Dict[str, str]:
     return paths
 
 
+def group_function(name: str) -> str:
+    """The group search's C function in library ``name`` (``md5_search``:
+    ``distpow_md5_group_search``)."""
+    return f"distpow_{name[:-len('_search')]}_group_search"
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    """Set the argument and result types of ``distpow_<name>``, the one C
-    function of each library; every search kernel has the same interface."""
+    """Set the argument and result types of the two C functions of each
+    library; every search kernel has the same interface."""
     vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
     fn = getattr(lib, f"distpow_{name}")
     fn.argtypes = [
@@ -110,13 +124,23 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         u32, vp, i32, vp,    # n, out, grid, stream
     ]
     fn.restype = i32
+    group = getattr(lib, group_function(name))
+    group.argtypes = [
+        vp, vp, vp,          # init[n_slots][S], base[n_slots][n_blocks * W], masks[n_slots][D]
+        i32,                 # n_blocks
+        i32, i32, u32,       # var_word, var_shift, chunk_mask
+        vp, vp, vp,          # tb_lo[n_slots], log_tbc[n_slots], chunk0[n_slots]
+        i32, u32,            # n_slots, batch
+        vp, i32, vp,         # out[n_slots], grid_x, stream
+    ]
+    group.restype = i32
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build if needed, load ``csrc/<name>.cu``'s library once, declare types."""
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(build()[name])
+            lib = ctypes.CDLL(build([name])[name])
             _declare(name, lib)
             _libs[name] = lib
         return _libs[name]

@@ -13,6 +13,14 @@ model's kernel on the current stream and counts the launch.  For CUDA
 tensors it launches or raises; only for tensors on the CPU does it run the
 plain version (``plain_search``, the same function in PyTorch).  No
 ``try`` falls back from one to the other.
+
+Each kernel's library also holds its group form, the counterpart of the
+reference scheduler's ``distpow_tpu/sched/lanes.py``
+``build_pallas_group_step``: ``hash_group_search`` searches a group of
+scheduler slots that share a tail layout in one launch, each slot with its
+own operands (``GroupOperands``), and counts under
+``LAUNCHES["<kernel>_group"]``; its plain version is
+``search_step.plain_group_search``.
 """
 
 from __future__ import annotations
@@ -24,8 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.registry import HashModel
-from .operands import Device, StepOperands
-from .search_step import _check_launch, plain_search
+from .operands import Device, GroupOperands, StepOperands
+from .search_step import _check_launch, plain_group_search, plain_search
 
 # Blocks per SM of a launch's grid: a few waves of 256-thread blocks, so
 # blocks that finish early (a thread stops at its first hit) leave no SM idle.
@@ -72,8 +80,9 @@ class LaunchCounter:
             self._n = 0
 
 
-# one counter per kernel
-LAUNCHES = {kernel: LaunchCounter() for kernel in KERNELS.values()}
+# one counter per kernel and one per group kernel ("<kernel>_group")
+LAUNCHES = {name: LaunchCounter()
+            for kernel in KERNELS.values() for name in (kernel, f"{kernel}_group")}
 
 
 def kernel_name(model: HashModel) -> str:
@@ -205,4 +214,76 @@ def hash_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name].add()
+    return out
+
+
+def _check_group(ops: GroupOperands, device: torch.device, model: HashModel,
+                 batch: int) -> None:
+    n = ops.n_slots
+    want = {"init": (n, len(model.init_state)), "base": (n, ops.n_blocks, model.row_words),
+            "masks": (n, model.digest_words), "tb_lo": (n,), "log_tbc": (n,), "chunk0": (n,)}
+    for name, shape in want.items():
+        t = getattr(ops, name)
+        if t.device.type != device.type:
+            raise ValueError(f"{name} is on {t.device}, the call asks for {device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 (uint32 bit patterns)")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{model.name} group {name} must be {list(shape)}, "
+                             f"got {list(t.shape)}")
+    if n < 1 or n > 65535 or ops.n_blocks not in (1, 2):
+        raise ValueError(f"bad group: {n} slots of {ops.n_blocks} tail blocks")
+    _check_launch(batch, 1)
+
+
+def group_grid(batch: int, n_slots: int, sm_count: int) -> int:
+    """Blocks per slot (the grid's x) for a group launch: the solo launch's
+    few waves per SM shared among the slots, and no more blocks than a
+    slot has indices for."""
+    return max(1, min(-(-batch // BLOCK_THREADS), sm_count * BLOCKS_PER_SM // n_slots))
+
+
+def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, batch: int,
+                      *, device: Device, grid_x: Optional[int] = None) -> torch.Tensor:
+    """Per slot, the first hitting flat index in ``[0, batch)`` or SENTINEL.
+
+    Every slot shares the tail layout ``(n_blocks, tb_loc, chunk_locs)`` and
+    has its own prefix state, rows, masks of every digest word, power-of-two
+    run ``tb_lo[s] .. tb_lo[s] + 2^log_tbc[s] - 1`` and cursor ``chunk0[s]``.
+    On a CUDA device: one launch of ``model``'s group kernel on the current
+    stream, returning the ``int32[n_slots]`` result cells (uint32 bit
+    patterns, SENTINEL is -1) without synchronising.  On the CPU: the plain
+    version, ``int64[n_slots]``.  ``grid_x`` overrides the blocks per slot.
+    """
+    name = kernel_name(model)
+    device = torch.device(device)
+    _check_group(ops, device, model, batch)
+    if device.type == "cpu":
+        return plain_group_search(model, ops, tb_loc, chunk_locs, batch)
+    if device.type != "cuda":
+        raise ValueError(f"hash_group_search runs on cuda or cpu, not {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("hash_group_search on a CUDA device, but CUDA is not available")
+    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
+    if var_word >= model.words_per_block * ops.n_blocks:
+        raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
+    from ._build import group_function, load_library
+
+    lib = load_library(name)
+    dev = ops.device
+    with torch.cuda.device(dev):
+        if grid_x is None:
+            grid_x = group_grid(batch, ops.n_slots,
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
+        out = torch.full((ops.n_slots,), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
+        rc = getattr(lib, group_function(name))(
+            ops.init.data_ptr(), ops.base.data_ptr(), ops.masks.data_ptr(), ops.n_blocks,
+            var_word, var_shift, chunk_mask,
+            ops.tb_lo.data_ptr(), ops.log_tbc.data_ptr(), ops.chunk0.data_ptr(),
+            ops.n_slots, batch, out.data_ptr(), grid_x,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} group kernel launch failed: CUDA error {rc}")
+    LAUNCHES[f"{name}_group"].add()
     return out

@@ -12,7 +12,7 @@ not an operand: it is the static shape of the step, as in the reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,3 +87,48 @@ def operands_from_numpy(init, base, masks, tb_lo: int, tb_count: int,
     return make_operands(np.asarray(init, dtype=np.uint32), np.asarray(base, dtype=np.uint32),
                          np.asarray(masks, dtype=np.uint32), tb_lo, tb_count,
                          device)
+
+
+@dataclass(frozen=True)
+class GroupOperands:
+    """The operands of a group of scheduler slots that share one tail layout,
+    one row per slot, all ``int32`` tensors of ``uint32`` bit patterns on one
+    device: the counterpart of the reference scheduler's six slot rows
+    (``sched/engine.py`` ``_lane_ops``).  Each slot's run is a power of two,
+    ``tb_lo .. tb_lo + 2^log_tbc - 1``, and ``chunk0`` its cursor."""
+
+    init: torch.Tensor     # [n_slots, S]
+    base: torch.Tensor     # [n_slots, n_blocks, W]
+    masks: torch.Tensor    # [n_slots, digest words]
+    tb_lo: torch.Tensor    # [n_slots]
+    log_tbc: torch.Tensor  # [n_slots]
+    chunk0: torch.Tensor   # [n_slots]
+
+    @property
+    def device(self) -> torch.device:
+        return self.init.device
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.init.shape[0])
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.base.shape[1])
+
+
+def group_operands(init, base, masks, tb_lo, log_tbc, chunk0,
+                   device: Device = "cpu") -> GroupOperands:
+    """Group operands from host rows (ints or numpy arrays of uint32 values:
+    ``init[n][S]``, ``base[n][n_blocks][W]``, ``masks[n][D]`` and the three
+    per-slot scalars), packed into one buffer so that one copy moves the
+    whole group to ``device``."""
+    rows = [np.asarray(x, dtype=np.uint32) for x in (init, base, masks, tb_lo, log_tbc, chunk0)]
+    n = rows[0].shape[0]
+    if rows[1].ndim != 3 or any(r.shape[0] != n for r in rows) or \
+            any(r.ndim != 1 for r in rows[3:]):
+        raise ValueError(f"bad group rows: shapes {[r.shape for r in rows]}")
+    flat = np.concatenate([r.reshape(-1) for r in rows]).view(np.int32)
+    buf = torch.from_numpy(flat).to(device)
+    parts: Tuple[torch.Tensor, ...] = torch.split(buf, [r.size for r in rows])
+    return GroupOperands(*(p.view(r.shape) for p, r in zip(parts, rows)))

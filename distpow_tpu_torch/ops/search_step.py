@@ -14,21 +14,40 @@ prefix state, the masks and the partition are runtime operands
 masked to 32 bits (see ``ops/__init__.py``).  Every step returns a 0-d
 tensor on the operands' device, not an int: reading it is the caller's
 synchronisation point.
+
+The scheduler's steps (``slot_search_step``, ``mixed_slot_search_step``,
+``plain_group_search``) run one such search per slot of a group, each slot
+with its own operands and a power-of-two run, at masks of every digest
+word: the plain versions beside the group kernels
+(``hash_cuda.hash_group_search``), the counterparts of the reference's
+``ops/search_step.py`` ``slot_search_step`` and ``mixed_slot_search_step``.
+Where the reference vmaps one slot's lane (``_slot_lane``), the slots'
+candidates here go through the compression together
+(``plain_first_hits``, which also takes any partition and several
+launch sub-batches: many ``plain_search`` cases of one layout at once).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from ..models.registry import HashModel, get_hash_model
 from .difficulty import nibble_masks
-from .operands import MASK32, Device, StepOperands, make_operands, widen
+from .operands import (MASK32, Device, GroupOperands, StepOperands, group_operands,
+                       make_operands, widen)
 from .packing import TailSpec, build_tail_spec
 
 SENTINEL = 0xFFFFFFFF
+
+# The models the reference never admits to its scheduler's packed XLA step
+# (the reference's ops/search_step.py XLA_SERVING_COMPILE_IMPRACTICAL: their
+# fused XLA serving step takes too long to compile on the TPU).  The port
+# keeps the same set so that its scheduler admits and refuses the same
+# requests as the reference's.
+XLA_SERVING_COMPILE_IMPRACTICAL = frozenset({"sha512", "sha384"})
 
 
 def _check_launch(batch: int, launch_steps: int) -> None:
@@ -165,3 +184,94 @@ def cached_search_step(
                             launch_steps, model=model)
 
     return bound
+
+
+def plain_first_hits(model: HashModel, n_blocks: int, tb_loc, chunk_locs, init: torch.Tensor,
+                     base: torch.Tensor, masks: torch.Tensor, tb_lo: Sequence[int],
+                     tbc: Sequence[int], chunk0: Sequence[int],
+                     n: Sequence[int]) -> torch.Tensor:
+    """Many searches of one tail layout in one evaluation: for each case c,
+    the first hitting flat index in ``[0, n[c])`` of the run ``tb_lo[c] ..
+    tb_lo[c] + tbc[c] - 1`` from cursor ``chunk0[c]``, or SENTINEL, as
+    ``int64[C]`` on the operands' device.  ``init[C, S]``, ``base[C,
+    n_blocks, W]`` and ``masks[C, D]`` (the masks of every digest word; a
+    narrower difficulty's are padded with leading zero words) are int32 bit
+    patterns.  Case by case it computes what ``plain_search`` computes (a
+    launch of ``launch_steps`` sub-batches is one range of ``batch *
+    launch_steps``), and a width-0 case (``n = tbc``, cursor 0) what
+    ``plain_search_w0`` does; the candidates of all cases go through the
+    model's compression together."""
+    dev = init.device
+    counts = torch.tensor([int(x) for x in n], dtype=torch.int64, device=dev)
+    case = torch.repeat_interleave(torch.arange(len(counts), device=dev), counts)
+    starts = torch.cumsum(counts, 0) - counts
+    f = torch.arange(case.numel(), dtype=torch.int64, device=dev) - starts[case]
+
+    def per_case(values):
+        return torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)[case]
+
+    run = per_case(tbc)
+    chunk = (per_case(chunk0) + f // run) & MASK32
+    tb = per_case(tb_lo) + f % run
+    state = eval_dyn_candidates(model, n_blocks, tb_loc, chunk_locs, widen(init)[case].T,
+                                widen(base)[case].permute(1, 2, 0), tb, chunk)
+    hit = fold_dyn_masks(model, state, widen(masks)[case].T)
+    first = torch.full((len(counts),), SENTINEL, dtype=torch.int64, device=dev)
+    return first.scatter_reduce(0, case, torch.where(hit, f, SENTINEL), "amin")
+
+
+def plain_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, batch: int,
+                       launch_steps: int = 1) -> torch.Tensor:
+    """Per slot of ``ops``, the first hitting flat index in ``[0, batch *
+    launch_steps)`` or SENTINEL, as ``int64[n_slots]`` on the operands'
+    device: the plain version of the group kernel."""
+    _check_launch(batch, launch_steps)
+    tb_lo, log_tbc, chunk0 = ((widen(t) & MASK32).tolist()
+                              for t in (ops.tb_lo, ops.log_tbc, ops.chunk0))
+    return plain_first_hits(model, ops.n_blocks, tb_loc, chunk_locs, ops.init, ops.base,
+                            ops.masks, tb_lo, [1 << v for v in log_tbc], chunk0,
+                            [batch * launch_steps] * ops.n_slots)
+
+
+def _group(rows) -> GroupOperands:
+    """Group operands from the six slot rows: int32 tensors as they are
+    (one device), anything else (numpy, lists) onto the CPU."""
+    if all(isinstance(r, torch.Tensor) for r in rows):
+        return GroupOperands(*(r.to(torch.int32).contiguous() for r in rows))
+    return group_operands(*rows)
+
+
+def slot_search_step(model_name: str, n_blocks: int, tb_loc, chunk_locs, batch: int,
+                     n_slots: int, launch_steps: int = 1) -> Callable[..., torch.Tensor]:
+    """Multi-slot step: ``step(init[n, S], base[n, n_blocks, W], masks[n, D],
+    tb_lo[n], log_tbc[n], chunk0[n])`` runs ``n_slots`` independent searches
+    and returns each slot's first-hit flat index (or SENTINEL) as an
+    ``int64[n_slots]`` tensor on the CPU.  The rows are uint32 values (numpy
+    arrays, or int32 tensors of their bit patterns on one device, where the
+    step runs).  Masks carry every digest word, so slots at any difficulty
+    share the step; each slot's partition is a power of two."""
+    model = get_hash_model(model_name)
+    _check_launch(batch, launch_steps)
+
+    def step(*rows) -> torch.Tensor:
+        ops = _group(rows)
+        if ops.n_slots != n_slots:
+            raise ValueError(f"{ops.n_slots} slot rows, the step has {n_slots}")
+        return plain_group_search(model, ops, tb_loc, chunk_locs, batch, launch_steps).cpu()
+
+    return step
+
+
+def mixed_slot_search_step(groups: Sequence[tuple], batch: int,
+                           launch_steps: int = 1) -> Callable[..., Tuple[torch.Tensor, ...]]:
+    """Mixed-hash step: ``groups`` is a sequence of ``(model_name, n_blocks,
+    tb_loc, chunk_locs, n_slots)``; ``step(group_rows)`` takes one tuple of
+    six slot rows per group (as ``slot_search_step``) and returns one
+    ``int64[n_slots]`` CPU tensor per group."""
+    steps = [slot_search_step(m, nb, tl, cl, batch, n, launch_steps)
+             for m, nb, tl, cl, n in groups]
+
+    def step(group_rows) -> Tuple[torch.Tensor, ...]:
+        return tuple(st(*rows) for st, rows in zip(steps, group_rows))
+
+    return step

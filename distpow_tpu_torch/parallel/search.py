@@ -23,10 +23,20 @@ A launch whose chunk range overruns ``256**w`` hashes candidates whose
 solving secret is acceptable, coordinator.go:202), can only win when no
 canonical candidate of the same launch solves, and every result is
 re-verified with hashlib before it is returned.
+
+Instruments, as in the reference driver: the ``search.*`` counters, the
+``search.launch_s`` histogram and one ``search.launch`` span per drained
+launch (time blocked on its result, under the thread's bound trace id),
+the ``search.hashes_per_s`` gauge (``_RateMeter``), and the device-hang
+watchdog: the whole search is an active section, with a beat between
+launches and before each blocking fetch, and the first launch of each
+width segment, which may build the kernels, runs under the first-compile
+grace.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -39,6 +49,8 @@ from ..models.registry import HashModel, get_hash_model
 from ..ops.operands import Device, u32_value
 from ..ops.search_step import SENTINEL, cached_search_step
 from ..runtime.metrics import REGISTRY, Metrics
+from ..runtime.spans import SPANS
+from ..runtime.watchdog import FIRST_COMPILE_GRACE_S, WATCHDOG
 from .partition import contiguous_bounds
 
 DEFAULT_BATCH = 1 << 20
@@ -95,6 +107,45 @@ class SearchResult:
     thread_byte: int
     chunk: bytes
     hashes_tried: int
+
+
+class _RateMeter:
+    """Process-wide live throughput behind the ``search.hashes_per_s`` gauge.
+
+    One meter for all searches: concurrent searches drain the same device,
+    so the rate that means something is candidates drained per wall-clock
+    interval across them.  An EMA over drain-to-drain windows; when the
+    last active search exits, the gauge drops to 0."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._active = 0
+        self._last_t: Optional[float] = None
+        self._ema: Optional[float] = None
+
+    def enter(self) -> None:
+        with self._lock:
+            self._active += 1
+
+    def exit(self, metrics: Metrics) -> None:
+        with self._lock:
+            self._active -= 1
+            if self._active <= 0:
+                self._last_t = self._ema = None
+                metrics.gauge("search.hashes_per_s", 0)
+
+    def note(self, n_cand: int, metrics: Metrics) -> None:
+        now = time.monotonic()
+        with self._lock:
+            prev, self._last_t = self._last_t, now
+            if prev is None or now <= prev:
+                return
+            inst = n_cand / (now - prev)
+            self._ema = inst if self._ema is None else 0.7 * self._ema + 0.3 * inst
+            metrics.gauge("search.hashes_per_s", round(self._ema, 3))
+
+
+_RATE_METER = _RateMeter()
 
 
 def assemble_secret(
@@ -222,16 +273,22 @@ def search(
 
     def drain_one() -> Optional[SearchResult]:
         nonlocal hashes
+        WATCHDOG.beat()  # about to block on a launch's result
         host, event, chunk0, vw, extra, n_cand = inflight.popleft()
         hashes += n_cand
         metrics.inc("search.hashes", n_cand)
         # the one place the host waits on the device
         metrics.inc("search.blocking_syncs")
+        fetch_ts = time.time()
         t0 = time.monotonic()
         if event is not None:
             event.synchronize()
         f = u32_value(host)
-        metrics.observe("search.launch_s", time.monotonic() - t0)
+        fetch_s = time.monotonic() - t0
+        metrics.observe("search.launch_s", fetch_s)
+        if SPANS.enabled:
+            SPANS.record("search.launch", fetch_ts, fetch_s, n_cand=n_cand)
+        _RATE_METER.note(n_cand, metrics)
         if f == SENTINEL:
             return None
         secret, tb = assemble_secret(chunk0, f, vw, extra, tb_lo, tbc)
@@ -260,38 +317,53 @@ def search(
             hashes += n
             metrics.inc("search.hashes", n)
 
-    for width in range(0, max_width + 1):
-        for vw, lo, hi, extra in width_segments(width):
-            k = launch_steps_for(vw, target_chunks, tbc, launch_candidates)
-            step, chunks_per_step = factory(vw, extra, target_chunks, k)
-            chunk0 = lo
-            while chunk0 < hi:
-                # a launch may overshoot the segment end; overshot chunk
-                # ints alias already-covered candidates and are not counted
-                n_cand = min(chunks_per_step, hi - chunk0) * tbc
-                if cancel_check is not None and cancel_check():
-                    flush_inflight_counts()
-                    metrics.inc("search.cancelled")
-                    return None
-                if max_hashes is not None and hashes >= max_hashes:
+    _RATE_METER.enter()
+    try:
+        with WATCHDOG.active():
+            for width in range(0, max_width + 1):
+                for vw, lo, hi, extra in width_segments(width):
+                    WATCHDOG.beat()
+                    k = launch_steps_for(vw, target_chunks, tbc, launch_candidates)
+                    step, chunks_per_step = factory(vw, extra, target_chunks, k)
+                    chunk0 = lo
+                    while chunk0 < hi:
+                        # a launch may overshoot the segment end; overshot
+                        # chunk ints alias already-covered candidates and
+                        # are not counted
+                        n_cand = min(chunks_per_step, hi - chunk0) * tbc
+                        WATCHDOG.beat()
+                        if cancel_check is not None and cancel_check():
+                            flush_inflight_counts()
+                            metrics.inc("search.cancelled")
+                            return None
+                        if max_hashes is not None and hashes >= max_hashes:
+                            found = drain_all()
+                            flush_inflight_counts()
+                            if found is not None:
+                                metrics.inc("search.found")
+                            return found
+                        if chunk0 == lo:
+                            # a segment's first launch may build the kernels
+                            # (nvcc at the first load of a library): one
+                            # uninterruptible gap, under the compile grace
+                            with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
+                                res = step(chunk0 & 0xFFFFFFFF)
+                        else:
+                            res = step(chunk0 & 0xFFFFFFFF)
+                        metrics.inc("search.launches")
+                        inflight.append((*_enqueue_fetch(res), chunk0, vw, extra, n_cand))
+                        chunk0 += chunks_per_step
+                        if len(inflight) >= pipeline_depth:
+                            found = drain_one()
+                            if found is not None:
+                                flush_inflight_counts()
+                                metrics.inc("search.found")
+                                return found
                     found = drain_all()
-                    flush_inflight_counts()
-                    if found is not None:
-                        metrics.inc("search.found")
-                    return found
-                res = step(chunk0 & 0xFFFFFFFF)
-                metrics.inc("search.launches")
-                inflight.append((*_enqueue_fetch(res), chunk0, vw, extra, n_cand))
-                chunk0 += chunks_per_step
-                if len(inflight) >= pipeline_depth:
-                    found = drain_one()
                     if found is not None:
                         flush_inflight_counts()
                         metrics.inc("search.found")
                         return found
-            found = drain_all()
-            if found is not None:
-                flush_inflight_counts()
-                metrics.inc("search.found")
-                return found
-    return None
+        return None
+    finally:
+        _RATE_METER.exit(metrics)

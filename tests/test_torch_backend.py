@@ -32,8 +32,10 @@ def test_explicit_cpu_device_is_served(no_gpu):
     assert isinstance(get_backend("cuda", device="cpu"), CudaBackend)
     assert isinstance(get_backend("torch", device="cpu"), TorchBackend)
     assert isinstance(get_backend("python"), PythonBackend)
+    # "pallas" is the reference's name of the kernel backend, now served
+    # as cuda (tests/test_torch_driver_instruments.py): an unknown name raises
     with pytest.raises(ValueError, match="unknown worker backend"):
-        get_backend("pallas")
+        get_backend("warp")
     with pytest.raises(ValueError, match="unsupported device"):
         get_backend("cuda", device="meta")
 

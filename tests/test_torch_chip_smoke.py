@@ -244,3 +244,31 @@ def test_pipe_probe_names_64_bit_and_prmt_probes(kernel, label, kinds):
     named, per_iteration = pipe_rates.named_kinds(label)
     assert named == kinds
     assert sum(per_iteration.values()) == pipe_rates.CHAINS * pipe_rates.STEPS
+
+
+GROUP_PTXAS = """
+ptxas info    : Compiling entry function '_ZN7distpow23md5_group_search_kernelILi2EEEvPKjS2_S2_S2_S2_S2_iijjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow23md5_group_search_kernelILi2EEEvPKjS2_S2_S2_S2_S2_iijjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow33resident_hash_group_search_kernelINS_7Sha256dELi2EEEvPKjS3_S3_S3_S3_S3_iijjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow33resident_hash_group_search_kernelINS_7Sha256dELi2EEEvPKjS3_S3_S3_S3_S3_iijjPj
+    24 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 24 bytes cumulative stack size, 32 bytes smem
+"""
+
+
+def test_group_kernel_parsers_keep_apart_from_the_solo_ones():
+    """The group kernels' names carry only the tail length: their own
+    parsers read them, and the solo parsers skip them."""
+    cs = _load()
+    assert cs.parse_group_ptxas(GROUP_PTXAS) == {
+        2: {"registers": 48, "spill_bytes": 24}}
+    assert cs.parse_group_ptxas(GROUP_PTXAS.split("ptxas info    : Compiling entry function "
+                                                  "'_ZN7distpow33")[0]) == {
+        2: {"registers": 60, "spill_bytes": 0}}
+    assert cs.parse_ptxas(GROUP_PTXAS) == {}
+    sass = SASS.replace("18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEv",
+                        "24hash_group_search_kernelINS_6Sha256ELi1EEEv")
+    assert cs.group_sass_loops(sass) == {1: {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
+    assert cs.spec_sass_loops(sass) == {}

@@ -12,7 +12,10 @@ mask-word pruning, and mask check, one candidate at a time.  Every
 port's plain step, and the full-width state to hashlib, exactly (integer
 hashing).  The in-place Keccak permutation is also held, lane for lane, to
 the straightforward formulation with a full rho-pi copy (kept here as the
-reference) for every last-round lane mask the kernels use.
+reference) for every last-round lane mask the kernels use.  And one slot
+of the scheduler's group kernel (its per-slot layout, ``slot_layout``, at
+the full digest and a power-of-two run) for all nine hashes, md5's from
+``md5.cuh``, against the port's plain group step.
 """
 
 import ctypes
@@ -89,6 +92,17 @@ void host_state(int n_blocks, const uint32_t* init, const uint32_t* base, uint32
   else hash_tail_state<H, H::DIGEST_WORDS, 2>(init, base, L, tb, chunk, out);
 }
 
+// one slot of the group kernel: its layout from the slot's scalars, the
+// full digest, a power-of-two run
+uint32_t host_group_slot(int n_blocks, const uint32_t* init, const uint32_t* base,
+                         const uint32_t* masks, uint32_t chunk0, uint32_t tb_lo,
+                         uint32_t log_tbc, int var_word, int var_shift, uint32_t chunk_mask,
+                         uint32_t batch) {
+  const Layout L = slot_layout(chunk0, tb_lo, log_tbc, var_word, var_shift, chunk_mask);
+  if (n_blocks == 1) return search<H::DIGEST_WORDS, 1, true>(init, base, masks, L, batch);
+  return search<H::DIGEST_WORDS, 2, true>(init, base, masks, L, batch);
+}
+
 uint32_t host_search(int n_blocks, int mask_words, const uint32_t* init,
                      const uint32_t* base, const uint32_t* masks, uint32_t chunk0,
                      uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word,
@@ -105,6 +119,8 @@ uint32_t host_search(int n_blocks, int mask_words, const uint32_t* init,
 """
 
 U32P = ctypes.POINTER(ctypes.c_uint32)
+GROUP_SLOT_ARGS = [ctypes.c_int, U32P, U32P, U32P, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
 
 
 @pytest.fixture(scope="module")
@@ -136,6 +152,8 @@ def twins(tmp_path_factory):
         dll.host_state.restype = None
         dll.host_search.argtypes = [i32, i32, U32P, U32P, U32P, *layout, u32]
         dll.host_search.restype = u32
+        dll.host_group_slot.argtypes = GROUP_SLOT_ARGS
+        dll.host_group_slot.restype = u32
         dlls[name] = dll
     return dlls
 
@@ -551,3 +569,83 @@ def test_switch_placement_matches_selects(place_twin, row_words, blk):
         assert m.tolist() == want.tolist(), var_word
         placed += m.tolist() != row.tolist()
     assert placed == 33  # var_word 32 * blk - 1 .. 32 * blk + 31 touch the block
+
+
+# md5's group kernel body, from md5.cuh (its own scaffold)
+MD5_GROUP_SOURCE = r"""
+#include "md5.cuh"
+using namespace distpow;
+
+extern "C" uint32_t host_group_slot(int n_blocks, const uint32_t* init, const uint32_t* base,
+                                    const uint32_t* masks, uint32_t chunk0, uint32_t tb_lo,
+                                    uint32_t log_tbc, int var_word, int var_shift,
+                                    uint32_t chunk_mask, uint32_t batch) {
+  const Layout L = slot_layout(chunk0, tb_lo, log_tbc, var_word, var_shift, chunk_mask);
+  for (uint32_t f = 0; f < batch; ++f) {
+    uint32_t tb, chunk;
+    decode<true>(L, f, tb, chunk);
+    if (n_blocks == 1 ? candidate_hits<4, 1>(init, base, masks, L, tb, chunk)
+                      : candidate_hits<4, 2>(init, base, masks, L, tb, chunk))
+      return f;
+  }
+  return SENTINEL;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def md5_group_twin(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host twins cannot be built")
+    d = tmp_path_factory.mktemp("md5_group_twin")
+    src, lib = d / "md5_group.cpp", d / "libmd5_group.so"
+    src.write_text(MD5_GROUP_SOURCE)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-o",
+                           str(lib), str(src)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    dll = ctypes.CDLL(str(lib))
+    dll.host_group_slot.argtypes = GROUP_SLOT_ARGS
+    dll.host_group_slot.restype = ctypes.c_uint32
+    return dll
+
+
+@pytest.mark.parametrize("name", ["md5"] + sorted(HASHES) + sorted(WIDE))
+@pytest.mark.parametrize("tail", ["one_block", "two_blocks"])
+def test_group_slot_twin_matches_plain_group_step(twins, md5_group_twin, name, tail):
+    """Each slot of a group (own nonce, difficulty, power-of-two run and
+    cursor; the group's tail layout) searched by the group kernel's
+    per-slot code equals the port's plain group step (exact), hits and a
+    slot at the full digest's masks that cannot hit."""
+    from distpow_tpu_torch.ops.difficulty import nibble_masks
+    from distpow_tpu_torch.ops.operands import group_operands
+    from distpow_tpu_torch.ops.search_step import plain_group_search
+
+    model = get_hash_model(name)
+    twin = md5_group_twin if name == "md5" else twins[name]
+    rng = np.random.default_rng(len(name) + (tail == "two_blocks"))
+    nonce_len = 5 if tail == "one_block" else model.block_bytes - 2
+    width, batch = 3, 1 << 10
+    specs, masks, tb_lo, log_tbc, chunk0 = [], [], [], [], []
+    for s, lg in enumerate((0, 1, 4, 8)):
+        nonce = rng.integers(0, 256, size=nonce_len, dtype=np.uint8).tobytes()
+        specs.append(build_tail_spec(nonce, width, model))
+        masks.append(nibble_masks(model.max_difficulty if s == 2 else 1 + s % 3, model))
+        log_tbc.append(lg)
+        tb_lo.append(int(rng.integers(0, 256 >> lg)) << lg)
+        chunk0.append(256 ** (width - 1) + int(rng.integers(0, 1000)))
+    sp = specs[0]
+    assert sp.n_blocks == (1 if tail == "one_block" else 2)
+    ops = group_operands([x.init_state for x in specs], [x.base_words for x in specs], masks,
+                         tb_lo, log_tbc, chunk0)
+    want = plain_group_search(model, ops, sp.tb_loc, sp.chunk_locs, batch).tolist()
+    var_word, var_shift, chunk_mask = kernel_layout(sp.tb_loc, sp.chunk_locs, model)
+    got = []
+    for s, x in enumerate(specs):
+        init, init_p = _arr(x.init_state)
+        base, base_p = _arr(x.base_words)
+        m, m_p = _arr(masks[s])
+        got.append(twin.host_group_slot(x.n_blocks, init_p, base_p, m_p, chunk0[s], tb_lo[s],
+                                        log_tbc[s], var_word, var_shift, chunk_mask, batch))
+    assert got == want
+    assert want[2] == SENTINEL and any(w != SENTINEL for w in want)
