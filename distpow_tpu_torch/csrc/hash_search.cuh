@@ -293,16 +293,7 @@ __device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ i
   __syncthreads();
   uint32_t best = thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init, base, masks, L, n);
 
-  __shared__ uint32_t warp_min[HASH_BLOCK_THREADS / 32];
-  best = __reduce_min_sync(0xFFFFFFFFu, best);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t m = warp_min[0];
-#pragma unroll
-    for (int w = 1; w < HASH_BLOCK_THREADS / 32; ++w) m = min(m, warp_min[w]);
-    if (m != SENTINEL) atomicMin(out, m);
-  }
+  block_min_to<HASH_BLOCK_THREADS>(best, out);
 }
 
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
@@ -431,22 +422,13 @@ int launch_hash_group_search(const void* init, const void* base, const void* mas
                              int n_blocks, int var_word, int var_shift, uint32_t chunk_mask,
                              const void* tb_lo, const void* log_tbc, const void* chunk0,
                              int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
-  if (n_slots == 0 || batch == 0) return 0;
-  if ((n_blocks != 1 && n_blocks != 2) || n_slots < 0 || n_slots > 65535 || grid_x < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(grid_x, n_slots);
-  auto s = static_cast<cudaStream_t>(stream);
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  if (n_blocks == 1) {
-    launch_group_kernel<H, 1>(grid, s, u(init), u(base), u(masks), u(tb_lo), u(log_tbc),
-                              u(chunk0), var_word, var_shift, chunk_mask, batch,
-                              static_cast<uint32_t*>(out));
-  } else {
-    launch_group_kernel<H, 2>(grid, s, u(init), u(base), u(masks), u(tb_lo), u(log_tbc),
-                              u(chunk0), var_word, var_shift, chunk_mask, batch,
-                              static_cast<uint32_t*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_group(n_blocks, n_slots, batch, grid_x, [&](auto n_blk, dim3 grid) {
+    launch_group_kernel<H, decltype(n_blk)::value>(
+        grid, static_cast<cudaStream_t>(stream), u(init), u(base), u(masks), u(tb_lo),
+        u(log_tbc), u(chunk0), var_word, var_shift, chunk_mask, batch,
+        static_cast<uint32_t*>(out));
+  });
 }
 #undef DISTPOW_GROUP_ARGS
 #undef DISTPOW_GROUP_PARAMS

@@ -12,6 +12,9 @@
 #include <stdint.h>
 
 #if defined(__CUDACC__)
+#include <cuda_runtime.h>
+
+#include <type_traits>
 #define DISTPOW_HD __host__ __device__ __forceinline__
 #else
 #define DISTPOW_HD inline
@@ -181,5 +184,43 @@ DISTPOW_HD bool candidate_hits(const uint32_t* init, const uint32_t* base,
   for (int j = 0; j < MASK_WORDS; ++j) acc |= st[4 - MASK_WORDS + j] & masks[j];
   return acc == 0;
 }
+
+#if defined(__CUDACC__)
+// The kernels' min across the grid, after each thread's first hit: per warp
+// (__reduce_min_sync), then one atomicMin per block into *out, which the
+// wrapper set to SENTINEL on the same stream before the launch.  Every
+// thread of the block calls it.
+template <int THREADS>
+__device__ __forceinline__ void block_min_to(uint32_t best, uint32_t* out) {
+  __shared__ uint32_t warp_min[THREADS / 32];
+  best = __reduce_min_sync(0xFFFFFFFFu, best);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t m = warp_min[0];
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) m = min(m, warp_min[w]);
+    if (m != SENTINEL) atomicMin(out, m);
+  }
+}
+
+// The host side of every group search's C function: checks the group's
+// configuration, then calls launch(std::integral_constant<int, N_BLOCKS>,
+// grid) with the (grid_x, n_slots) grid.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a configuration no kernel was built for.
+template <class Launch>
+int launch_group(int n_blocks, int n_slots, uint32_t batch, int grid_x, Launch launch) {
+  if (n_slots == 0 || batch == 0) return 0;
+  if ((n_blocks != 1 && n_blocks != 2) || n_slots < 0 || n_slots > 65535 || grid_x < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, n_slots);
+  if (n_blocks == 1) {
+    launch(std::integral_constant<int, 1>{}, grid);
+  } else {
+    launch(std::integral_constant<int, 2>{}, grid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // __CUDACC__
 
 }  // namespace distpow

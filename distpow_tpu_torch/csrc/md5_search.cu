@@ -79,16 +79,7 @@ md5_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restric
     }
   }
 
-  __shared__ uint32_t warp_min[BLOCK_THREADS / 32];
-  best = __reduce_min_sync(0xFFFFFFFFu, best);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t m = warp_min[0];
-#pragma unroll
-    for (int w = 1; w < BLOCK_THREADS / 32; ++w) m = min(m, warp_min[w]);
-    if (m != SENTINEL) atomicMin(out, m);
-  }
+  block_min_to<BLOCK_THREADS>(best, out);
 }
 
 template <int MASK_WORDS, int N_BLOCKS>
@@ -154,16 +145,7 @@ md5_group_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __r
     }
   }
 
-  __shared__ uint32_t warp_min[BLOCK_THREADS / 32];
-  best = __reduce_min_sync(0xFFFFFFFFu, best);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t m = warp_min[0];
-#pragma unroll
-    for (int w = 1; w < BLOCK_THREADS / 32; ++w) m = min(m, warp_min[w]);
-    if (m != SENTINEL) atomicMin(out + s, m);
-  }
+  block_min_to<BLOCK_THREADS>(best, out + s);
 }
 
 }  // namespace distpow
@@ -205,23 +187,13 @@ int distpow_md5_group_search(const void* init, const void* base, const void* mas
                              int n_blocks, int var_word, int var_shift, uint32_t chunk_mask,
                              const void* tb_lo, const void* log_tbc, const void* chunk0,
                              int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
-  if (n_slots == 0 || batch == 0) return 0;
-  if ((n_blocks != 1 && n_blocks != 2) || n_slots < 0 || n_slots > 65535 || grid_x < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(grid_x, n_slots);
-  auto s = static_cast<cudaStream_t>(stream);
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  auto o = static_cast<uint32_t*>(out);
-  if (n_blocks == 1) {
-    distpow::md5_group_search_kernel<1><<<grid, distpow::BLOCK_THREADS, 0, s>>>(
-        u(init), u(base), u(masks), u(tb_lo), u(log_tbc), u(chunk0), var_word, var_shift,
-        chunk_mask, batch, o);
-  } else {
-    distpow::md5_group_search_kernel<2><<<grid, distpow::BLOCK_THREADS, 0, s>>>(
-        u(init), u(base), u(masks), u(tb_lo), u(log_tbc), u(chunk0), var_word, var_shift,
-        chunk_mask, batch, o);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return distpow::launch_group(n_blocks, n_slots, batch, grid_x, [&](auto n_blk, dim3 grid) {
+    distpow::md5_group_search_kernel<decltype(n_blk)::value>
+        <<<grid, distpow::BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            u(init), u(base), u(masks), u(tb_lo), u(log_tbc), u(chunk0), var_word, var_shift,
+            chunk_mask, batch, static_cast<uint32_t*>(out));
+  });
 }
 
 }  // extern "C"

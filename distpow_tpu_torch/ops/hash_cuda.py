@@ -244,7 +244,7 @@ def group_grid(batch: int, n_slots: int, sm_count: int) -> int:
 
 
 def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, batch: int,
-                      *, device: Device, grid_x: Optional[int] = None) -> torch.Tensor:
+                      *, device: Device) -> torch.Tensor:
     """Per slot, the first hitting flat index in ``[0, batch)`` or SENTINEL.
 
     Every slot shares the tail layout ``(n_blocks, tb_loc, chunk_locs)`` and
@@ -253,7 +253,7 @@ def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, 
     On a CUDA device: one launch of ``model``'s group kernel on the current
     stream, returning the ``int32[n_slots]`` result cells (uint32 bit
     patterns, SENTINEL is -1) without synchronising.  On the CPU: the plain
-    version, ``int64[n_slots]``.  ``grid_x`` overrides the blocks per slot.
+    version, ``int64[n_slots]``.  The grid is ``group_grid`` blocks per slot.
     """
     name = kernel_name(model)
     device = torch.device(device)
@@ -272,9 +272,8 @@ def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, 
     lib = load_library(name)
     dev = ops.device
     with torch.cuda.device(dev):
-        if grid_x is None:
-            grid_x = group_grid(batch, ops.n_slots,
-                                torch.cuda.get_device_properties(dev).multi_processor_count)
+        grid_x = group_grid(batch, ops.n_slots,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
         out = torch.full((ops.n_slots,), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
         rc = getattr(lib, group_function(name))(
             ops.init.data_ptr(), ops.base.data_ptr(), ops.masks.data_ptr(), ops.n_blocks,

@@ -122,13 +122,21 @@ def group_operands(init, base, masks, tb_lo, log_tbc, chunk0,
     """Group operands from host rows (ints or numpy arrays of uint32 values:
     ``init[n][S]``, ``base[n][n_blocks][W]``, ``masks[n][D]`` and the three
     per-slot scalars), packed into one buffer so that one copy moves the
-    whole group to ``device``."""
+    whole group to ``device``.  For a CUDA device the rows are staged in
+    pinned host memory and copied ``non_blocking`` on the current stream,
+    so the host does not wait for the copy (the caller's one wait for its
+    results comes later on the same stream)."""
     rows = [np.asarray(x, dtype=np.uint32) for x in (init, base, masks, tb_lo, log_tbc, chunk0)]
     n = rows[0].shape[0]
     if rows[1].ndim != 3 or any(r.shape[0] != n for r in rows) or \
             any(r.ndim != 1 for r in rows[3:]):
         raise ValueError(f"bad group rows: shapes {[r.shape for r in rows]}")
     flat = np.concatenate([r.reshape(-1) for r in rows]).view(np.int32)
-    buf = torch.from_numpy(flat).to(device)
+    if torch.device(device).type == "cuda":
+        staged = torch.empty(flat.size, dtype=torch.int32, pin_memory=True)
+        staged.numpy()[:] = flat
+        buf = staged.to(device, non_blocking=True)
+    else:
+        buf = torch.from_numpy(flat).to(device)
     parts: Tuple[torch.Tensor, ...] = torch.split(buf, [r.size for r in rows])
     return GroupOperands(*(p.view(r.shape) for p, r in zip(parts, rows)))

@@ -26,10 +26,11 @@ is not a power of two, an unsatisfiable difficulty, a model the engine does
 not admit) go to ``_solo``.
 
 On a CUDA device every CUDA call of the loop is made on the scheduler's
-device and stream.  Each group kernel writes its slots' results into
-device cells, each group's cells are copied ``non_blocking`` into one
-pinned host buffer, and one event is recorded and waited on: one
-``search.blocking_syncs`` per engine launch.  A failing build or launch
+device and stream.  Each group's slot rows go up from pinned memory
+without a wait (``group_operands``), each group kernel writes its slots'
+results into device cells, each group's cells are copied ``non_blocking``
+into one pinned host buffer, and one event is recorded and waited on: the
+one host wait, and one ``search.blocking_syncs``, per engine launch.  A failing build or launch
 raises; the loop dies, its slots finish with the error and
 ``sched.loop_failures`` counts it.  There is no demotion to the plain step.
 """
@@ -400,7 +401,7 @@ class BatchingScheduler:
         return stack
 
     def _lane_ops(self, slots: List[Slot]) -> GroupOperands:
-        """The group's slot rows, on the scheduler's device (one copy)."""
+        """The group's slot rows, on the scheduler's device (one copy, no wait)."""
         return group_operands(
             [s.spec.init_state for s in slots],
             [s.spec.base_words for s in slots],

@@ -14,6 +14,7 @@ names, and the boot warm-up, against the reference where it has them.
 """
 
 import contextlib
+import threading
 
 import pytest
 
@@ -29,38 +30,41 @@ from distpow_tpu_torch.runtime.watchdog import FIRST_COMPILE_GRACE_S
 NONCE, DIFFICULTY, FULL = b"\x01\x02\x03\x04", 4, list(range(256))
 
 
-def _names(snapshot: dict, before: dict) -> dict:
-    """The search.* counters and histograms a run changed, and the search.*
-    gauges it set."""
-    def changed(kind, value):
-        return {k for k, v in snapshot[kind].items()
-                if k.startswith("search.") and value(v) != value(before[kind].get(k))}
+def _record_names(registry, monkeypatch) -> dict:
+    """The search.* counters, histograms and gauges that the calling thread
+    writes into ``registry`` from now on (another thread of the test
+    process writing the same registry does not count)."""
+    me = threading.get_ident()
+    names = {"counters": set(), "histograms": set(), "gauges": set()}
+    for kind, method in (("counters", "inc"), ("histograms", "observe"), ("gauges", "gauge")):
+        def record(name, *args, _kind=kind, _write=getattr(registry, method), **kwargs):
+            if threading.get_ident() == me and name.startswith("search."):
+                names[_kind].add(name)
+            return _write(name, *args, **kwargs)
 
-    return {"counters": changed("counters", lambda v: v),
-            "histograms": changed("histograms", lambda v: v and v["count"]),
-            "gauges": {k for k in snapshot["gauges"] if k.startswith("search.")}}
+        monkeypatch.setattr(registry, method, record)
+    return names
 
 
-def test_search_writes_the_reference_drivers_metrics_and_spans():
+def test_search_writes_the_reference_drivers_metrics_and_spans(monkeypatch):
     from distpow_tpu.models.registry import get_hash_model as jax_model
     from distpow_tpu.parallel.search import search as jax_search
     from distpow_tpu.runtime.metrics import REGISTRY as JAX_REGISTRY
     from distpow_tpu.runtime.spans import SPANS as JAX_SPANS
 
-    before, spans0 = JAX_REGISTRY.snapshot(), JAX_SPANS.total_recorded
+    jax_names, spans0 = _record_names(JAX_REGISTRY, monkeypatch), JAX_SPANS.total_recorded
     want = jax_search(NONCE, DIFFICULTY, FULL, model=jax_model("md5"), batch_size=1 << 10,
                       launch_candidates=1 << 12)
-    jax_names = _names(JAX_REGISTRY.snapshot(), before)
     jax_spans = JAX_SPANS.recent()[-(JAX_SPANS.total_recorded - spans0):]
 
     m = Metrics()
-    spans0 = SPANS.total_recorded
+    port_names, spans0 = _record_names(m, monkeypatch), SPANS.total_recorded
     got = port_search.search(NONCE, DIFFICULTY, FULL, model=get_hash_model("md5"),
                              batch_size=1 << 10, launch_candidates=1 << 12, device="cpu",
                              metrics=m)
     port_spans = SPANS.recent()[-(SPANS.total_recorded - spans0):]
     assert got.secret == want.secret
-    assert _names(m.snapshot(), {"counters": {}, "histograms": {}, "gauges": {}}) == jax_names
+    assert port_names == jax_names
     assert jax_names["gauges"] == {"search.hashes_per_s"}
     assert {"search.launches", "search.hashes", "search.found",
             "search.blocking_syncs"} <= jax_names["counters"]
