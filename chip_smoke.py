@@ -29,7 +29,20 @@ models in shared launches, and sha512 refused), ``sched_sha512`` and
 checked with hashlib and against the solo backend's; ``sched_cancel``
 cancels a request in flight, and times the cancel of a first request made
 after ``CudaBackend.warmup`` in a fresh process with a fresh build
-directory.  Every phase prints one
+directory.  The mesh form of each kernel (one shard's launch of a search
+spread over a mesh of devices; logical shards on ``cuda:0`` unless the
+machine has more cards): ``mesh_parity`` holds it against the plain mesh
+step and against the solo kernel on the same launch (1-8 shards, both
+regimes, widths 0-4, both tails); ``mesh_full_parity`` holds it against
+the solo kernel at the worker's full launch on 4 shards, first hits deep
+in a later shard, and times that launch beside the solo kernel's and the
+plain mesh step's;
+``mine_mesh`` mines through ``get_backend("pallas-mesh")`` and
+``search_mesh`` on 4 shards (every model, md5 also on a 4-way split), the
+mesh launch counts set to 0 just before and read just after; ``rate_mesh``
+times md5's main-path launch on 4 shards against the solo kernel's; and
+``sched_mesh`` serves ``sched_md5``'s requests on the scheduler's mesh
+lane.  Every phase prints one
 JSON line; the line before the card's name lists every kernel; the last
 line, printed only when every phase passed, is ``{"ok": true, "device":
 {...}}``.  It imports neither JAX nor the JAX package.  Long outputs (the
@@ -42,10 +55,12 @@ port's package is not beside this script, or when any phase fails.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import functools
 import gzip
 import hashlib
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -62,6 +77,8 @@ MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha512", "sha384", "
           "blake2b_256")
 # the TPU code every group kernel replaces
 REPLACES_GROUP = "distpow_tpu/sched/lanes.py:143"
+# the TPU code every mesh kernel replaces
+REPLACES_MESH = "distpow_tpu/parallel/mesh_search.py:178 _dyn_pallas_mesh_step"
 # model -> the TPU code its kernel replaces (distpow_tpu/ops/md5_pallas.py:
 # the scaffold _dyn_pallas_step, ported with md5, and each model's tile)
 REPLACES = {"md5": "distpow_tpu/ops/md5_pallas.py:698",
@@ -141,6 +158,19 @@ GROUP_MASK_BITS = 20
 # rate_group: seconds the engine runs 8 difficulty-16 slots
 RATE_GROUP_WINDOW_S = 2.0
 SCHED_SEED = 20261017
+# mesh_parity: (shards, tb_lo, tbc) of the cases, each at every width: 1-8
+# shards and 3 on the full run (thread-byte split, or chunk split where
+# the shards do not divide it), 8 shards on runs of 64, 3 and 4 (chunk
+# split) and of 96 (thread-byte split into runs of 12)
+MESH_LAYOUTS = ((1, 0, 256), (2, 0, 256), (4, 0, 256), (8, 0, 256), (3, 0, 256),
+                (8, 64, 64), (8, 5, 3), (8, 16, 4), (8, 16, 96))
+MESH_DIFFICULTIES = (2, 3, 4, 0, 5)
+# candidates a mesh_parity case covers at most (2^14 a launch, 3 launch steps)
+MESH_CASE_CANDIDATES = 1 << 14
+# mesh_full_parity: launches timed of the main-path mesh and solo launches
+MESH_RATE_LAUNCHES = 5
+# mine_mesh, mesh_full_parity, rate_mesh, sched_mesh: shards of search_mesh
+MESH_SHARDS = 4
 # sched_mixed: md5 (the default) and the models it admits besides
 MIXED_MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha3_256", "blake2b_256")
 
@@ -239,6 +269,10 @@ KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
 # (resident_)hash_group_search_kernel<Hash, NB>
 GROUP_KEY = r"group_search_kernelI(?:N\w*?E)?Li(\d)EE"
 
+# A mesh kernel's key: md5_mesh_kernel<MW, NB, POW2> or
+# (resident_)hash_mesh_kernel<Hash, MW, NB, POW2>
+MESH_KEY = r"_mesh_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
+
 
 def parse_group_ptxas(log: str):
     """Per group kernel specialization ``n_blocks``: registers and spill
@@ -254,8 +288,13 @@ def parse_group_ptxas(log: str):
 def group_sass_loops(sass: str, path: bool = False):
     """Per group kernel specialization ``n_blocks``: its loop's opcodes, as
     ``spec_sass_loops`` gives the solo kernels'."""
+    return by_group(sass_loops(sass, path))
+
+
+def by_group(loops):
+    """``sass_loops``'s result, the group kernels' by ``n_blocks``."""
     out = {}
-    for name, body in sass_loops(sass, path).items():
+    for name, body in loops.items():
         m = re.search(GROUP_KEY, name)
         if m:
             out[int(m.group(1))] = body
@@ -267,11 +306,12 @@ def spec_label(key) -> str:
     return f"mw{mw}_nb{nb}_{'pow2' if pow2 else 'div'}"
 
 
-def parse_ptxas(log: str):
+def parse_ptxas(log: str, key: str = KERNEL_KEY):
     """Per specialization ``(mask_words, n_blocks, pow2)``: registers and
-    spill bytes, from nvcc's ``-Xptxas -v`` output."""
+    spill bytes, from nvcc's ``-Xptxas -v`` output; ``key`` is the solo
+    kernels' name pattern, or ``MESH_KEY``."""
     out = {}
-    pattern = (KERNEL_KEY + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+    pattern = (key + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
                r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
     for mw, nb, p2, _, st, ld, regs in re.findall(pattern, log):
         out[(int(mw), int(nb), p2 == "1")] = {"registers": int(regs),
@@ -337,17 +377,35 @@ def sass_loops(sass: str, path: bool = False):
     return out
 
 
-def spec_sass_loops(sass: str, path: bool = False):
+def spec_sass_loops(sass: str, path: bool = False, key: str = KERNEL_KEY):
     """Per kernel specialization ``(mask_words, n_blocks, pow2)``: the
     opcodes of its grid-stride loop body (one candidate; the loop is not
     unrolled), each with its modifiers, as a Counter; with ``path``, those
-    one candidate issues (``sass_loops``)."""
+    one candidate issues (``sass_loops``).  ``key``: the solo kernels, or
+    ``MESH_KEY``."""
+    return by_spec(sass_loops(sass, path), key)
+
+
+def by_spec(loops, key: str = KERNEL_KEY):
+    """``sass_loops``'s result, the kernels of name pattern ``key`` by
+    specialization ``(mask_words, n_blocks, pow2)``."""
     out = {}
-    for name, body in sass_loops(sass, path).items():
-        m = re.search(KERNEL_KEY, name)
+    for name, body in loops.items():
+        m = re.search(key, name)
         if m:
             out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = body
     return out
+
+
+def listing_loops(cuobjdump: str, library: str, listing_gz: str):
+    """A library's ``cuobjdump -sass`` listing, kept gzipped at
+    ``listing_gz``, parsed: ``(sass_loops, sass_loops(path=True))`` of every
+    function.  Run in a worker process, one a library."""
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    with gzip.open(listing_gz, "wt") as fh:
+        fh.write(sass)
+    return sass_loops(sass), sass_loops(sass, path=True)
 
 
 def opcode_kind(op: str) -> str:
@@ -722,7 +780,7 @@ def main() -> int:
         return 2
 
     from distpow_tpu_torch.backends import get_backend
-    from distpow_tpu_torch.backends.cuda_backend import CudaBackend
+    from distpow_tpu_torch.backends.cuda_backend import CudaBackend, CudaMeshBackend
     from distpow_tpu_torch.models import puzzle
     from distpow_tpu_torch.models.registry import get_hash_model
     from distpow_tpu_torch.ops import _build
@@ -734,8 +792,10 @@ def main() -> int:
     from distpow_tpu_torch.ops.hash_cuda import group_grid, hash_group_search
     from distpow_tpu_torch.ops.operands import group_operands
     from distpow_tpu_torch.ops.search_step import (
-        SENTINEL, mask_words_for, plain_first_hits, plain_group_search, plain_search,
-        step_operands)
+        SENTINEL, MeshOrigin, mask_words_for, partition_index, plain_first_hits,
+        plain_group_search, plain_mesh_search, plain_search, step_operands)
+    from distpow_tpu_torch.parallel import mesh_search
+    from distpow_tpu_torch.parallel.mesh_search import make_mesh
     from distpow_tpu_torch.runtime.metrics import Metrics
     from distpow_tpu_torch.sched import BatchingScheduler
     from distpow_tpu_torch.parallel.partition import thread_bytes, worker_bits
@@ -775,6 +835,7 @@ def main() -> int:
     # kernels' by n_blocks
     loops, issued = {}, {}
     group_loops, group_issued = {}, {}
+    mesh_issued = {}
 
     def build():
         paths = _build.build()
@@ -783,7 +844,15 @@ def main() -> int:
         log = "\n".join(f"== {k}\n{v}" for k, v in build_log.items())
         with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as fh:
             fh.write(log)
-        ptxas, loop_counts, group_info = {}, {}, {}
+        ptxas, loop_counts, group_info, mesh_info = {}, {}, {}, {}
+        # the nine listings parsed at once, one process each
+        kernels = [KERNELS[m] for m in MODELS]
+        with concurrent.futures.ProcessPoolExecutor(
+                len(kernels), mp_context=multiprocessing.get_context("spawn")) as pool:
+            parsed = dict(zip(kernels, pool.map(
+                listing_loops, [_build.find_cuda_tool("cuobjdump")] * len(kernels),
+                [paths[k] for k in kernels],
+                [os.path.join(OUT_DIR, f"{k}.sass.gz") for k in kernels])))
         for model_name in MODELS:
             kernel = KERNELS[model_name]
             # md5: mask words 1-4; the others 1-4 and the full digest
@@ -792,13 +861,9 @@ def main() -> int:
             if build_log and len(specs) != expect:
                 raise RuntimeError(f"ptxas reported {len(specs)} of {expect} {kernel} kernels")
             ptxas[kernel] = {spec_label(k): v for k, v in sorted(specs.items())}
-            sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", paths[kernel]],
-                                  capture_output=True, text=True, check=True,
-                                  timeout=300).stdout
-            with gzip.open(os.path.join(OUT_DIR, f"{kernel}.sass.gz"), "wt") as fh:
-                fh.write(sass)
-            loops[kernel] = spec_sass_loops(sass)
-            issued[kernel] = spec_sass_loops(sass, path=True)
+            whole, path = parsed[kernel]
+            loops[kernel] = by_spec(whole)
+            issued[kernel] = by_spec(path)
             if len(loops[kernel]) != expect:
                 raise RuntimeError(f"found the loop of {len(loops[kernel])} of {expect} "
                                    f"{kernel} specializations")
@@ -807,8 +872,8 @@ def main() -> int:
             # the group kernel, one specialization per tail length: the solo
             # kernel's full-digest power-of-two body, beside which it is shown
             gspecs = parse_group_ptxas(build_log.get(kernel, ""))
-            group_loops[kernel] = group_sass_loops(sass)
-            group_issued[kernel] = group_sass_loops(sass, path=True)
+            group_loops[kernel] = by_group(whole)
+            group_issued[kernel] = by_group(path)
             if (build_log and len(gspecs) != 2) or len(group_loops[kernel]) != 2:
                 raise RuntimeError(f"{kernel}: ptxas reported {len(gspecs)} and the SASS "
                                    f"{len(group_loops[kernel])} of 2 group kernels")
@@ -820,6 +885,24 @@ def main() -> int:
                                 **ptxas[kernel].get(spec_label((full, nb, True)), {}),
                                 "loop_instructions": sum(loops[kernel][(full, nb, True)].values())}}
                 for nb in (1, 2)}
+            # the mesh kernel, one specialization per solo one: the solo
+            # loop, the remap to the partition's index after it
+            mspecs = parse_ptxas(build_log.get(kernel, ""), MESH_KEY)
+            mloops = by_spec(whole, MESH_KEY)
+            mesh_issued[kernel] = by_spec(path, MESH_KEY)
+            if (build_log and len(mspecs) != expect) or len(mloops) != expect:
+                raise RuntimeError(f"{kernel}: ptxas reported {len(mspecs)} and the SASS "
+                                   f"{len(mloops)} of {expect} mesh kernels")
+            solo_specs = parse_ptxas(build_log.get(kernel, ""))
+            mesh_info[kernel] = {
+                "same_loop_length_as_solo": sum(sum(mloops[k].values()) == sum(loops[kernel][k].values())
+                                                for k in mloops),
+                "specializations": expect,
+                "register_delta_to_solo": sorted({v["registers"] - solo_specs[k]["registers"]
+                                                  for k, v in mspecs.items() if k in solo_specs}),
+                "spill_bytes": max([v["spill_bytes"] for v in mspecs.values()], default=None),
+                "timed": {**mspecs.get((2, 1, True), {}),
+                          "loop_instructions": sum(mloops[(2, 1, True)].values())}}
             _build.load_library(kernel)
         # what one candidate of the timed specialization issues, by opcode
         # (ISETP and SEL are the byte placement against the runtime layout;
@@ -835,7 +918,7 @@ def main() -> int:
                 "ptxas": ptxas, "loop_instructions": loop_counts,
                 "timed_loop_opcodes": timed,
                 "timed_loop_pipes": {k: pipe_split(issued[k][(2, 1, True)]) for k in issued},
-                "group_kernels": group_info,
+                "group_kernels": group_info, "mesh_kernels": mesh_info,
                 "group_loop_pipes": {k: pipe_split(group_issued[k][1]) for k in group_issued}}
 
     smoke.phase("build", build, needs=("device",))
@@ -1398,14 +1481,17 @@ def main() -> int:
                 **pipe_ms(pipes, n, clocks_per_s), "card": dev_info["nvidia_smi"]}
 
     # 9. sched_*: concurrent requests through the batching scheduler ------
-    def sched_serve(default, requests, extra=(), refuse=None, min_occupancy=1):
+    def sched_serve(default, requests, extra=(), refuse=None, min_occupancy=1, lane="auto",
+                    mesh=None):
         """``requests``: (model, nonce, difficulty, thread bytes), one thread
-        each, all released together on one scheduler; the launch counts are
-        set to 0 just before and read just after.  Each secret is checked
-        with hashlib and against the solo backend's for the same request."""
+        each, all released together on one scheduler (on ``lane``, with
+        ``mesh`` for the mesh lane); the launch counts are set to 0 just
+        before and read just after.  Each secret is checked with hashlib and
+        against the solo backend's for the same request."""
         m = Metrics()
         eng = BatchingScheduler(hash_model=default, batch_size=SCHED_BATCH,
-                                max_slots=SCHED_SLOTS, extra_models=extra, metrics=m)
+                                max_slots=SCHED_SLOTS, extra_models=extra, metrics=m,
+                                lane=lane, mesh=mesh)
         results, errors = [None] * len(requests), []
         barrier = threading.Barrier(len(requests))
 
@@ -1436,7 +1522,8 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         launches = {k: c.value for k, c in LAUNCHES.items()}
         counts = {k: m.get(k) for k in ("sched.launches", "sched.mixed_hash_launches",
-                                        "sched.lane_launches.cuda", "sched.lane_launches.torch",
+                                        "sched.lane_launches.cuda", "sched.lane_launches.mesh",
+                                        "sched.lane_launches.torch",
                                         "sched.fallback_searches", "search.blocking_syncs",
                                         "search.found")}
         occupancy = m.get_observed("sched.batch_occupancy")
@@ -1482,7 +1569,7 @@ def main() -> int:
                 "batch_occupancy": occupancy, "refused": refused,
                 "sync_debug_mode": "error"}
 
-    def sched_md5():
+    def sched_md5_requests():
         import numpy as np
 
         rng = np.random.default_rng(SCHED_SEED)
@@ -1495,7 +1582,10 @@ def main() -> int:
                 reqs.append(("md5", nonce, 5, thread_bytes(1 + 2 * i, bits)))
             else:
                 reqs.append(("md5", nonce, int(rng.integers(5, 8)), thread_bytes(0, 0)))
-        return sched_serve("md5", reqs, min_occupancy=2)
+        return reqs
+
+    def sched_md5():
+        return sched_serve("md5", sched_md5_requests(), min_occupancy=2)
 
     def sched_mixed():
         import numpy as np
@@ -1555,6 +1645,355 @@ def main() -> int:
         return {"time_to_cancel_s": t_ret - t0 - 1.0, "poll_to_return_s": t_ret - flagged[0],
                 "return_s": t_ret - t0, "after_warmup_fresh_process": warm}
 
+    # 11. the mesh kernels ---------------------------------------------------
+    def shard_devices(n):
+        """Logical shards on cuda:0, or one a card where there are more."""
+        return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+    def shard_operands(spec, d, model, shards, mesh):
+        return [step_operands(spec, d, model, sh.tb_lo, sh.tb_count, dv)
+                for sh, dv in zip(shards, mesh.devices)]
+
+    def mesh_parity(model, seed, nonce_lens):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        meshes = {}
+        cases = []  # (label, spec, d, shards, origin, solo ops, candidates)
+        i = 0
+        for n_dev, tb_lo, tbc in MESH_LAYOUTS:
+            mesh = meshes.setdefault(n_dev, make_mesh(shard_devices(n_dev)))
+            for width in range(5):
+                n_len = nonce_lens[int(rng.integers(0, len(nonce_lens)))]
+                nonce = rng.integers(0, 256, size=n_len, dtype=np.uint8).tobytes()
+                d = MESH_DIFFICULTIES[i % len(MESH_DIFFICULTIES)]
+                steps = LAUNCH_STEPS[i % 2]
+                i += 1
+                spec = build_tail_spec(nonce, width, model)
+                if width == 0:
+                    chunk0, shards = 0, mesh_search._width0_probe(tb_lo, tbc)
+                else:
+                    split = mesh_search.tb_split_regime(tbc, n_dev)
+                    per_launch = tbc * (1 if split else n_dev)
+                    chunks_local = max(1, MESH_CASE_CANDIDATES // per_launch)
+                    # segment start, or a launch that runs past the width's end
+                    chunk0 = 256 ** (width - 1) if i % 2 else 256 ** width - 5
+                    shards = mesh_search.mesh_shards(tb_lo, tbc, chunk0, n_dev, chunks_local,
+                                                     steps)
+                origin = MeshOrigin(chunk0, tb_lo, tbc)
+                n = sum(sh.batch * sh.launch_steps for sh in shards)
+                cases.append((f"s{n_dev}_tbc{tbc}_w{width}_n{n_len}_d{d}_k{steps}", spec, d, mesh,
+                              shards, origin, n))
+        got, solo = [], []
+        for _, spec, d, mesh, shards, origin, n in cases:
+            got.append(mesh_search.mesh_launch(mesh, model, shard_operands(spec, d, model, shards,
+                                                                           mesh),
+                                               spec.tb_loc, spec.chunk_locs, shards, origin))
+            # the solo kernel on the same launch: the shards cover its candidates
+            ops = step_operands(spec, d, model, origin.tb_lo, origin.tbc, dev)
+            solo.append(hash_search(model, ops, spec.tb_loc, spec.chunk_locs, origin.chunk0, n, 1,
+                                    device=dev))
+        torch.cuda.synchronize()
+        # the plain version: every shard's plain search, the cases of one
+        # layout in one evaluation (judge_cases), mapped to the partition
+        flat = [(case, sh) for case in cases for sh in case[4]]
+        plain_local = judge_cases(model, [
+            (step_operands(spec, d, model, sh.tb_lo, sh.tb_count, dev), spec, sh.chunk0,
+             sh.batch * sh.launch_steps) for (_, spec, d, *_), sh in flat])
+        want = collections.defaultdict(lambda: SENTINEL)
+        for ((label, *_, origin, _n), sh), f in zip(flat, plain_local):
+            if f != SENTINEL:
+                want[label] = min(want[label], partition_index(f, sh.tb_lo, sh.tb_count,
+                                                               sh.chunk0, origin))
+        mismatches, hits, tails, max_err = [], 0, set(), 0
+        for (label, spec, *_), g, so in zip(cases, got, solo):
+            g, so, w = u32_value(g), u32_value(so), want[label]
+            tails.add(spec.n_blocks)
+            hits += w != SENTINEL
+            max_err = max(max_err, abs(g - w))
+            if not g == so == w:
+                mismatches.append({"case": label, "mesh": g, "solo": so, "plain": w})
+        # plain_mesh_search itself, on two cases: a thread-byte split into
+        # runs of 12 and a chunk split of a run of 3, each the case of its
+        # layout with the latest first hit
+        direct = []
+        for prefix in ("s8_tbc96_", "s8_tbc3_"):
+            label, spec, d, mesh, shards, origin, n = max(
+                (c for c in cases if c[0].startswith(prefix)),
+                key=lambda c: (want[c[0]] != SENTINEL, want[c[0]] % SENTINEL))
+            if True:
+                ops = step_operands(spec, d, model, origin.tb_lo, origin.tbc, dev)
+                v = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards, origin,
+                                                model=model))
+                direct.append({"case": label, "plain_mesh_search": v, "judge": want[label]})
+                if v != want[label]:
+                    mismatches.append(direct[-1])
+        if mismatches:
+            raise AssertionError(f"{len(mismatches)} of {len(cases)} cases differ: "
+                                 f"{mismatches[:10]}")
+        if tails != {1, 2} or not 0 < hits < len(cases) or len(direct) != 2:
+            raise AssertionError(f"the grid missed a case: tails {tails}, {hits} of "
+                                 f"{len(cases)} hit, {len(direct)} direct checks")
+        return {"cases": len(cases), "mismatches": 0, "hit_cases": hits,
+                "sentinel_cases": len(cases) - hits, "tails": sorted(tails),
+                "plain_mesh_search": direct, "max_abs_err": max_err,
+                "tolerance": "exact (integer first-hit index)"}
+
+    def mesh_main_step(model, mesh, nonce, d, tbc):
+        """The mesh step the driver plans for the worker's width-4 launch
+        of ``nonce`` on the run [0, tbc): ``(step, candidates)``."""
+        budget = CudaBackend(hash_model=model.name, device=dev).max_launch
+        target = MAIN_BATCH // tbc
+        k = launch_steps_for(4, target, tbc, budget)
+        step, chunks = mesh_search._cuda_mesh_step_factory(nonce, d, 0, tbc, model, mesh,
+                                                          max_launch=budget)(4, b"", target, k)
+        return step, chunks * tbc
+
+    def mesh_timed(model, mesh):
+        """The worker's main-path launch on the mesh at difficulty 16 (no
+        hit): the mesh kernels, the solo kernel and the plain mesh step on
+        the same candidates, and the bound."""
+        nonce = bytes([1, 2, 3, 4])
+        step, n = mesh_main_step(model, mesh, nonce, RATE_DIFFICULTY, 256)
+        spec = build_tail_spec(nonce, 4, model)
+        ops = step_operands(spec, RATE_DIFFICULTY, model, 0, 256, dev)
+        forms = {"mesh": lambda: step(MAIN_CHUNK0),
+                 "solo": lambda: hash_search(model, ops, spec.tb_loc, spec.chunk_locs,
+                                             MAIN_CHUNK0, n, 1, device=dev)}
+        first = {k: sync_value(f()) for k, f in forms.items()}
+        ms = {}
+        for name in ("mesh", "solo", "mesh"):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(MESH_RATE_LAUNCHES):
+                forms[name]()
+            end.record()
+            end.synchronize()
+            ms.setdefault(name, []).append(start.elapsed_time(end) / MESH_RATE_LAUNCHES)
+        shards = mesh_search.mesh_shards(0, 256, MAIN_CHUNK0, mesh.size, MAIN_BATCH // 256,
+                                         n // MAIN_BATCH)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards,
+                                            MeshOrigin(MAIN_CHUNK0, 0, 256), model=model))
+        end.record()
+        end.synchronize()
+        if not first["mesh"] == first["solo"] == plain:
+            raise AssertionError(f"timed launch: {first}, plain {plain}")
+        mw = mask_words_for(RATE_DIFFICULTY, model)
+        var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
+        needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
+        dev_info = smoke.info["device"]
+        clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
+        bound_ms = n * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s) * 1e3
+        loop = mesh_issued[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks, True)]
+        return {"shards": mesh.size, "candidates": n, "difficulty": RATE_DIFFICULTY,
+                "launches_timed": MESH_RATE_LAUNCHES, "ms": min(ms["mesh"]), "ms_runs": ms["mesh"],
+                "solo_ms": ms["solo"][0], "mesh_over_solo": min(ms["mesh"]) / ms["solo"][0],
+                "plain_ms": start.elapsed_time(end), "result": plain,
+                "needed_ops_per_hash": needed, "bound_ms": bound_ms,
+                "sass_instructions_per_hash": sum(loop.values()),
+                "card": dev_info["nvidia_smi"]}
+
+    def mesh_full_parity(model):
+        mesh = make_mesh(shard_devices(MESH_SHARDS))
+        steps = main_steps(model)
+        n = MAIN_BATCH * steps
+
+        def solo(nonce, d, tbc, n):
+            spec = build_tail_spec(nonce, 4, model)
+            ops = step_operands(spec, d, model, 0, tbc, dev)
+            return sync_value(hash_search(model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
+                                          n, 1, device=dev))
+
+        # a nonce whose difficulty-7 first hit lies in the launch's second
+        # half and in the second half of the shards (thread byte >= 128);
+        # on the run of 2 (chunk split) difficulties 6 and 5, so that its
+        # smaller range holds a hit too
+        for i in range(FULL_PARITY_TRIES):
+            nonce = bytes([0x6d, 0x65, 0x73, i])
+            f = solo(nonce, 7, 256, n)
+            if f != SENTINEL and f >= n // 2 and f % 256 >= 128:
+                break
+        else:
+            raise AssertionError(f"no nonce of {FULL_PARITY_TRIES} has a deep first hit")
+        cases, max_err = [], 0
+        # the full run (thread-byte split) and a run of 2 (chunk split)
+        for tbc, difficulties in ((256, (7, 6)), (2, (6, 5))):
+            for d in difficulties:
+                step, cand = mesh_main_step(model, mesh, nonce, d, tbc)
+                if tbc == 256 and cand != n:
+                    raise AssertionError(f"the mesh step covers {cand}, the driver's launch {n}")
+                got = sync_value(step(MAIN_CHUNK0))
+                want = solo(nonce, d, tbc, cand)
+                max_err = max(max_err, abs(got - want))
+                shard = (got % tbc) * MESH_SHARDS // tbc if tbc == 256 else \
+                    got // (cand // MESH_SHARDS)
+                cases.append({"tbc": tbc, "difficulty": d, "candidates": cand, "mesh": got,
+                              "solo": want, "fraction_of_launch": got / cand, "shard": shard})
+                # every case but the run of 2 at difficulty 6 holds a hit
+                if got != want or (want == SENTINEL and (tbc, d) != (2, 6)):
+                    raise AssertionError(f"tbc {tbc}, difficulty {d}: mesh {got}, solo {want}")
+        if cases[0]["shard"] < MESH_SHARDS // 2:
+            raise AssertionError(f"the deep hit lies in shard {cases[0]['shard']}")
+        return {"nonce": nonce.hex(), "shards": MESH_SHARDS, "candidates": n,
+                "launch_steps": steps, "nonces_tried": i + 1, "cases": cases, "mismatches": 0,
+                "max_abs_err": max_err, "tolerance": "exact (integer first-hit index)",
+                "timed": mesh_timed(model, mesh)}
+
+    def mine_mesh():
+        mesh4 = make_mesh(shard_devices(MESH_SHARDS))
+        nonce, full = bytes([1, 2, 3, 4]), thread_bytes(0, worker_bits(1))
+        for counter in LAUNCHES.values():
+            counter.reset()
+        REGISTRY.reset()
+        runs = []  # (how, model, nonce, d, thread bytes, secret, wall)
+
+        def run(how, model_name, nonce, d, tbs, fn):
+            t0 = time.monotonic()
+            secret = fn()
+            runs.append((how, model_name, nonce, d, tbs, secret, time.monotonic() - t0))
+
+        # the worker's backend over every visible GPU
+        backend = get_backend("pallas-mesh", hash_model="md5")
+        if not isinstance(backend, CudaMeshBackend) or \
+                backend.mesh.size != torch.cuda.device_count():
+            raise AssertionError(f"pallas-mesh resolved to {backend!r} over {backend.mesh}")
+        run("get_backend('pallas-mesh')", "md5", nonce, 6, full,
+            lambda: backend.search(nonce, 6, full))
+        md5 = get_hash_model("md5")
+        for d in (6, 8):
+            run("search_mesh", "md5", nonce, d, full,
+                lambda: mesh_search.search_mesh(nonce, d, full, mesh=mesh4, model=md5).secret)
+        for model_name in MODELS[1:]:
+            m = get_hash_model(model_name)
+            run("search_mesh", model_name, nonce, 6, full,
+                lambda: mesh_search.search_mesh(nonce, 6, full, mesh=mesh4, model=m).secret)
+        # 4-way prefix split, each worker's search on the 4 shards in its own
+        # thread and stream; the first result cancels the others
+        nonce4, d4, bits = bytes([5, 6, 7, 8]), 8, worker_bits(4)
+        done, results, errors = threading.Event(), [None] * 4, []
+
+        def worker(i):
+            try:
+                with torch.cuda.stream(torch.cuda.Stream(dev)):
+                    res = mesh_search.search_mesh(nonce4, d4, thread_bytes(i, bits), mesh=mesh4,
+                                                  model=md5, cancel_check=done.is_set)
+                    torch.cuda.current_stream(dev).synchronize()
+                if res is not None:
+                    results[i] = (time.monotonic(), res.secret)
+                    done.set()
+            except Exception as exc:  # surfaced below through errors
+                errors.append(f"worker {i}: {exc!r}")
+                done.set()
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or errors:
+            done.set()
+            raise AssertionError(f"4-way split: {errors or 'a worker did not finish'}")
+        found = sorted((r[0], i, r[1]) for i, r in enumerate(results) if r is not None)
+        if not found:
+            raise AssertionError("no 4-way worker found a secret")
+        t_win, winner, secret4 = found[0]
+        runs.append((f"search_mesh, 4-way split, worker {winner}", "md5", nonce4, d4,
+                     thread_bytes(winner, bits), secret4, t_win - t0))
+        # the counts just after
+        launches = {k: c.value for k, c in LAUNCHES.items() if c.value}
+        mesh_launches = {k: launches.get(f"{k}_mesh", 0) for k in KERNELS.values()}
+        if min(mesh_launches.values()) <= 0:
+            raise AssertionError(f"a mesh kernel of the path was launched no time: {mesh_launches}")
+        others = {k: v for k, v in launches.items() if not k.endswith("_mesh")}
+        if others:
+            raise AssertionError(f"the mesh path launched other kernels: {others}")
+        out = []
+        for how, model_name, nonce_r, d, tbs, secret, wall in runs:
+            h = puzzle.new_hash(model_name)
+            h.update(nonce_r + (secret or b""))
+            digest = h.hexdigest()
+            solo = CudaBackend(hash_model=model_name, device=dev).search(nonce_r, d, tbs)
+            if secret is None or not digest.endswith("0" * d) or secret[0] not in tbs:
+                raise AssertionError(f"{how} {model_name} d{d}: {secret!r} ({digest})")
+            if secret != solo:
+                raise AssertionError(f"{how} {model_name} d{d}: mesh {secret.hex()} != solo "
+                                     f"{solo.hex()}")
+            out.append({"how": how, "model": model_name, "difficulty": d, "secret": secret.hex(),
+                        model_name: digest, "solo_secret": solo.hex(), "wall_s": wall})
+        return {"requests": out, "mesh_kernel_launches": mesh_launches,
+                "search_launches": REGISTRY.get("search.launches"),
+                "blocking_syncs": REGISTRY.get("search.blocking_syncs"),
+                "shards": MESH_SHARDS, "shard_devices": [str(x) for x in mesh4.devices],
+                "gpus_visible": torch.cuda.device_count(),
+                "pallas_mesh_devices": [str(x) for x in backend.mesh.devices]}
+
+    def rate_mesh():
+        """md5's main-path launch on 4 shards against the solo kernel on the
+        same candidates: device ms (CUDA events), host ms to enqueue one
+        launch, and wall ms per launch with the driver's two launches in
+        flight and one pinned fetch each, hence the device's idle share."""
+        from distpow_tpu_torch.parallel.search import _enqueue_fetch
+
+        model = get_hash_model("md5")
+        mesh = make_mesh(shard_devices(MESH_SHARDS))
+        nonce = bytes([1, 2, 3, 4])
+        step, n = mesh_main_step(model, mesh, nonce, RATE_DIFFICULTY, 256)
+        spec = build_tail_spec(nonce, 4, model)
+        ops = step_operands(spec, RATE_DIFFICULTY, model, 0, 256, dev)
+        forms = {"mesh": lambda: step(MAIN_CHUNK0),
+                 "solo": lambda: hash_search(model, ops, spec.tb_loc, spec.chunk_locs,
+                                             MAIN_CHUNK0, n, 1, device=dev)}
+        first = {k: sync_value(f()) for k, f in forms.items()}
+        if first["mesh"] != first["solo"]:
+            raise AssertionError(f"mesh {first['mesh']} != solo {first['solo']}")
+        out = {}
+        for name in ("mesh", "solo", "mesh", "solo"):
+            launch = forms[name]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            enqueue = []
+            for _ in range(RATE_LAUNCHES):
+                t0 = time.monotonic()
+                launch()
+                enqueue.append(time.monotonic() - t0)
+            end.record()
+            end.synchronize()
+            inflight, t0 = collections.deque(), time.monotonic()
+            for _ in range(RATE_LAUNCHES):
+                inflight.append(_enqueue_fetch(launch()))
+                if len(inflight) >= 2:
+                    inflight.popleft()[1].synchronize()
+            while inflight:
+                inflight.popleft()[1].synchronize()
+            wall = (time.monotonic() - t0) * 1e3 / RATE_LAUNCHES
+            ms = start.elapsed_time(end) / RATE_LAUNCHES
+            out.setdefault(name, []).append({"ms": ms, "host_ms_to_enqueue": 1e3 * sum(enqueue) /
+                                             len(enqueue), "wall_ms_per_launch": wall,
+                                             "device_idle_share": max(0.0, 1 - ms / wall)})
+        mesh_ms = min(r["ms"] for r in out["mesh"])
+        solo_ms = min(r["ms"] for r in out["solo"])
+        return {"shards": MESH_SHARDS, "candidates_per_launch": n,
+                "difficulty": RATE_DIFFICULTY, "launches_timed": RATE_LAUNCHES,
+                "result": first["mesh"], "runs": out, "ms": mesh_ms, "solo_ms": solo_ms,
+                "mesh_over_solo": mesh_ms / solo_ms, "ghs": n / mesh_ms / 1e6,
+                "card": smoke.info["device"]["nvidia_smi"]}
+
+    def sched_mesh():
+        out = sched_serve("md5", sched_md5_requests(), lane="mesh",
+                          mesh=make_mesh(shard_devices(MESH_SHARDS)), min_occupancy=2)
+        if out["sched.lane_launches.mesh"] <= 0:
+            raise AssertionError("the scheduler's mesh lane served no group")
+        if "sched_md5" in smoke.info:
+            cuda_lane = [r["secret"] for r in smoke.info["sched_md5"]["requests"]]
+            mesh_lane = [r["secret"] for r in out["requests"]]
+            if mesh_lane != cuda_lane:
+                raise AssertionError(f"mesh lane {mesh_lane} != cuda lane {cuda_lane}")
+            out["cuda_lane_secrets_equal"] = True
+        return out
+
     for i, model_name in enumerate(MODELS):
         model = get_hash_model(model_name)
         sfx = suffix(model_name)
@@ -1585,6 +2024,19 @@ def main() -> int:
         smoke.phase(f"sched_{model_name}", lambda: sched_wide(model_name),
                     needs=(f"group_parity_{model_name}",))
     smoke.phase("sched_cancel", sched_cancel, needs=("build",))
+    for i, model_name in enumerate(MODELS):
+        model = get_hash_model(model_name)
+        sfx = suffix(model_name)
+        lens = NONCE_LENS if model_name == "md5" else \
+            NONCE_LENS_REDUCED.get(model_name, NONCE_LENS_64)
+        smoke.phase(f"mesh_parity{sfx}", lambda: mesh_parity(model, 20261018 + i, lens),
+                    needs=("build", "device"))
+        smoke.phase(f"mesh_full_parity{sfx}", lambda: mesh_full_parity(model),
+                    needs=("build", "device"))
+    smoke.phase("mine_mesh", mine_mesh, needs=("mesh_parity", "mesh_parity_sha512"))
+    smoke.phase("rate_mesh", rate_mesh, needs=("mesh_full_parity",))
+    # the requests run under sync debug mode "error", as in sched_*
+    smoke.phase("sched_mesh", sched_mesh, needs=("group_parity", "mesh_parity"))
 
     kernels = []
     for model_name in MODELS:
@@ -1615,6 +2067,19 @@ def main() -> int:
             "launches": smoke.info[served]["group_launches"][kernel],
             "max_abs_err": max(smoke.info[p]["max_abs_err"] for p in phases[:2]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
+    for model_name in MODELS:
+        sfx = suffix(model_name)
+        phases = [f"mesh_parity{sfx}", f"mesh_full_parity{sfx}", "mine_mesh"]
+        if not all(p in smoke.info for p in phases):
+            continue
+        kernel, r = KERNELS[model_name], smoke.info[f"mesh_full_parity{sfx}"]["timed"]
+        kernels.append({
+            "name": f"{kernel}_mesh", "route": "cuda",
+            "source": f"distpow_tpu_torch/csrc/{kernel}.cu", "replaces": REPLACES_MESH,
+            "launches": smoke.info["mine_mesh"]["mesh_kernel_launches"][kernel],
+            "max_abs_err": max(smoke.info[p]["max_abs_err"] for p in phases[:2]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
     if kernels:
         emit({"kernels": kernels})

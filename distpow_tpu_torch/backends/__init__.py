@@ -5,14 +5,18 @@
                explicit device (tests and the CPU)
 * ``cuda``   — the hand-written CUDA kernel of the hash model behind the
                same driver (all nine models)
-* ``auto``   — ``cuda``
+* ``cuda-mesh`` — the kernels' mesh form over a mesh of devices
+               (``CudaMeshBackend``, ``parallel/mesh_search.py``)
+* ``auto``   — ``cuda-mesh`` where more than one GPU is visible (as the
+               reference's ``auto`` picks ``pallas-mesh``), else ``cuda``
 
-``get_backend`` also takes the reference's ``Backend`` names:
-``pallas`` and ``jax`` are ``cuda`` (on the card the CUDA kernel is the
-device step; ``torch`` would put the plain version on the main path), and
-``jax-mesh``, ``pallas-mesh`` and ``native`` raise until they are ported
-(ROADMAP Queue 1 items 4 and 5).  The device backends take the keywords
-the reference worker passes (``mesh_devices``, ``interpret``, ``loop``;
+``get_backend`` also takes the reference's ``Backend`` names: ``pallas``
+and ``jax`` are ``cuda`` (on the card the CUDA kernel is the device step;
+``torch`` would put the plain version on the main path), ``pallas-mesh``,
+``jax-mesh`` and ``mesh`` are ``cuda-mesh``, and ``native`` raises until it
+is ported (ROADMAP Queue 1 item 5).  A ``cuda`` name with ``mesh_devices``
+above 1 is ``cuda-mesh``.  The device backends take the keywords the
+reference worker passes (``mesh_devices``, ``interpret``, ``loop``;
 ``cuda_backend.check_options``) and a boot ``warmup``.
 
 Every backend implements ``search(nonce, difficulty, thread_bytes,
@@ -24,11 +28,13 @@ that wants the CPU passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import torch
+
 from ..models import puzzle
 from ..models.registry import get_hash_model
 from ..parallel.search import default_step_factory
 from ..runtime.metrics import REGISTRY, Metrics
-from .cuda_backend import CudaBackend, DeviceBackend
+from .cuda_backend import CudaBackend, CudaMeshBackend, DeviceBackend
 
 
 class PythonBackend:
@@ -64,17 +70,29 @@ class TorchBackend(DeviceBackend):
         return default_step_factory(nonce, difficulty, tb_lo, tbc, self.model, self.device)
 
 
+CUDA_NAMES = ("auto", "cuda", "pallas", "jax")
+MESH_NAMES = ("cuda-mesh", "pallas-mesh", "jax-mesh", "mesh")
 # The reference's Backend names that the port does not serve yet
 _NOT_PORTED = {
-    "jax-mesh": "the mesh (ROADMAP Queue 1 item 4)",
-    "pallas-mesh": "the mesh (ROADMAP Queue 1 item 4)",
     "native": "the native miner (ROADMAP Queue 1 item 5)",
 }
 
 
+def _wants_mesh(name: str, kwargs: dict) -> bool:
+    """A ``cuda`` name served by the mesh: ``mesh_devices`` above 1, or
+    ``auto`` on a host with more than one GPU and no count asked for."""
+    n = int(kwargs.get("mesh_devices") or 0)
+    if n > 1:
+        return True
+    on_card = torch.device(kwargs.get("device", "cuda")).type == "cuda"
+    return name == "auto" and n == 0 and on_card and torch.cuda.device_count() > 1
+
+
 def get_backend(name: str = "auto", **kwargs):
     name = (name or "auto").lower()
-    if name in ("auto", "cuda", "pallas", "jax"):
+    if name in MESH_NAMES or (name in CUDA_NAMES and _wants_mesh(name, kwargs)):
+        return CudaMeshBackend(**kwargs)
+    if name in CUDA_NAMES:
         return CudaBackend(**kwargs)
     if name == "python":
         return PythonBackend(**kwargs)
@@ -83,5 +101,5 @@ def get_backend(name: str = "auto", **kwargs):
     if name in _NOT_PORTED:
         raise ValueError(f"worker backend {name!r} is not ported yet: it waits for "
                          f"{_NOT_PORTED[name]}")
-    raise ValueError(f"unknown worker backend {name!r}: python, torch, cuda (pallas, jax) "
-                     f"or auto")
+    raise ValueError(f"unknown worker backend {name!r}: python, torch, cuda (pallas, jax), "
+                     f"cuda-mesh (pallas-mesh, jax-mesh, mesh) or auto")

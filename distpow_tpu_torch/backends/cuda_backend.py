@@ -11,6 +11,11 @@ so there is no fallback path.
 one (the plain step behind the same driver, ``backends/__init__.py``): the
 device rule, the keyword arguments the reference worker passes
 (``mesh_devices``, ``interpret``, ``loop``) and the boot ``warmup``.
+
+``CudaMeshBackend`` spreads each launch over a mesh of devices
+(``parallel/mesh_search.py``, the mesh kernels): the counterpart of the
+reference's ``PallasMeshBackend``, with the same search and warm-up flow;
+only its step factory and the partitions it warms differ.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..ops.hash_cuda import hash_search, kernel_name
 from ..ops.operands import Device, u32_value
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
+from ..parallel.mesh_search import _cuda_mesh_step_factory, make_mesh
 from ..parallel.partition import contiguous_bounds
 from ..parallel.search import (effective_batch, launch_steps_for, scaled_launch_candidates,
                                search)
@@ -69,8 +75,9 @@ def _require_device(device: Device) -> torch.device:
 def check_options(mesh_devices: Optional[int], interpret: bool, loop: Optional[str]) -> str:
     """Validate the reference worker's backend keywords; return the loop.
 
-    * ``mesh_devices`` 0 (all local devices) or 1 is one GPU; more raises
-      until the mesh is ported (ROADMAP Queue 1 item 4).
+    * ``mesh_devices``: 0 (every visible GPU) or a count; more than one is
+      served by the mesh backend, ``CudaMeshBackend`` (``get_backend``
+      routes it there).
     * ``interpret=True`` raises: CUDA has no interpret mode, and a caller
       that wants the CPU passes ``device="cpu"``.
     * ``loop`` is ``"persistent"`` (the reference's default) or
@@ -78,9 +85,9 @@ def check_options(mesh_devices: Optional[int], interpret: bool, loop: Optional[s
       persistent loop is ported (ROADMAP Queue 1 item 2), which is logged
       once."""
     global _noted_persistent
-    if mesh_devices is not None and int(mesh_devices) > 1:
-        raise ValueError(f"mesh_devices={mesh_devices}: the port serves one GPU per backend "
-                         f"until the mesh is ported (ROADMAP Queue 1 item 4)")
+    if mesh_devices is not None and int(mesh_devices) < 0:
+        raise ValueError(f"mesh_devices={mesh_devices}: expected 0 (every visible GPU) or a "
+                         f"device count")
     if interpret:
         raise ValueError("interpret=True: CUDA has no interpret mode; pass device='cpu' to "
                          "run the plain PyTorch step on the CPU")
@@ -103,6 +110,8 @@ class DeviceBackend:
     are the reference worker's keywords (``check_options``)."""
 
     name = "device"
+    # the devices one search spreads over at most (None: a mesh, any count)
+    max_mesh_devices: Optional[int] = 1
 
     def __init__(self, hash_model: str = "md5", batch_size: int = 1 << 20,
                  max_launch: Optional[int] = None, device: Device = "cuda",
@@ -110,6 +119,11 @@ class DeviceBackend:
                  interpret: bool = False, loop: Optional[str] = "persistent"):
         self.model = get_hash_model(hash_model)
         self.loop = check_options(mesh_devices, interpret, loop)
+        self.mesh_devices = int(mesh_devices or 0)
+        if self.max_mesh_devices is not None and self.mesh_devices > self.max_mesh_devices:
+            raise ValueError(f"{type(self).__name__} searches on one device; mesh_devices="
+                             f"{self.mesh_devices} is served by CudaMeshBackend "
+                             f"(get_backend('cuda', mesh_devices={self.mesh_devices}))")
         self.device = _require_device(device)
         self.batch_size = batch_size
         self.max_launch = max_launch or scaled_launch_candidates(self.model.cost_ops)
@@ -121,32 +135,36 @@ class DeviceBackend:
     def _load(self) -> None:
         pass
 
+    def _warm_runs(self) -> Tuple[int, ...]:
+        """The thread-byte counts ``warmup`` launches at: the full partition."""
+        return (256,)
+
     def warmup(self, nonce_lens: Sequence[int], widths: Sequence[int]) -> None:
         """Build what the first request needs and launch each serving layout
         once, before the first request (the reference's ``_warm_layouts`` /
-        ``_warm_factory``): for each nonce length and width, the step the
-        driver builds for the full partition (tbc 256, at the driver's
-        batch and launch multiplier) at difficulty 1, and read its result.
-        A kernel's layout is a runtime argument, so this builds and loads
-        the library and touches every layout; under the watchdog, one beat
-        and one first-compile grace per launch."""
-        tbc = 256
-        target = max(1, effective_batch(self.batch_size) // tbc)
+        ``_warm_factory``): for each nonce length, width and ``_warm_runs``
+        count, the step the driver builds for the partition ``[0, tbc)``
+        (at the driver's batch and launch multiplier) at difficulty 1, and
+        read its result.  A kernel's layout is a runtime argument, so this
+        builds and loads the library and touches every layout; under the
+        watchdog, one beat and one first-compile grace per launch."""
         with WATCHDOG.active():
             with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
                 self._load()
-            for n_len in nonce_lens:
-                factory = self._factory(bytes(int(n_len)), WARMUP_DIFFICULTY, 0, tbc)
-                for vw in widths:
-                    vw = int(vw)
-                    WATCHDOG.beat()
-                    k = launch_steps_for(vw, target, tbc, self.max_launch)
-                    with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
-                        step, _ = factory(vw, b"", target, k)
-                        res = step(256 ** (vw - 1) if vw else 0)
-                        if res.device.type == "cuda":
-                            torch.cuda.synchronize(res.device)
-                        u32_value(res)
+            for tbc in self._warm_runs():
+                target = max(1, effective_batch(self.batch_size) // tbc)
+                for n_len in nonce_lens:
+                    factory = self._factory(bytes(int(n_len)), WARMUP_DIFFICULTY, 0, tbc)
+                    for vw in widths:
+                        vw = int(vw)
+                        WATCHDOG.beat()
+                        k = launch_steps_for(vw, target, tbc, self.max_launch)
+                        with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
+                            step, _ = factory(vw, b"", target, k)
+                            res = step(256 ** (vw - 1) if vw else 0)
+                            if res.device.type == "cuda":
+                                torch.cuda.synchronize(res.device)
+                            u32_value(res)
 
     def search(self, nonce, difficulty, thread_bytes, cancel_check=None) -> Optional[bytes]:
         nonce = bytes(nonce)
@@ -196,3 +214,49 @@ class CudaBackend(DeviceBackend):
             return step, chunks * k
 
         return factory
+
+
+class CudaMeshBackend(CudaBackend):
+    """The mesh kernels over a mesh of devices (prefix -> device): the
+    counterpart of the reference's ``PallasMeshBackend``.
+
+    ``devices`` names the mesh's devices in order (``["cuda:0"] * 4`` is
+    four logical shards on one card); otherwise ``mesh_devices`` counts
+    them: on a card, 0 is every visible GPU and N the first N (fewer visible
+    raises); with ``device="cpu"``, N logical shards of the CPU (0: one),
+    on which the kernels' wrapper runs the plain version.  The kernel takes
+    every shard count, run and tail, so nothing falls back."""
+
+    name = "cuda-mesh"
+    max_mesh_devices = None
+
+    def __init__(self, hash_model: str = "md5", devices: Optional[Sequence[Device]] = None,
+                 **kwargs):
+        super().__init__(hash_model, **kwargs)
+        if devices is None:
+            devices = _mesh_device_list(self.device, self.mesh_devices)
+        self.mesh = make_mesh(devices)
+        self.device = self.mesh.devices[0]
+
+    def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        return _cuda_mesh_step_factory(nonce, difficulty, tb_lo, tbc, self.model, self.mesh,
+                                       max_launch=self.max_launch)
+
+    def _warm_runs(self) -> Tuple[int, ...]:
+        """The full partition, and ``n_dev // 2`` thread bytes, which a mesh
+        of more than one shard splits by chunks (the reference's second
+        warm-up partition)."""
+        n_dev = self.mesh.size
+        return (256, n_dev // 2) if n_dev > 1 else (256,)
+
+
+def _mesh_device_list(device: torch.device, mesh_devices: int) -> list:
+    """The devices of a mesh of ``mesh_devices`` (0: every visible GPU; on
+    the CPU, one shard)."""
+    if device.type == "cpu":
+        return [device] * max(1, mesh_devices)
+    visible = torch.cuda.device_count()
+    n = mesh_devices or visible
+    if n > visible:
+        raise ValueError(f"mesh_devices={n}, but {visible} GPU(s) are visible")
+    return [torch.device("cuda", i) for i in range(n)]

@@ -5,10 +5,11 @@
 // The kernel, its design and what bounds it are in hash_search.cuh; the
 // rounds in blake2b.cuh.
 //
-// Interface: two plain C functions, launched on the caller's stream; they
-// do not synchronise and allocate nothing.  The search of one request
-// (arguments as in distpow::launch_hash_search) and the scheduler's search
-// of a group of slots (distpow::launch_hash_group_search).
+// Interface: three plain C functions, launched on the caller's stream;
+// they do not synchronise and allocate nothing.  The search of one request
+// (arguments as in distpow::launch_hash_search), the scheduler's search of
+// a group of slots (distpow::launch_hash_group_search) and one shard's
+// launch of a mesh search (distpow::launch_hash_mesh_search).
 #include "blake2b.cuh"
 
 extern "C" int distpow_blake2b_256_search(const void* init, const void* base, const void* masks,
@@ -28,4 +29,14 @@ extern "C" int distpow_blake2b_256_group_search(
   return distpow::launch_hash_group_search<distpow::Blake2b_256>(
       init, base, masks, n_blocks, var_word, var_shift, chunk_mask, tb_lo, log_tbc, chunk0,
       n_slots, batch, out, grid_x, stream);
+}
+
+extern "C" int distpow_blake2b_256_mesh_search(
+    const void* init, const void* base, const void* masks, int n_blocks, int mask_words,
+    uint32_t chunk0, uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word, int var_shift,
+    uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0, uint32_t origin_tb_lo,
+    uint32_t origin_tbc, void* out, int grid, void* stream) {
+  return distpow::launch_hash_mesh_search<distpow::Blake2b_256>(
+      init, base, masks, n_blocks, mask_words, chunk0, tb_lo, tbc, log_tbc, var_word, var_shift,
+      chunk_mask, n, origin_chunk0, origin_tb_lo, origin_tbc, out, grid, stream);
 }

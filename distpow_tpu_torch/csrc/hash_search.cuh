@@ -27,8 +27,10 @@
 // All words are uint32; a 64-bit hash pairs them in its own limb order
 // and works in uint64_t inside its struct.
 //
-// Layout, decode, rotl32 and SENTINEL come from md5.cuh, the first slice's
-// header, whose MD5 kernel keeps its own scaffold for now.
+// Layout, decode, rotl32, SENTINEL, the mesh kernels' MeshOrigin and
+// mesh_global_index and the launchers' launch_keyed and launch_group come
+// from md5.cuh, the first slice's header, whose MD5 kernel keeps its own
+// scaffold for now.
 //
 // The host twin (the g++ build of the CPU tests) sees only the
 // __host__ __device__ functions; the kernel is compiled by nvcc alone.
@@ -275,13 +277,13 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
   return SENTINEL;
 }
 
-// The kernels' body, one block's search.
+// A thread's first hit in one block's search, the launch's operands loaded
+// into shared memory first: the body of the solo, group and mesh kernels.
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
-__device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ init_g,
-                                                  const uint32_t* __restrict__ base_g,
-                                                  const uint32_t* __restrict__ masks_g,
-                                                  const Layout& L, uint32_t n,
-                                                  uint32_t* __restrict__ out) {
+__device__ __forceinline__ uint32_t hash_block_first_hit(const uint32_t* __restrict__ init_g,
+                                                         const uint32_t* __restrict__ base_g,
+                                                         const uint32_t* __restrict__ masks_g,
+                                                         const Layout& L, uint32_t n) {
   constexpr int BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
   uint32_t masks[MASK_WORDS];
 #pragma unroll
@@ -291,9 +293,18 @@ __device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ i
   for (int i = threadIdx.x; i < H::STATE_WORDS; i += blockDim.x) init[i] = init_g[i];
   for (int i = threadIdx.x; i < BASE_WORDS; i += blockDim.x) base[i] = base_g[i];
   __syncthreads();
-  uint32_t best = thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init, base, masks, L, n);
+  return thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init, base, masks, L, n);
+}
 
-  block_min_to<HASH_BLOCK_THREADS>(best, out);
+// The kernels' body, one block's search.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ init_g,
+                                                  const uint32_t* __restrict__ base_g,
+                                                  const uint32_t* __restrict__ masks_g,
+                                                  const Layout& L, uint32_t n,
+                                                  uint32_t* __restrict__ out) {
+  block_min_to<HASH_BLOCK_THREADS>(
+      hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n), out);
 }
 
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
@@ -325,38 +336,6 @@ void launch_search_kernel(const uint32_t* init, const uint32_t* base, const uint
     hash_search_kernel<H, MASK_WORDS, N_BLOCKS, POW2>
         <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
   }
-}
-
-template <class H, int MASK_WORDS, int N_BLOCKS>
-void launch_hash_kernel(bool pow2, const uint32_t* init, const uint32_t* base,
-                        const uint32_t* masks, const Layout& L, uint32_t n, uint32_t* out,
-                        int grid, cudaStream_t stream) {
-  if (pow2) {
-    launch_search_kernel<H, MASK_WORDS, N_BLOCKS, true>(init, base, masks, L, n, out, grid,
-                                                        stream);
-  } else {
-    launch_search_kernel<H, MASK_WORDS, N_BLOCKS, false>(init, base, masks, L, n, out, grid,
-                                                         stream);
-  }
-}
-
-template <class H, int N_BLOCKS>
-cudaError_t launch_hash_mw(int mask_words, bool pow2, const uint32_t* init,
-                           const uint32_t* base, const uint32_t* masks, const Layout& L,
-                           uint32_t n, uint32_t* out, int grid, cudaStream_t stream) {
-  if (mask_words == H::DIGEST_WORDS) {
-    launch_hash_kernel<H, H::DIGEST_WORDS, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid,
-                                                     stream);
-    return cudaSuccess;
-  }
-  switch (mask_words) {
-    case 1: launch_hash_kernel<H, 1, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    case 2: launch_hash_kernel<H, 2, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    case 3: launch_hash_kernel<H, 3, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    case 4: launch_hash_kernel<H, 4, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaSuccess;
 }
 
 // The scheduler's kernel: the search of a group of slots in one launch.
@@ -433,6 +412,46 @@ int launch_hash_group_search(const void* init, const void* base, const void* mas
 #undef DISTPOW_GROUP_ARGS
 #undef DISTPOW_GROUP_PARAMS
 
+// The mesh kernel: one shard's launch of a search spread over a mesh of
+// devices (replaces distpow_tpu/parallel/mesh_search.py
+// _dyn_pallas_mesh_step, which ran _dyn_pallas_step on every device of a
+// jax Mesh and took lax.pmin of the partition indices).  Each block is the
+// solo kernel's body over the shard's slice L of the partition o (a run of
+// thread bytes, or a span of chunks: n flat indices); each thread's first
+// hit becomes the partition's flat index (mesh_global_index, md5.cuh)
+// before the block min, so the least value across the shards' cells is
+// the partition's first hit.  The loop is the solo kernel's: the remap
+// runs once per thread, after it.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__device__ __forceinline__ void hash_mesh_block(const uint32_t* __restrict__ init_g,
+                                                const uint32_t* __restrict__ base_g,
+                                                const uint32_t* __restrict__ masks_g,
+                                                const Layout& L, const MeshOrigin& o, uint32_t n,
+                                                uint32_t* __restrict__ out) {
+  block_min_to<HASH_BLOCK_THREADS>(
+      mesh_global_index<POW2>(
+          L, o, hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n)),
+      out);
+}
+
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
+hash_mesh_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                 const uint32_t* __restrict__ masks_g, Layout L, MeshOrigin o, uint32_t n,
+                 uint32_t* __restrict__ out) {
+  hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, o, n, out);
+}
+
+// The same kernel for a hash that asks for H::MIN_BLOCKS_PER_SM blocks.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS, H::MIN_BLOCKS_PER_SM)
+resident_hash_mesh_kernel(const uint32_t* __restrict__ init_g,
+                          const uint32_t* __restrict__ base_g,
+                          const uint32_t* __restrict__ masks_g, Layout L, MeshOrigin o,
+                          uint32_t n, uint32_t* __restrict__ out) {
+  hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, o, n, out);
+}
+
 // The body of each kernel's extern "C" launcher (the *_search.cu files).
 // init[STATE_WORDS], base[ROW_WORDS * n_blocks] and masks[mask_words] are
 // device arrays; out is the device result cell, already holding SENTINEL.
@@ -445,20 +464,46 @@ int launch_hash_search(const void* init, const void* base, const void* masks, in
                        int mask_words, uint32_t chunk0, uint32_t tb_lo, uint32_t tbc,
                        int log_tbc, int var_word, int var_shift, uint32_t chunk_mask,
                        uint32_t n, void* out, int grid, void* stream) {
-  if (n == 0) return 0;
-  if (n_blocks != 1 && n_blocks != 2) return static_cast<int>(cudaErrorInvalidValue);
-  Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  return launch_keyed<H::DIGEST_WORDS>(mask_words, n_blocks, log_tbc >= 0, n,
+                                       [&](auto mw, auto nb, auto pow2) {
+    launch_search_kernel<H, decltype(mw)::value, decltype(nb)::value, decltype(pow2)::value>(
+        u(init), u(base), u(masks), L, n, static_cast<uint32_t*>(out), grid,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The body of each kernel's third extern "C" function, one shard's launch
+// of a mesh search: the shard's run tb_lo .. tb_lo + tbc - 1 from cursor
+// chunk0 over flat indices [0, n), its first hit written to out as the
+// flat index of the partition whose cursor is origin_chunk0 and whose run
+// is origin_tbc thread bytes from origin_tb_lo.  The other arguments are
+// launch_hash_search's.
+template <class H>
+int launch_hash_mesh_search(const void* init, const void* base, const void* masks,
+                            int n_blocks, int mask_words, uint32_t chunk0, uint32_t tb_lo,
+                            uint32_t tbc, int log_tbc, int var_word, int var_shift,
+                            uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0,
+                            uint32_t origin_tb_lo, uint32_t origin_tbc, void* out, int grid,
+                            void* stream) {
+  const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  const MeshOrigin o{origin_chunk0, origin_tb_lo, origin_tbc};
+  auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
-  auto i = static_cast<const uint32_t*>(init);
-  auto b = static_cast<const uint32_t*>(base);
-  auto m = static_cast<const uint32_t*>(masks);
-  auto o = static_cast<uint32_t*>(out);
-  const bool pow2 = log_tbc >= 0;
-  const cudaError_t rc = n_blocks == 1
-                             ? launch_hash_mw<H, 1>(mask_words, pow2, i, b, m, L, n, o, grid, s)
-                             : launch_hash_mw<H, 2>(mask_words, pow2, i, b, m, L, n, o, grid, s);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaGetLastError());
+  auto cell = static_cast<uint32_t*>(out);
+  return launch_keyed<H::DIGEST_WORDS>(mask_words, n_blocks, log_tbc >= 0, n,
+                                       [&](auto mw, auto nb, auto pow2) {
+    constexpr int MW = decltype(mw)::value, NB = decltype(nb)::value;
+    constexpr bool P2 = decltype(pow2)::value;
+    if constexpr (AsksResidentBlocks<H>::value) {
+      resident_hash_mesh_kernel<H, MW, NB, P2>
+          <<<grid, HASH_BLOCK_THREADS, 0, s>>>(u(init), u(base), u(masks), L, o, n, cell);
+    } else {
+      hash_mesh_kernel<H, MW, NB, P2>
+          <<<grid, HASH_BLOCK_THREADS, 0, s>>>(u(init), u(base), u(masks), L, o, n, cell);
+    }
+  });
 }
 
 }  // namespace distpow

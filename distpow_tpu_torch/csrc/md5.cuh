@@ -136,6 +136,31 @@ DISTPOW_HD void decode(const Layout& L, uint32_t f, uint32_t& tb, uint32_t& chun
   }
 }
 
+// The partition a mesh shard searches part of (the mesh kernels,
+// hash_mesh_kernel and md5_mesh_kernel): the launch's cursor and the
+// partition's thread-byte run tb_lo .. tb_lo + tbc - 1.  A shard's own
+// Layout is a slice of it, a run of thread bytes or a span of chunks.
+struct MeshOrigin {
+  uint32_t chunk0;
+  uint32_t tb_lo;
+  uint32_t tbc;
+};
+
+// A shard's local flat index f (or SENTINEL) as the partition's flat
+// index: chunk-major over the whole run, (chunk - chunk0) * tbc + (tb -
+// tb_lo), the same expression for a thread-byte slice and a chunk span, a
+// power-of-two run or not.  Within a shard it grows with f, so the
+// shard's first hit maps to its least partition index, and the least
+// across shards is the partition's first hit.  The caller keeps every
+// partition index of the launch below 2^31.
+template <bool POW2>
+DISTPOW_HD uint32_t mesh_global_index(const Layout& L, const MeshOrigin& o, uint32_t f) {
+  if (f == SENTINEL) return SENTINEL;
+  uint32_t tb, chunk;
+  decode<POW2>(L, f, tb, chunk);
+  return (chunk - o.chunk0) * o.tbc + (tb - o.tb_lo);
+}
+
 // The MD5 state after the N_BLOCKS tail blocks of candidate (tb, chunk).
 // init[4] is the absorbed prefix state, base[16 * N_BLOCKS] the tail's
 // constant words.
@@ -202,6 +227,37 @@ __device__ __forceinline__ void block_min_to(uint32_t best, uint32_t* out) {
     for (int w = 1; w < THREADS / 32; ++w) m = min(m, warp_min[w]);
     if (m != SENTINEL) atomicMin(out, m);
   }
+}
+
+// The host side of every solo and mesh search's C function: calls
+// launch(MW, NB, POW2), each a std::integral_constant, at the kernel keys
+// of a launch of n flat indices: mask_words 1-4 or FULL (the digest's
+// words), n_blocks 1 or 2, a power-of-two run or not.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a configuration no
+// kernel was built for.
+template <int FULL, class Launch>
+int launch_keyed(int mask_words, int n_blocks, bool pow2, uint32_t n, Launch launch) {
+  if (n == 0) return 0;
+  auto at_mw = [&](auto nb) {
+    auto go = [&](auto mw) {
+      if (pow2) launch(mw, nb, std::true_type{});
+      else launch(mw, nb, std::false_type{});
+      return true;
+    };
+    if (mask_words == FULL) return go(std::integral_constant<int, FULL>{});
+    switch (mask_words) {
+      case 1: return go(std::integral_constant<int, 1>{});
+      case 2: return go(std::integral_constant<int, 2>{});
+      case 3: return go(std::integral_constant<int, 3>{});
+      case 4: return go(std::integral_constant<int, 4>{});
+      default: return false;
+    }
+  };
+  const bool built = n_blocks == 1   ? at_mw(std::integral_constant<int, 1>{})
+                     : n_blocks == 2 ? at_mw(std::integral_constant<int, 2>{})
+                                     : false;
+  if (!built) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The host side of every group search's C function: checks the group's

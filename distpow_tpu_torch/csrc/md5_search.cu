@@ -39,10 +39,10 @@
 //   the latency of each thread's dependent chain.  The grid is sized by the
 //   caller (a few waves of blocks per SM), not by n.
 //
-// Interface: two plain C functions, the search of one request and the
-// scheduler's search of a group of slots, launched on the caller's stream;
-// they do not synchronise and allocate nothing.  Each returns
-// cudaGetLastError().
+// Interface: three plain C functions, the search of one request, the
+// scheduler's search of a group of slots and one shard's launch of a mesh
+// search, launched on the caller's stream; they do not synchronise and
+// allocate nothing.  Each returns cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,11 +52,13 @@ namespace distpow {
 
 constexpr int BLOCK_THREADS = 256;
 
+// A thread's first hitting flat index in the grid-stride loop, or SENTINEL:
+// the body of the solo and the mesh kernel.
 template <int MASK_WORDS, int N_BLOCKS, bool POW2>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-md5_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
-                  const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
-                  uint32_t* __restrict__ out) {
+__device__ __forceinline__ uint32_t md5_thread_first_hit(const uint32_t* __restrict__ init_g,
+                                                         const uint32_t* __restrict__ base_g,
+                                                         const uint32_t* __restrict__ masks_g,
+                                                         const Layout& L, uint32_t n) {
   uint32_t init[4], base[16 * N_BLOCKS], masks[MASK_WORDS];
 #pragma unroll
   for (int i = 0; i < 4; ++i) init[i] = __ldg(init_g + i);
@@ -78,32 +80,34 @@ md5_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restric
       break;
     }
   }
-
-  block_min_to<BLOCK_THREADS>(best, out);
+  return best;
 }
 
-template <int MASK_WORDS, int N_BLOCKS>
-void launch(bool pow2, const uint32_t* init, const uint32_t* base, const uint32_t* masks,
-            const Layout& L, uint32_t n, uint32_t* out, int grid, cudaStream_t stream) {
-  if (pow2) {
-    md5_search_kernel<MASK_WORDS, N_BLOCKS, true>
-        <<<grid, BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
-  } else {
-    md5_search_kernel<MASK_WORDS, N_BLOCKS, false>
-        <<<grid, BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
-  }
+template <int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+md5_search_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                  const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
+                  uint32_t* __restrict__ out) {
+  block_min_to<BLOCK_THREADS>(
+      md5_thread_first_hit<MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n), out);
 }
 
-template <int N_BLOCKS>
-void launch_mw(int mask_words, bool pow2, const uint32_t* init, const uint32_t* base,
-               const uint32_t* masks, const Layout& L, uint32_t n, uint32_t* out, int grid,
-               cudaStream_t stream) {
-  switch (mask_words) {
-    case 1: launch<1, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    case 2: launch<2, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    case 3: launch<3, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-    default: launch<4, N_BLOCKS>(pow2, init, base, masks, L, n, out, grid, stream); break;
-  }
+// The mesh kernel: one shard's launch of a search spread over a mesh of
+// devices (replaces distpow_tpu/parallel/mesh_search.py
+// _dyn_pallas_mesh_step).  The solo body runs over the shard's slice L of
+// the partition o (a run of thread bytes or a span of chunks, n flat
+// indices); each thread's first hit becomes the partition's flat index
+// (mesh_global_index) before the block min, so the least value across the
+// shards' cells is the partition's first hit.
+template <int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+md5_mesh_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                const uint32_t* __restrict__ masks_g, Layout L, MeshOrigin o, uint32_t n,
+                uint32_t* __restrict__ out) {
+  block_min_to<BLOCK_THREADS>(
+      mesh_global_index<POW2>(
+          L, o, md5_thread_first_hit<MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n)),
+      out);
 }
 
 // The scheduler's kernel for md5: the search of a group of slots in one
@@ -161,20 +165,36 @@ int distpow_md5_search(const void* init, const void* base, const void* masks, in
                        int mask_words, uint32_t chunk0, uint32_t tb_lo, uint32_t tbc,
                        int log_tbc, int var_word, int var_shift, uint32_t chunk_mask,
                        uint32_t n, void* out, int grid, void* stream) {
-  if (n == 0) return 0;
-  distpow::Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
-  auto s = static_cast<cudaStream_t>(stream);
-  auto i = static_cast<const uint32_t*>(init);
-  auto b = static_cast<const uint32_t*>(base);
-  auto m = static_cast<const uint32_t*>(masks);
-  auto o = static_cast<uint32_t*>(out);
-  const bool pow2 = log_tbc >= 0;
-  if (n_blocks == 1) {
-    distpow::launch_mw<1>(mask_words, pow2, i, b, m, L, n, o, grid, s);
-  } else {
-    distpow::launch_mw<2>(mask_words, pow2, i, b, m, L, n, o, grid, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const distpow::Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  return distpow::launch_keyed<4>(mask_words, n_blocks, log_tbc >= 0, n, [&](auto mw, auto nb,
+                                                                            auto pow2) {
+    distpow::md5_search_kernel<decltype(mw)::value, decltype(nb)::value, decltype(pow2)::value>
+        <<<grid, distpow::BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            u(init), u(base), u(masks), L, n, static_cast<uint32_t*>(out));
+  });
+}
+
+// Launch one shard of a mesh search (md5_mesh_kernel): the shard's run
+// tb_lo .. tb_lo + tbc - 1 from cursor chunk0 over flat indices [0, n),
+// its first hit written to out as the flat index of the partition whose
+// cursor is origin_chunk0 and whose run is origin_tbc thread bytes from
+// origin_tb_lo.  The other arguments are distpow_md5_search's.
+int distpow_md5_mesh_search(const void* init, const void* base, const void* masks,
+                            int n_blocks, int mask_words, uint32_t chunk0, uint32_t tb_lo,
+                            uint32_t tbc, int log_tbc, int var_word, int var_shift,
+                            uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0,
+                            uint32_t origin_tb_lo, uint32_t origin_tbc, void* out, int grid,
+                            void* stream) {
+  const distpow::Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  const distpow::MeshOrigin o{origin_chunk0, origin_tb_lo, origin_tbc};
+  auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  return distpow::launch_keyed<4>(mask_words, n_blocks, log_tbc >= 0, n, [&](auto mw, auto nb,
+                                                                            auto pow2) {
+    distpow::md5_mesh_kernel<decltype(mw)::value, decltype(nb)::value, decltype(pow2)::value>
+        <<<grid, distpow::BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            u(init), u(base), u(masks), L, o, n, static_cast<uint32_t*>(out));
+  });
 }
 
 // The search of a group of n_slots slots, each over flat indices [0, batch)

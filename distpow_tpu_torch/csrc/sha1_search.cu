@@ -4,10 +4,11 @@
 // (the scaffold) around _sha1_tile (the rounds).  The kernel, its design and
 // what bounds it are in hash_search.cuh; the rounds in sha1.cuh.
 //
-// Interface: two plain C functions, launched on the caller's stream; they
-// do not synchronise and allocate nothing.  The search of one request
-// (arguments as in distpow::launch_hash_search) and the scheduler's search
-// of a group of slots (distpow::launch_hash_group_search).
+// Interface: three plain C functions, launched on the caller's stream;
+// they do not synchronise and allocate nothing.  The search of one request
+// (arguments as in distpow::launch_hash_search), the scheduler's search of
+// a group of slots (distpow::launch_hash_group_search) and one shard's
+// launch of a mesh search (distpow::launch_hash_mesh_search).
 #include "sha1.cuh"
 
 extern "C" int distpow_sha1_search(const void* init, const void* base, const void* masks,
@@ -27,4 +28,14 @@ extern "C" int distpow_sha1_group_search(
   return distpow::launch_hash_group_search<distpow::Sha1>(
       init, base, masks, n_blocks, var_word, var_shift, chunk_mask, tb_lo, log_tbc, chunk0,
       n_slots, batch, out, grid_x, stream);
+}
+
+extern "C" int distpow_sha1_mesh_search(
+    const void* init, const void* base, const void* masks, int n_blocks, int mask_words,
+    uint32_t chunk0, uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word, int var_shift,
+    uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0, uint32_t origin_tb_lo,
+    uint32_t origin_tbc, void* out, int grid, void* stream) {
+  return distpow::launch_hash_mesh_search<distpow::Sha1>(
+      init, base, masks, n_blocks, mask_words, chunk0, tb_lo, tbc, log_tbc, var_word, var_shift,
+      chunk_mask, n, origin_chunk0, origin_tb_lo, origin_tbc, out, grid, stream);
 }

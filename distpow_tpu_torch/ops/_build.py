@@ -10,10 +10,12 @@ at import time: the first ``load_library`` call builds that one library
 and loads it; ``build()`` builds them all (a backend's ``warmup`` builds its
 own before the first request).
 
-Each library ``<model>_search`` exports two C functions:
-``distpow_<model>_search``, the search of one request, and
+Each library ``<model>_search`` exports three C functions:
+``distpow_<model>_search``, the search of one request,
 ``distpow_<model>_group_search``, the scheduler's search of a group of
-slots (``hash_cuda.hash_group_search``).
+slots (``hash_cuda.hash_group_search``), and
+``distpow_<model>_mesh_search``, one shard's launch of a search spread
+over a mesh of devices (``hash_cuda.hash_mesh_search``).
 """
 
 from __future__ import annotations
@@ -33,8 +35,11 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.environ.get("DISTPOW_TORCH_BUILD_DIR") or os.path.join(PKG_DIR, "build")
 
 # -Xptxas -v prints each kernel's registers and spills into the build log.
+# --split-compile 0 lets one nvcc optimise and assemble its kernels on every
+# core: a source holds some 40-60 kernels (the solo, group and mesh forms),
+# and the longest source's build bounds the parallel build of all nine.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile", "0")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -111,8 +116,14 @@ def group_function(name: str) -> str:
     return f"distpow_{name[:-len('_search')]}_group_search"
 
 
+def mesh_function(name: str) -> str:
+    """The mesh shard's C function in library ``name`` (``md5_search``:
+    ``distpow_md5_mesh_search``)."""
+    return f"distpow_{name[:-len('_search')]}_mesh_search"
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    """Set the argument and result types of the two C functions of each
+    """Set the argument and result types of the three C functions of each
     library; every search kernel has the same interface."""
     vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
     fn = getattr(lib, f"distpow_{name}")
@@ -134,6 +145,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         vp, i32, vp,         # out[n_slots], grid_x, stream
     ]
     group.restype = i32
+    mesh = getattr(lib, mesh_function(name))
+    mesh.argtypes = fn.argtypes[:13] + [
+        u32, u32, u32,       # origin_chunk0, origin_tb_lo, origin_tbc
+        vp, i32, vp,         # out, grid, stream
+    ]
+    mesh.restype = i32
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -21,6 +21,15 @@ scheduler slots that share a tail layout in one launch, each slot with its
 own operands (``GroupOperands``), and counts under
 ``LAUNCHES["<kernel>_group"]``; its plain version is
 ``search_step.plain_group_search``.
+
+And its mesh form, the counterpart of the reference's
+``distpow_tpu/parallel/mesh_search.py`` ``_dyn_pallas_mesh_step``:
+``hash_mesh_search`` launches one shard of a search spread over a mesh of
+devices, the solo kernel's body over the shard's slice of the partition,
+each hit reported as the partition's flat index; it counts under
+``LAUNCHES["<kernel>_mesh"]``, and its plain version is
+``search_step.plain_shard_search``.  ``parallel/mesh_search.py`` launches
+the shards and takes the least index across them.
 """
 
 from __future__ import annotations
@@ -32,8 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models.registry import HashModel
-from .operands import Device, GroupOperands, StepOperands
-from .search_step import _check_launch, plain_group_search, plain_search
+from .operands import MASK32, Device, GroupOperands, StepOperands
+from .search_step import (MeshOrigin, _check_launch, plain_group_search, plain_search,
+                          plain_shard_search)
 
 # Blocks per SM of a launch's grid: a few waves of 256-thread blocks, so
 # blocks that finish early (a thread stops at its first hit) leave no SM idle.
@@ -80,9 +90,10 @@ class LaunchCounter:
             self._n = 0
 
 
-# one counter per kernel and one per group kernel ("<kernel>_group")
-LAUNCHES = {name: LaunchCounter()
-            for kernel in KERNELS.values() for name in (kernel, f"{kernel}_group")}
+# one counter per kernel, group kernel ("<kernel>_group") and mesh kernel
+# ("<kernel>_mesh")
+LAUNCHES = {name: LaunchCounter() for kernel in KERNELS.values()
+            for name in (kernel, f"{kernel}_group", f"{kernel}_mesh")}
 
 
 def kernel_name(model: HashModel) -> str:
@@ -166,6 +177,51 @@ def _check_operands(ops: StepOperands, device: torch.device, model: HashModel) -
         raise ValueError(f"bad thread-byte run ({ops.tb_lo}, {ops.tb_count})")
 
 
+def _check_search(name: str, model: HashModel, ops: StepOperands, chunk0: int, batch: int,
+                  launch_steps: int, device: torch.device) -> None:
+    _check_operands(ops, device, model)
+    _check_launch(batch, launch_steps)
+    if not 0 <= chunk0 <= MASK32:
+        raise ValueError(f"chunk0 {chunk0} is not a uint32")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name} on a CUDA device, but CUDA is not available")
+
+
+def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands, tb_loc,
+                   chunk_locs, chunk0: int, n: int, grid: Optional[int],
+                   origin: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu``'s ``function`` (the solo search, or with
+    the three ``origin`` words the mesh shard's) over ``n`` flat indices on
+    the current stream of the operands' device; return its result cell."""
+    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
+    if var_word >= model.words_per_block * ops.n_blocks:
+        raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
+    from ._build import load_library
+
+    lib = load_library(name)
+    mw = kernel_mask_words(ops.mask_words, model)
+    masks = F.pad(ops.masks, (mw - ops.mask_words, 0)) if mw != ops.mask_words else ops.masks
+    tbc = ops.tb_count
+    log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
+    dev = ops.device
+    with torch.cuda.device(dev):
+        if grid is None:
+            grid = default_grid(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        out = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
+        rc = getattr(lib, function)(
+            ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
+            ops.n_blocks, mw,
+            chunk0, ops.tb_lo, tbc, log_tbc,
+            var_word, var_shift, chunk_mask,
+            n, *origin, out.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{function} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def hash_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0: int,
                 batch: int, launch_steps: int = 1, *, device: Device,
                 grid: Optional[int] = None) -> torch.Tensor:
@@ -178,42 +234,51 @@ def hash_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0:
     """
     name = kernel_name(model)
     device = torch.device(device)
-    _check_operands(ops, device, model)
-    _check_launch(batch, launch_steps)
-    if not 0 <= chunk0 <= 0xFFFFFFFF:
-        raise ValueError(f"chunk0 {chunk0} is not a uint32")
+    _check_search("hash_search", model, ops, chunk0, batch, launch_steps, device)
     if device.type == "cpu":
         return plain_search(ops, tb_loc, chunk_locs, chunk0, batch, launch_steps, model=model)
-    if device.type != "cuda":
-        raise ValueError(f"hash_search runs on cuda or cpu, not {device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("hash_search on a CUDA device, but CUDA is not available")
-    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
-    if var_word >= model.words_per_block * ops.n_blocks:
-        raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
-    from ._build import load_library
-
-    lib = load_library(name)
-    mw = kernel_mask_words(ops.mask_words, model)
-    masks = F.pad(ops.masks, (mw - ops.mask_words, 0)) if mw != ops.mask_words else ops.masks
-    n = batch * launch_steps
-    tbc = ops.tb_count
-    log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
-    dev = ops.device
-    with torch.cuda.device(dev):
-        if grid is None:
-            grid = default_grid(n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        out = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
-        rc = getattr(lib, f"distpow_{name}")(
-            ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
-            ops.n_blocks, mw,
-            chunk0, ops.tb_lo, tbc, log_tbc,
-            var_word, var_shift, chunk_mask,
-            n, out.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    out = _launch_search(name, f"distpow_{name}", model, ops, tb_loc, chunk_locs, chunk0,
+                         batch * launch_steps, grid)
     LAUNCHES[name].add()
+    return out
+
+
+def hash_mesh_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0: int,
+                     batch: int, launch_steps: int, origin: MeshOrigin, *, device: Device,
+                     grid: Optional[int] = None) -> torch.Tensor:
+    """One shard of a mesh launch: the first hit among the shard's
+    ``batch * launch_steps`` candidates, the run ``(ops.tb_lo,
+    ops.tb_count)`` from cursor ``chunk0``, as the flat index of the
+    partition ``origin`` (``search_step.MeshOrigin``: the launch's cursor
+    and the partition's run, which holds the shard's), or SENTINEL.
+
+    On a CUDA device: launches ``model``'s mesh kernel on the current
+    stream of the operands' device and returns its result cell (an
+    ``int32`` bit pattern, SENTINEL is -1) without synchronising.  On the
+    CPU: the plain version (``plain_shard_search``), a 0-d ``int64``.
+    Every partition index of the shard must lie below 2^31.
+    """
+    name = kernel_name(model)
+    device = torch.device(device)
+    _check_search("hash_mesh_search", model, ops, chunk0, batch, launch_steps, device)
+    origin = MeshOrigin(*(int(v) for v in origin))
+    if not (0 <= origin.chunk0 <= MASK32 and origin.tb_lo <= ops.tb_lo
+            and ops.tb_lo + ops.tb_count <= origin.tb_lo + origin.tbc):
+        raise ValueError(f"shard run ({ops.tb_lo}, {ops.tb_count}) at {chunk0} is not inside "
+                         f"the partition {origin}")
+    n = batch * launch_steps
+    chunks = ((chunk0 - origin.chunk0) & MASK32) + -(-n // ops.tb_count)
+    if chunks * origin.tbc > 1 << 31:
+        raise ValueError(f"shard at chunk {chunk0} reaches partition index {chunks * origin.tbc}; "
+                         f"partition indices require < 2^31")
+    if device.type == "cpu":
+        return plain_shard_search(ops, tb_loc, chunk_locs, chunk0, batch, launch_steps, origin,
+                                  model=model)
+    from ._build import mesh_function
+
+    out = _launch_search(name, mesh_function(name), model, ops, tb_loc, chunk_locs, chunk0, n,
+                         grid, origin)
+    LAUNCHES[f"{name}_mesh"].add()
     return out
 
 

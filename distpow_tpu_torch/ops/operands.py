@@ -38,6 +38,21 @@ def u32_value(t: torch.Tensor) -> int:
     return int(t) & MASK32
 
 
+def u32_bits(t: torch.Tensor) -> torch.Tensor:
+    """Results as ``int32`` bit patterns: a kernel's cells as they are, the
+    plain version's ``int64`` values in [0, 2^32) cut to their low 32 bits
+    (SENTINEL becomes -1, as in a kernel's cell)."""
+    return t if t.dtype == torch.int32 else (t & MASK32).to(torch.int32)
+
+
+def u32_min(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The least uint32 along ``dim`` of ``int32`` bit patterns, as bit
+    patterns.  A signed min would rank SENTINEL (-1) below every hit, so the
+    sign bit is flipped first, which maps uint32 order onto int32 order."""
+    flip = torch.iinfo(torch.int32).min
+    return torch.bitwise_xor(torch.bitwise_xor(t, flip).amin(dim), flip)
+
+
 @dataclass(frozen=True)
 class StepOperands:
     init: torch.Tensor   # int32 [S], the model's state words

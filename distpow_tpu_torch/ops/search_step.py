@@ -15,6 +15,11 @@ masked to 32 bits (see ``ops/__init__.py``).  Every step returns a 0-d
 tensor on the operands' device, not an int: reading it is the caller's
 synchronisation point.
 
+A mesh launch spreads one search over shards (``plain_mesh_search``, the
+plain version of the mesh kernels, ``hash_cuda.hash_mesh_search``): each
+shard searches a slice of the partition and reports its first hit as the
+partition's flat index, so the least across shards is the first hit.
+
 The scheduler's steps (``slot_search_step``, ``mixed_slot_search_step``,
 ``plain_group_search``) run one such search per slot of a group, each slot
 with its own operands and a power-of-two run, at masks of every digest
@@ -30,7 +35,8 @@ launch sub-batches: many ``plain_search`` cases of one layout at once).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional, Sequence, Tuple
+from dataclasses import replace
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +47,9 @@ from .operands import (MASK32, Device, GroupOperands, StepOperands, group_operan
 from .packing import TailSpec, build_tail_spec
 
 SENTINEL = 0xFFFFFFFF
+# Candidates the plain mesh step evaluates at once at most
+# (plain_shard_search): the worker's batch
+PLAIN_SUB_BATCH = 1 << 20
 
 # The models the reference never admits to its scheduler's packed XLA step
 # (the reference's ops/search_step.py XLA_SERVING_COMPILE_IMPRACTICAL: their
@@ -135,6 +144,75 @@ def plain_search(ops: StepOperands, tb_loc, chunk_locs, chunk0: int, batch: int,
         hit = fold_dyn_masks(model, state, masks, ops.mask_words)
         best = torch.minimum(best, torch.where(hit, f, SENTINEL).min())
     return best
+
+
+class MeshOrigin(NamedTuple):
+    """The partition a mesh launch searches: the launch's cursor and the
+    run ``tb_lo .. tb_lo + tbc - 1`` (the kernels' ``MeshOrigin``).  Its flat
+    index is chunk-major over the whole run."""
+
+    chunk0: int
+    tb_lo: int
+    tbc: int
+
+
+class MeshShard(NamedTuple):
+    """One shard's slice of a mesh launch: the run ``tb_lo .. tb_lo +
+    tb_count - 1`` from cursor ``chunk0``, over ``batch * launch_steps``
+    flat indices of its own."""
+
+    tb_lo: int
+    tb_count: int
+    chunk0: int
+    batch: int
+    launch_steps: int
+
+
+def partition_index(f, tb_lo: int, tb_count: int, chunk0: int, origin: MeshOrigin):
+    """A shard's local flat index ``f`` (an int or an int64 tensor, not
+    SENTINEL) in the run ``tb_lo .. tb_lo + tb_count - 1`` from cursor
+    ``chunk0``, as the flat index of the partition ``origin``: the kernels'
+    ``mesh_global_index``."""
+    chunk = (chunk0 + f // tb_count) & MASK32
+    return ((chunk - origin.chunk0) & MASK32) * origin.tbc + tb_lo + f % tb_count - origin.tb_lo
+
+
+def plain_shard_search(ops: StepOperands, tb_loc, chunk_locs, chunk0: int, batch: int,
+                       launch_steps: int, origin: MeshOrigin, *,
+                       model: HashModel) -> torch.Tensor:
+    """One shard of a mesh launch, the plain version of a mesh kernel's
+    launch: ``plain_search`` over the shard's run ``(ops.tb_lo,
+    ops.tb_count)`` from ``chunk0``, its first hit mapped to the flat index
+    of the partition ``origin``, ``(chunk - origin.chunk0) * origin.tbc +
+    (tb - origin.tb_lo)`` (chunks mod 2^32), or SENTINEL; a 0-d int64."""
+    # the shard's range in pieces of whole chunks, each up to the worker's
+    # batch: a shard's batch is a fraction of the launch's, and the plain
+    # step's cost is per evaluation, not per candidate
+    n, tbc = batch * launch_steps, ops.tb_count
+    _check_launch(n, 1)
+    piece = max(1, PLAIN_SUB_BATCH // tbc) * tbc
+    f = torch.tensor(SENTINEL, dtype=torch.int64, device=ops.device)
+    for start in range(0, n, piece):
+        hit = plain_search(ops, tb_loc, chunk_locs, (chunk0 + start // tbc) & MASK32,
+                           min(piece, n - start), model=model)
+        f = torch.minimum(f, torch.where(hit == SENTINEL, SENTINEL, hit + start))
+    g = partition_index(f, ops.tb_lo, tbc, chunk0, origin)
+    return torch.where(f == SENTINEL, SENTINEL, g)
+
+
+def plain_mesh_search(ops: StepOperands, tb_loc, chunk_locs, shards: Sequence[MeshShard],
+                      origin: MeshOrigin, *, model: HashModel) -> torch.Tensor:
+    """The first hit of a mesh launch as the partition's flat index, or
+    SENTINEL, a 0-d int64 on the operands' device: the plain version of the
+    mesh step, the counterpart of the reference's ``_dyn_mesh_step`` and its
+    non-power-of-two ``build_static``.  ``ops`` are the partition's
+    operands; each shard runs ``plain_shard_search`` at its own slice, and
+    the least index across the shards (int64 values of uint32s, so the
+    least uint32) wins."""
+    hits = [plain_shard_search(replace(ops, tb_lo=s.tb_lo, tb_count=s.tb_count), tb_loc,
+                               chunk_locs, s.chunk0, s.batch, s.launch_steps, origin,
+                               model=model) for s in shards]
+    return torch.stack(hits).amin()
 
 
 def plain_search_w0(ops: StepOperands, tb_loc, chunk_locs=(), *,

@@ -9,7 +9,9 @@ secret bytes it owns (worker.go:301-316)::
 
 For a non-power-of-two worker count the high workers' prefixes wrap
 through the uint8 conversion and overlap low shards.  That is kept
-bug-for-bug: overlap is harmless, gaps would not be.
+bug-for-bug: overlap is harmless, gaps would not be.  Inside a worker the
+same algebra applies once more across the shards of a mesh
+(``split_thread_bytes``).
 """
 
 from __future__ import annotations
@@ -46,3 +48,21 @@ def contiguous_bounds(thread_bytes: Sequence[int]) -> Tuple[int, int]:
     if tbs != list(range(lo, lo + len(tbs))):
         raise ValueError(f"thread bytes not a contiguous run: {tbs[:8]}...")
     return lo, len(tbs)
+
+
+def split_thread_bytes(tbs: Sequence[int], num_shards: int) -> List[List[int]]:
+    """Sub-partition a worker's thread bytes across mesh shards: contiguous
+    slices, the first ``len(tbs) % num_shards`` one longer, so each shard
+    owns a contiguous prefix range (prefix -> device).  With fewer thread
+    bytes than shards the surplus shards get empty slices (the mesh then
+    splits the chunk range instead)."""
+    if num_shards <= 0:
+        raise ValueError("num_shards must be positive")
+    base, rem = divmod(len(tbs), num_shards)
+    shards: List[List[int]] = []
+    pos = 0
+    for s in range(num_shards):
+        size = base + (1 if s < rem else 0)
+        shards.append(list(tbs[pos:pos + size]))
+        pos += size
+    return shards

@@ -9,9 +9,11 @@ layout), all groups of a launch fetched with one host sync.
   it at the next launch boundary.
 * **run**: each iteration the loop takes the active slots in ``(vtime,
   seq)`` order, keeps one layout group per hash model, and launches them:
-  per group the ``cuda`` lane's group kernel (``hash_group_search``) or
-  the ``torch`` lane's plain step, one mixed step for all of a launch's
-  torch groups (``sched/lanes.py``).  Per-slot
+  per group the ``cuda`` lane's group kernel (``hash_group_search``), the
+  ``mesh`` lane's group kernel on every shard of a mesh, or the ``torch``
+  lane's plain step, one mixed step for all of a launch's torch groups
+  (``sched/lanes.py``).  A slot's cursor moves by its lane's coverage
+  (the mesh lane's is ``n_shards x mesh_span()`` batches).  Per-slot
   difficulty masks (every digest word), partitions and cursors are
   operands, so slots at any difficulty share a launch.
 * **leave**: a hit (verified with hashlib), a cancel (polled at each
@@ -54,6 +56,7 @@ from ..ops.operands import MASK32, Device, GroupOperands, group_operands
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import (SENTINEL, XLA_SERVING_COMPILE_IMPRACTICAL,
                                mixed_slot_search_step)
+from ..parallel.mesh_search import Mesh
 from ..parallel.partition import contiguous_bounds
 from ..parallel.search import assemble_secret, effective_batch, width_segments
 from ..runtime.metrics import REGISTRY, Metrics
@@ -141,15 +144,17 @@ class BatchingScheduler:
     backend (a port backend) for default-model shapes the packed step
     cannot express.  ``start=False`` defers the loop (tests submit a
     deterministic slot set first, then ``start``).  ``lane`` pins the lane
-    (``WorkerConfig.SchedLane``: ``auto``, ``cuda`` or ``torch``, or the
-    reference's ``pallas`` and ``xla``; ``sched/lanes.py``).
+    (``WorkerConfig.SchedLane``: ``auto``, ``cuda``, ``mesh`` or ``torch``,
+    or the reference's ``pallas`` and ``xla``; ``sched/lanes.py``), and
+    ``mesh`` is the mesh lane's mesh (``parallel.mesh_search.make_mesh``;
+    its first device is ``device``; default every visible GPU).
     """
 
     def __init__(self, hash_model: str = "md5", batch_size: int = 1 << 20,
                  max_slots: int = 8, max_width: int = 8, fallback: object = None,
                  start: bool = True, extra_models: Sequence[str] = (),
                  lane: str = "auto", device: Device = "cuda",
-                 metrics: Metrics = REGISTRY) -> None:
+                 metrics: Metrics = REGISTRY, mesh: Optional[Mesh] = None) -> None:
         self.device = _require_device(device)
         self.model = get_hash_model(hash_model)
         # the default model and the configured extras; the models the
@@ -164,7 +169,7 @@ class BatchingScheduler:
         self.max_width = max_width
         self.fallback = fallback
         self.metrics = metrics
-        self.planner = LanePlanner(override=lane, device=self.device)
+        self.planner = LanePlanner(override=lane, device=self.device, mesh=mesh)
         self.lane = self.planner.override
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._solo_backends: Dict[str, object] = {}
@@ -253,8 +258,7 @@ class BatchingScheduler:
         kernel (``cuda``), or the plain step where the lane is ``torch``."""
         backend = self._solo_backends.get(model.name)
         if backend is None:
-            lane = self.planner.rank((), self.batch)[0]
-            cls = TorchBackend if lane == "torch" else CudaBackend
+            cls = TorchBackend if self.planner.default_lane == "torch" else CudaBackend
             backend = self._solo_backends[model.name] = cls(
                 hash_model=model.name, batch_size=self.batch, device=self.device,
                 metrics=self.metrics)
@@ -450,15 +454,17 @@ class BatchingScheduler:
             gslots.append(slots)
         resolved = [self.planner.resolve(gd, self.batch) for gd in gdefs]
         lanes_used = [lane for lane, _ in resolved]
+        # candidates per slot per launch: the mesh lane's cover more
+        coverages = [coverage for _, coverage in resolved]
         compile_key = (tuple(gdefs), tuple(lanes_used), self.batch)
         first_compile = compile_key not in self._compiled
 
         def run() -> List[list]:
             gops = [self._lane_ops(slots) for slots in gslots]
             pending: List[Tuple[int, torch.Tensor]] = []
-            for i, (lane, gstep) in enumerate(resolved):
-                if lane == "cuda":
-                    pending.append((i, gstep(gops[i])))
+            for i, lane in enumerate(lanes_used):
+                if lane != "torch":
+                    pending.append((i, self.planner.launch(lane, gdefs[i], gops[i], self.batch)))
             # every torch-lane group of the launch in one plain (mixed) step
             torch_idx = [i for i, lane in enumerate(lanes_used) if lane == "torch"]
             if torch_idx:
@@ -481,16 +487,16 @@ class BatchingScheduler:
                 else:
                     res_groups = run()
 
-        coverage = self.batch  # candidates per slot per launch, every lane
         self.metrics.observe("sched.batch_occupancy", len(group))
         self.metrics.inc("sched.launches")
         for lane in lanes_used:
             self.metrics.inc(f"sched.lane_launches.{lane}")
         if len({d[0] for d in gdefs}) > 1:
             self.metrics.inc("sched.mixed_hash_launches")
-        self.metrics.inc("search.hashes", sum(len(sl) for sl in gslots) * coverage)
+        self.metrics.inc("search.hashes",
+                         sum(len(sl) * c for sl, c in zip(gslots, coverages)))
         finished: List[Tuple[Slot, Optional[bytes]]] = []
-        for slots, res in zip(gslots, res_groups):
+        for slots, res, coverage in zip(gslots, res_groups, coverages):
             for s, f in zip(slots, res):
                 s.launches += 1
                 s.vtime += coverage / s.weight

@@ -1,30 +1,37 @@
 """Launch lanes of the scheduler: which device form serves a launch group.
 
 The engine (``sched/engine.py``) packs its slot table into (model, tail
-layout) groups.  Each group resolves once per (group, batch) to a lane:
+layout) groups.  Each group resolves per (group, batch) to a lane:
 
 * ``cuda`` — the model's group kernel (``ops/hash_cuda.py``
   ``hash_group_search``, the counterpart of the reference's
   ``build_pallas_group_step``): one launch for all the group's slots, on
   the scheduler's stream.  On a CUDA device this lane takes every group,
   width-0 and two-block tails included.
+* ``mesh`` — the group kernel on every shard of a mesh
+  (``parallel/mesh_search.py`` ``mesh_group_search``, the counterpart of
+  the reference's ``mesh_slot_search_step``): a launch covers ``n_shards x
+  mesh_span() x batch`` candidates per slot.  Eligible with more than one
+  shard, or when asked for (``lane="mesh"``), and not for width 0.
 * ``torch`` — the plain step (``ops/search_step.py``
   ``mixed_slot_search_step``, one for all of a launch's torch groups): the
   lane on the CPU, and on a card only when asked for (``lane="torch"``).
-* ``mesh`` — raises until the mesh is ported (ROADMAP Queue 1 item 4).
 
-The reference's lane names map: ``pallas`` is ``cuda``, ``xla`` is
-``torch``.  Where the reference demotes a lane whose build or launch fails
-and serves the group on ``xla``, here the error raises: the engine's
-loop-death path finishes the slots with it (``sched.loop_failures``), so no
-failure hides the kernel behind the plain step.  The engine counts
-``sched.lane_launches.<lane>`` per group served.
+``auto`` ranks ``cuda`` before ``mesh`` on a card, as the reference ranks
+``pallas`` before ``mesh``, and takes the first.  The reference's lane
+names map: ``pallas`` is ``cuda``, ``xla`` is ``torch``.  Where the
+reference demotes a lane whose build or launch fails and serves the group
+on ``xla``, here the error raises: the engine's loop-death path finishes
+the slots with it (``sched.loop_failures``), so no failure hides the kernel
+behind the plain step.  The engine counts ``sched.lane_launches.<lane>``
+per group served.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,19 +39,31 @@ from ..models.registry import get_hash_model
 from ..ops.hash_cuda import hash_group_search, kernel_layout, kernel_name
 from ..ops.operands import Device, GroupOperands
 from ..ops.search_step import _check_launch
+from ..parallel.mesh_search import Mesh, explicit_device, make_mesh, mesh_group_search
 
 # the names a caller may give (WorkerConfig.SchedLane), the reference's included
-LANE_NAMES = {"auto": "auto", "cuda": "cuda", "pallas": "cuda", "torch": "torch",
-              "xla": "torch"}
+LANE_NAMES = {"auto": "auto", "cuda": "cuda", "pallas": "cuda", "mesh": "mesh",
+              "torch": "torch", "xla": "torch"}
+
+# The mesh lane's per-shard span: each shard sweeps span x batch candidates
+# per slot a launch, so the host's dispatch is paid once for more of the
+# search segment (the reference's MESH_SPAN).
+MESH_SPAN = 4
+
+
+def mesh_span() -> int:
+    """The mesh lane's span multiplier (``DISTPOW_MESH_SPAN`` to tune,
+    floor 1)."""
+    try:
+        return max(1, int(os.environ.get("DISTPOW_MESH_SPAN", MESH_SPAN)))
+    except ValueError:
+        return MESH_SPAN
 
 
 def lane_name(name: Optional[str]) -> str:
     """The port's lane for a caller's name (``auto``, a lane, or a reference
-    name); ``mesh`` and unknown names raise."""
+    name); unknown names raise."""
     name = (name or "auto").lower()
-    if name == "mesh":
-        raise ValueError("scheduler lane 'mesh' is not ported yet: it waits for the mesh "
-                         "(ROADMAP Queue 1 item 4)")
     try:
         return LANE_NAMES[name]
     except KeyError:
@@ -58,40 +77,23 @@ class LaneCaps:
     without a card."""
 
     device_type: str  # the scheduler device's type: "cuda" or "cpu"
-    n_devices: int = 1
+    n_devices: int = 1  # the shards of the mesh lane's mesh
 
 
-def detect_caps(device: Device) -> LaneCaps:
+def detect_caps(device: Device, mesh: Optional[Mesh] = None) -> LaneCaps:
     dev = torch.device(device)
+    if mesh is not None:
+        return LaneCaps(dev.type, mesh.size)
     return LaneCaps(dev.type, torch.cuda.device_count() if dev.type == "cuda" else 1)
 
 
-class _CudaGroupStep:
-    """The cuda lane of one launch group: ``step(ops)`` launches the group
-    kernel over the slots of ``ops`` and returns their result cells.
-    ``coverage`` is the candidates per slot per launch."""
-
-    lane = "cuda"
-
-    def __init__(self, model, tb_loc, chunk_locs, batch: int, device: Device) -> None:
-        self.model = model
-        self.tb_loc = tb_loc
-        self.chunk_locs = chunk_locs
-        self.coverage = batch
-        self.device = device
-
-    def __call__(self, ops: GroupOperands) -> torch.Tensor:
-        return hash_group_search(self.model, ops, self.tb_loc, self.chunk_locs, self.coverage,
-                                 device=self.device)
-
-
-def build_cuda_group_step(gdef: tuple, batch: int, device: Device) -> _CudaGroupStep:
-    """The cuda lane for one launch group ``(model, n_blocks, tb_loc,
-    chunk_locs, n_pad)``; raises ValueError for a group the kernel cannot
-    serve (a model without a kernel, a layout that is not one contiguous
-    run, a batch of 2^31 or more or not a multiple of 256, which every
-    power-of-two run divides).  Only the real slots are launched: ``n_pad``
-    is part of the planner's key, not of the launch."""
+def check_group(gdef: tuple, batch: int) -> None:
+    """Raise ValueError for a launch group ``(model, n_blocks, tb_loc,
+    chunk_locs, n_pad)`` the group kernel cannot serve at ``batch``
+    candidates a slot: a model without a kernel, a layout that is not one
+    contiguous run, a batch of 2^31 or more or not a multiple of 256, which
+    every power-of-two run divides.  Only the real slots are launched:
+    ``n_pad`` is part of the planner's key, not of the launch."""
     model_name, n_blocks, tb_loc, chunk_locs, _n_pad = gdef
     model = get_hash_model(model_name)
     kernel_name(model)
@@ -101,38 +103,81 @@ def build_cuda_group_step(gdef: tuple, batch: int, device: Device) -> _CudaGroup
     _check_launch(batch, 1)
     if batch % 256:
         raise ValueError(f"batch {batch} is not a multiple of 256")
-    return _CudaGroupStep(model, tb_loc, chunk_locs, batch, device)
 
 
 class LanePlanner:
     """Per-(group, batch) lane resolution.  ``override`` pins the lane
-    (``auto`` ranks by the device: ``cuda`` on a card, ``torch`` on the
-    CPU); a step is built once per key and kept.  ``caps`` default to the
-    device's own."""
+    (``auto`` ranks by the device: ``cuda`` then ``mesh`` on a card,
+    ``torch`` on the CPU).  ``mesh`` is the mesh lane's (default: every
+    visible GPU from the scheduler's device on; on the CPU one shard); its
+    first device is the scheduler's.  ``caps`` default to the device's and
+    the mesh's own."""
 
     def __init__(self, caps: Optional[LaneCaps] = None, override: str = "auto",
-                 device: Device = "cuda") -> None:
+                 device: Device = "cuda", mesh: Optional[Mesh] = None) -> None:
         self.override = lane_name(override)
         self.device = torch.device(device)
-        self.caps = caps or detect_caps(self.device)
-        self._steps: Dict[tuple, _CudaGroupStep] = {}
+        if mesh is not None and mesh.devices[0] != explicit_device(self.device):
+            raise ValueError(f"the mesh lane's first device is {mesh.devices[0]}, the "
+                             f"scheduler's {self.device}")
+        self._mesh = mesh
+        self.caps = caps or detect_caps(self.device, mesh)
+
+    @property
+    def default_lane(self) -> str:
+        """The lane of a group no other lane takes, and of solo searches."""
+        if self.override in ("cuda", "torch"):
+            return self.override
+        return "cuda" if self.caps.device_type == "cuda" else "torch"
+
+    @property
+    def mesh(self) -> Mesh:
+        if self._mesh is None:
+            first = explicit_device(self.device)
+            others = [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+                      if first.type == "cuda" and i != first.index]
+            self._mesh = make_mesh([first] + others)
+        return self._mesh
+
+    def _eligible(self, lane: str, gdef: tuple, batch: int) -> bool:
+        if lane != "mesh":
+            return True
+        # width 0 (no chunk bytes) is at most one run of thread bytes, far
+        # below one batch: nothing to spread
+        return bool(gdef[3]) and (self.override == "mesh" or self.caps.n_devices > 1) and \
+            batch * mesh_span() * self.caps.n_devices < 1 << 31
 
     def rank(self, gdef: tuple, batch: int) -> Tuple[str, ...]:
-        """The lanes for a group, first first: one lane, since nothing demotes."""
-        if self.override != "auto":
-            return (self.override,)
-        return ("cuda",) if self.caps.device_type == "cuda" else ("torch",)
+        """The eligible lanes for a group, first first; the first serves it."""
+        if self.override == "auto":
+            ranked = ("cuda", "mesh") if self.caps.device_type == "cuda" else ("torch",)
+        elif self.override == "mesh":
+            ranked = ("mesh", self.default_lane)
+        else:
+            ranked = (self.override,)
+        return tuple(lane for lane in ranked if self._eligible(lane, gdef, batch))
 
-    def resolve(self, gdef: tuple, batch: int):
-        """``(lane, step)`` for a launch group: ``step`` is None for the
-        ``torch`` lane (the engine runs the plain steps, one for all of a
-        launch's torch groups), else a ``_CudaGroupStep``.  A build failure
-        raises."""
+    def resolve(self, gdef: tuple, batch: int) -> Tuple[str, int]:
+        """``(lane, coverage)`` for a launch group: the first ranked lane,
+        after the group kernel's checks where a kernel serves it (a group it
+        cannot serve raises), and the candidates a slot covers per launch."""
         lane = self.rank(gdef, batch)[0]
         if lane == "torch":
-            return "torch", None
-        key = (gdef, batch)
-        step = self._steps.get(key)
-        if step is None:
-            step = self._steps[key] = build_cuda_group_step(gdef, batch, self.device)
-        return lane, step
+            return lane, batch
+        if lane == "mesh":
+            local = batch * mesh_span()
+            check_group(gdef, local)
+            return lane, local * self.mesh.size
+        check_group(gdef, batch)
+        return lane, batch
+
+    def launch(self, lane: str, gdef: tuple, ops: GroupOperands, batch: int) -> torch.Tensor:
+        """One launch of a group on the ``cuda`` or ``mesh`` lane: the
+        result cells of its slots on the scheduler's device, without a
+        host wait."""
+        model = get_hash_model(gdef[0])
+        tb_loc, chunk_locs = gdef[2], gdef[3]
+        if lane == "mesh":
+            return mesh_group_search(self.mesh, model, ops, tb_loc, chunk_locs,
+                                     batch * mesh_span())
+        return hash_group_search(model, ops, tb_loc, chunk_locs, batch, device=self.device)

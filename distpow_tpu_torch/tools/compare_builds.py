@@ -3,7 +3,9 @@
 Builds both checkouts' kernels (each with its own sources and build code,
 in its own process, the two at once), then prints per model: whether
 ptxas gave every specialization the same registers, whether every
-specialization's SASS loop has the same length, the timed specialization's
+specialization's SASS loop has the same length, the same two for the
+group kernel (the scheduler's search of a group of slots), the timed
+specialization's
 (mask words 2, one tail block, power-of-two run) registers, spills and
 loop instructions by pipe on each side, and the main-path launch time
 (difficulty 16, as ``operand_placement`` times it) in ``PAIRS`` pairs of
@@ -53,7 +55,9 @@ def build_side(proc, what: str, cs) -> dict:
                               capture_output=True, text=True, check=True, timeout=300).stdout
         kernels[kernel] = {"ptxas": cs.parse_ptxas(out["log"].get(kernel, "")),
                            "loops": cs.spec_sass_loops(sass),
-                           "issued": cs.spec_sass_loops(sass, path=True)}
+                           "issued": cs.spec_sass_loops(sass, path=True),
+                           "group_ptxas": cs.parse_group_ptxas(out["log"].get(kernel, "")),
+                           "group_loops": cs.group_sass_loops(sass)}
     return kernels
 
 
@@ -94,6 +98,11 @@ def main(argv) -> int:
                               {s: v["registers"] for s, v in b["ptxas"].items()},
             "same_loop_lengths": {s: sum(v.values()) for s, v in a["loops"].items()} ==
                                  {s: sum(v.values()) for s, v in b["loops"].items()},
+            "same_group_registers": {s: v["registers"] for s, v in a["group_ptxas"].items()} ==
+                                    {s: v["registers"] for s, v in b["group_ptxas"].items()},
+            "same_group_loop_lengths":
+                {s: sum(v.values()) for s, v in a["group_loops"].items()} ==
+                {s: sum(v.values()) for s, v in b["group_loops"].items()},
             "timed": {side: {**built[side][k]["ptxas"][timed],
                              "loop": sum(built[side][k]["loops"][timed].values()),
                              "issued": sum(built[side][k]["issued"][timed].values()),

@@ -272,3 +272,35 @@ def test_group_kernel_parsers_keep_apart_from_the_solo_ones():
                         "24hash_group_search_kernelINS_6Sha256ELi1EEEv")
     assert cs.group_sass_loops(sass) == {1: {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
     assert cs.spec_sass_loops(sass) == {}
+
+
+MESH_PTXAS = """
+ptxas info    : Compiling entry function '_ZN7distpow15md5_mesh_kernelILi2ELi1ELb1EEEvPKjS2_S2_NS_6LayoutENS_10MeshOriginEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow15md5_mesh_kernelILi2ELi1ELb1EEEvPKjS2_S2_NS_6LayoutENS_10MeshOriginEjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow25resident_hash_mesh_kernelINS_8Sha3_256ELi4ELi2ELb0EEEvPKjS3_S3_NS_6LayoutENS_10MeshOriginEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow25resident_hash_mesh_kernelINS_8Sha3_256ELi4ELi2ELb0EEEvPKjS3_S3_NS_6LayoutENS_10MeshOriginEjPj
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 102 registers, used 1 barriers, 8 bytes cumulative stack size, 32 bytes smem
+"""
+
+
+def test_mesh_kernel_parsers_keep_apart_from_the_solo_ones():
+    """The mesh kernels carry the solo kernels' keys under their own names:
+    MESH_KEY reads them (the resident form too), and the solo parsers, which
+    judge the solo kernels against the parent build, skip them."""
+    cs = _load()
+    assert cs.parse_ptxas(MESH_PTXAS, cs.MESH_KEY) == {
+        (2, 1, True): {"registers": 56, "spill_bytes": 0},
+        (4, 2, False): {"registers": 102, "spill_bytes": 8}}
+    assert cs.parse_ptxas(MESH_PTXAS) == {}
+    assert cs.parse_ptxas(PTXAS + MESH_PTXAS) == cs.parse_ptxas(PTXAS)
+    assert cs.parse_ptxas(PTXAS, cs.MESH_KEY) == {}
+    sass = SASS.replace("18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEv",
+                        "16hash_mesh_kernelINS_7Sha256dELi8ELi1ELb1EEEv")
+    assert cs.spec_sass_loops(sass, key=cs.MESH_KEY) == {
+        (8, 1, True): {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
+    assert cs.spec_sass_loops(sass) == {} and cs.group_sass_loops(sass) == {}
+    # the kernels line names the mesh kernels' TPU counterpart
+    assert cs.REPLACES_MESH.startswith("distpow_tpu/parallel/mesh_search.py:178 ")

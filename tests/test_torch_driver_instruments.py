@@ -20,7 +20,7 @@ import pytest
 
 from distpow_tpu_torch.backends import PythonBackend, TorchBackend, get_backend
 from distpow_tpu_torch.backends import cuda_backend
-from distpow_tpu_torch.backends.cuda_backend import CudaBackend
+from distpow_tpu_torch.backends.cuda_backend import CudaBackend, CudaMeshBackend
 from distpow_tpu_torch.models.registry import get_hash_model
 from distpow_tpu_torch.parallel import search as port_search
 from distpow_tpu_torch.runtime.metrics import Metrics
@@ -134,7 +134,8 @@ def test_backends_take_the_reference_workers_keywords(cls):
             be = cls(hash_model="sha1", batch_size=1 << 10, device="cpu",
                      mesh_devices=mesh_devices, max_launch=None, interpret=False, loop=loop)
             assert be.loop == loop and be.model.name == "sha1"
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
+    # a single-device backend names the mesh backend that serves the count
+    with pytest.raises(ValueError, match="CudaMeshBackend"):
         cls(device="cpu", mesh_devices=4)
     with pytest.raises(ValueError, match="no interpret mode"):
         cls(device="cpu", interpret=True)
@@ -152,9 +153,11 @@ def test_get_backend_maps_the_reference_names():
         assert type(get_backend(name, device="cpu", **kw)) is CudaBackend
     assert type(get_backend("torch", device="cpu", **kw)) is TorchBackend
     assert type(get_backend("python", **kw)) is PythonBackend
-    for name in ("jax-mesh", "pallas-mesh"):
-        with pytest.raises(ValueError, match="Queue 1 item 4"):
-            get_backend(name, device="cpu", **kw)
+    for name in ("jax-mesh", "pallas-mesh", "mesh", "cuda-mesh"):
+        assert type(get_backend(name, device="cpu", **kw)) is CudaMeshBackend
+    # the cuda names with more than one mesh device are the mesh backend
+    assert type(get_backend("pallas", device="cpu", **{**kw, "mesh_devices": 4})) is \
+        CudaMeshBackend
     with pytest.raises(ValueError, match="Queue 1 item 5"):
         get_backend("native", **kw)
 

@@ -15,7 +15,10 @@ the straightforward formulation with a full rho-pi copy (kept here as the
 reference) for every last-round lane mask the kernels use.  And one slot
 of the scheduler's group kernel (its per-slot layout, ``slot_layout``, at
 the full digest and a power-of-two run) for all nine hashes, md5's from
-``md5.cuh``, against the port's plain group step.
+``md5.cuh``, against the port's plain group step; and one shard of the mesh
+kernel (the solo search over the shard's slice, its first hit remapped to
+the partition's flat index by ``mesh_global_index``) for all nine, the
+least across a mesh's shards held to the port's plain mesh step.
 """
 
 import ctypes
@@ -115,12 +118,29 @@ uint32_t host_search(int n_blocks, int mask_words, const uint32_t* init,
   return pow2 ? search_mw<2, true>(mask_words, init, base, masks, L, n)
               : search_mw<2, false>(mask_words, init, base, masks, L, n);
 }
+
+// one shard of the mesh kernel: the solo search over the shard's run, its
+// first hit as the flat index of the partition (origin_*)
+uint32_t host_mesh_shard(int n_blocks, int mask_words, const uint32_t* init,
+                         const uint32_t* base, const uint32_t* masks, uint32_t chunk0,
+                         uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word, int var_shift,
+                         uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0,
+                         uint32_t origin_tb_lo, uint32_t origin_tbc) {
+  const uint32_t f = host_search(n_blocks, mask_words, init, base, masks, chunk0, tb_lo, tbc,
+                                 log_tbc, var_word, var_shift, chunk_mask, n);
+  const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  const MeshOrigin o{origin_chunk0, origin_tb_lo, origin_tbc};
+  return log_tbc >= 0 ? mesh_global_index<true>(L, o, f) : mesh_global_index<false>(L, o, f);
+}
 }
 """
 
 U32P = ctypes.POINTER(ctypes.c_uint32)
 GROUP_SLOT_ARGS = [ctypes.c_int, U32P, U32P, U32P, ctypes.c_uint32, ctypes.c_uint32,
                    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
+MESH_SHARD_ARGS = [ctypes.c_int, ctypes.c_int, U32P, U32P, U32P, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32]
 
 
 @pytest.fixture(scope="module")
@@ -154,6 +174,8 @@ def twins(tmp_path_factory):
         dll.host_search.restype = u32
         dll.host_group_slot.argtypes = GROUP_SLOT_ARGS
         dll.host_group_slot.restype = u32
+        dll.host_mesh_shard.argtypes = MESH_SHARD_ARGS
+        dll.host_mesh_shard.restype = u32
         dlls[name] = dll
     return dlls
 
@@ -571,10 +593,50 @@ def test_switch_placement_matches_selects(place_twin, row_words, blk):
     assert placed == 33  # var_word 32 * blk - 1 .. 32 * blk + 31 touch the block
 
 
-# md5's group kernel body, from md5.cuh (its own scaffold)
+# md5's group and mesh kernel bodies, from md5.cuh (its own scaffold)
 MD5_GROUP_SOURCE = r"""
 #include "md5.cuh"
 using namespace distpow;
+
+template <int MW, int NB, bool POW2>
+static uint32_t search(const uint32_t* init, const uint32_t* base, const uint32_t* masks,
+                       const Layout& L, uint32_t n) {
+  for (uint32_t f = 0; f < n; ++f) {
+    uint32_t tb, chunk;
+    decode<POW2>(L, f, tb, chunk);
+    if (candidate_hits<MW, NB>(init, base, masks, L, tb, chunk)) return f;
+  }
+  return SENTINEL;
+}
+
+template <int NB, bool POW2>
+static uint32_t shard(int mw, const uint32_t* i, const uint32_t* b, const uint32_t* m,
+                      const Layout& L, const MeshOrigin& o, uint32_t n) {
+  uint32_t f;
+  switch (mw) {
+    case 1: f = search<1, NB, POW2>(i, b, m, L, n); break;
+    case 2: f = search<2, NB, POW2>(i, b, m, L, n); break;
+    case 3: f = search<3, NB, POW2>(i, b, m, L, n); break;
+    default: f = search<4, NB, POW2>(i, b, m, L, n); break;
+  }
+  return mesh_global_index<POW2>(L, o, f);
+}
+
+extern "C" uint32_t host_mesh_shard(int n_blocks, int mask_words, const uint32_t* init,
+                                    const uint32_t* base, const uint32_t* masks, uint32_t chunk0,
+                                    uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word,
+                                    int var_shift, uint32_t chunk_mask, uint32_t n,
+                                    uint32_t origin_chunk0, uint32_t origin_tb_lo,
+                                    uint32_t origin_tbc) {
+  const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
+  const MeshOrigin o{origin_chunk0, origin_tb_lo, origin_tbc};
+  const bool pow2 = log_tbc >= 0;
+  if (n_blocks == 1)
+    return pow2 ? shard<1, true>(mask_words, init, base, masks, L, o, n)
+                : shard<1, false>(mask_words, init, base, masks, L, o, n);
+  return pow2 ? shard<2, true>(mask_words, init, base, masks, L, o, n)
+              : shard<2, false>(mask_words, init, base, masks, L, o, n);
+}
 
 extern "C" uint32_t host_group_slot(int n_blocks, const uint32_t* init, const uint32_t* base,
                                     const uint32_t* masks, uint32_t chunk0, uint32_t tb_lo,
@@ -607,6 +669,8 @@ def md5_group_twin(tmp_path_factory):
     dll = ctypes.CDLL(str(lib))
     dll.host_group_slot.argtypes = GROUP_SLOT_ARGS
     dll.host_group_slot.restype = ctypes.c_uint32
+    dll.host_mesh_shard.argtypes = MESH_SHARD_ARGS
+    dll.host_mesh_shard.restype = ctypes.c_uint32
     return dll
 
 
@@ -649,3 +713,55 @@ def test_group_slot_twin_matches_plain_group_step(twins, md5_group_twin, name, t
                                         log_tbc[s], var_word, var_shift, chunk_mask, batch))
     assert got == want
     assert want[2] == SENTINEL and any(w != SENTINEL for w in want)
+
+
+# (shards, tb_lo, tbc, tail): a thread-byte split into runs of 12, a chunk
+# split of the full run over 3 shards, a chunk split of a run of 3, and a
+# thread-byte split of 64 over 4 shards on a two-block tail
+MESH_TWIN_CASES = [(8, 16, 96, 1), (3, 0, 256, 1), (8, 5, 3, 1), (4, 64, 64, 2)]
+
+
+@pytest.mark.parametrize("name", ["md5"] + sorted(HASHES) + sorted(WIDE))
+@pytest.mark.parametrize("n_dev,tb_lo,tbc,n_blocks", MESH_TWIN_CASES)
+def test_mesh_shard_twin_matches_plain_mesh_step(twins, md5_group_twin, name, n_dev, tb_lo,
+                                                 tbc, n_blocks):
+    """The mesh kernel's per-shard code (the solo search over the shard's
+    slice, then ``mesh_global_index``) over every shard of a launch of 2
+    sub-batches, the least index across shards: equal to the port's plain
+    mesh step (exact), at difficulties with and without a hit; the remap
+    of a non-power-of-two run and of a chunk span included."""
+    from distpow_tpu_torch.parallel.mesh_search import mesh_shards
+    from distpow_tpu_torch.ops.search_step import MeshOrigin, plain_mesh_search, step_operands
+
+    model = get_hash_model(name)
+    twin = md5_group_twin if name == "md5" else twins[name]
+    rng = np.random.default_rng(n_dev * 1000 + tbc + len(name))
+    nonce_len = 5 if n_blocks == 1 else model.block_bytes - 2
+    nonce = rng.integers(0, 256, size=nonce_len, dtype=np.uint8).tobytes()
+    width = 3
+    spec = build_tail_spec(nonce, width, model)
+    assert spec.n_blocks == n_blocks
+    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, model)
+    chunk0 = 256 ** width - 7  # the launch runs past the width's end
+    split = tbc % n_dev == 0
+    shards = mesh_shards(tb_lo, tbc, chunk0, n_dev, max(1, 1536 // (tbc * (1 if split else
+                                                                          n_dev))), 2)
+    origin = MeshOrigin(chunk0, tb_lo, tbc)
+    found = []
+    for d in (2, 3, model.max_difficulty):
+        ops = step_operands(spec, d, model, tb_lo, tbc, "cpu")
+        want = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards, origin,
+                                           model=model))
+        mw = kernel_mask_words(ops.mask_words, model)
+        masks = [0] * (mw - ops.mask_words) + ops.masks.numpy().view(np.uint32).tolist()
+        init, init_p = _arr(spec.init_state)
+        base, base_p = _arr(spec.base_words)
+        m, m_p = _arr(masks)
+        got = min(twin.host_mesh_shard(
+            spec.n_blocks, mw, init_p, base_p, m_p, sh.chunk0, sh.tb_lo, sh.tb_count,
+            sh.tb_count.bit_length() - 1 if sh.tb_count & (sh.tb_count - 1) == 0 else -1,
+            var_word, var_shift, chunk_mask, sh.batch * sh.launch_steps, *origin)
+            for sh in shards)
+        assert got == want, d
+        found.append(want)
+    assert found[-1] == SENTINEL and found[0] != SENTINEL

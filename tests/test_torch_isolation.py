@@ -55,7 +55,10 @@ def test_main_path_imports_no_jax_in_a_fresh_process():
         "import distpow_tpu_torch.parallel.search\n"
         "import distpow_tpu_torch.ops.hash_cuda, distpow_tpu_torch.ops._build\n"
         "import distpow_tpu_torch.sched.engine, distpow_tpu_torch.runtime.watchdog\n"
+        "import distpow_tpu_torch.parallel.mesh_search\n"
         "b.get_backend('cuda', device='cpu').search(b'\\x01', 1, range(256))\n"
+        "b.get_backend('pallas-mesh', device='cpu', mesh_devices=4).search(b'\\x01', 1, "
+        "range(256))\n"
         "bad = sorted(m for m in set(sys.modules) - pre if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distpow_tpu'))\n"
         "assert not bad, bad\n"

@@ -8,7 +8,10 @@ engine (JAX on the CPU, lane ``xla``) and the port's gives the same
 per-slot secrets, ``sched.launches``, per-slot launches and preemptions; a
 group step that raises kills the loop and errors the slots instead of
 demoting to the plain step; without a GPU the scheduler raises unless
-built for the CPU.  Each test counts into its own ``Metrics``.
+built for the CPU; the mesh lane on logical CPU shards gives the torch
+lane's secrets in fewer launches (each covers every shard's span), also
+with a mixed-model cohort and a shard count that is not a power of two.
+Each test counts into its own ``Metrics``.
 """
 
 import threading
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from distpow_tpu_torch.models import puzzle
+from distpow_tpu_torch.parallel.mesh_search import make_mesh
 from distpow_tpu_torch.runtime.metrics import Metrics
 from distpow_tpu_torch.runtime.spans import SPANS
 from distpow_tpu_torch.sched import BatchingScheduler
@@ -258,12 +262,10 @@ def test_failing_group_step_kills_the_loop_instead_of_demoting():
 
     eng = _engine(m, lane="cuda", start=False, fallback=Fallback())
 
-    def broken(gdef, batch):
-        def step(ops):
-            raise RuntimeError("md5_search group kernel launch failed: CUDA error 1")
-        return "cuda", step
+    def broken(lane, gdef, ops, batch):
+        raise RuntimeError("md5_search group kernel launch failed: CUDA error 1")
 
-    eng.planner.resolve = broken
+    eng.planner.launch = broken
     slots = [eng.submit(bytes([0x70, i]), 2, FULL) for i in range(3)]
     eng.start()
     try:
@@ -319,3 +321,36 @@ def test_cancel_from_another_thread_returns_none():
         assert eng.search(b"\x55", 16, FULL, cancel_check=flag.is_set) is None
     finally:
         eng.close()
+
+
+def _serve(eng, requests):
+    """All requests submitted before the loop starts, so they share launches."""
+    slots = [eng.submit(n, d, tbs, hash_model=m) for m, n, d, tbs in requests]
+    eng.start()
+    try:
+        return [s.result(timeout=120) for s in slots]
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("n_shards", [4, 3])
+def test_mesh_lane_on_cpu_shards_gives_the_torch_lanes_secrets(n_shards):
+    """The same requests on the torch lane and on the mesh lane over logical
+    CPU shards: the same secrets (each the oracle's), and the mesh lane's
+    launches cover n_shards x mesh_span() batches a slot, so it needs fewer;
+    width 0 stays on the torch lane."""
+    requests = [("md5", bytes([0x61, i]), 3, FULL) for i in range(4)] + \
+        [("sha1", b"\x62\x01", 3, FULL), ("md5", b"\x63\x02", 3, list(range(64, 128)))]
+    got = {}
+    for lane, mesh in (("torch", None), ("mesh", make_mesh(["cpu"] * n_shards))):
+        m = Metrics()
+        eng = _engine(m, lane=lane, mesh=mesh, max_slots=8, start=False,
+                      extra_models=("sha1",))
+        got[lane] = (_serve(eng, requests), m.get("sched.launches"),
+                     m.get("sched.lane_launches.mesh"), m.get("sched.lane_launches.torch"))
+    secrets, launches, mesh_groups, torch_groups = got["mesh"]
+    assert secrets == got["torch"][0]
+    assert secrets == [puzzle.python_search(n, d, tbs, algo=m) for m, n, d, tbs in requests]
+    assert mesh_groups > 0 and torch_groups > 0  # width 0 on the torch lane
+    assert launches < got["torch"][1]
+    assert got["torch"][2] == 0
