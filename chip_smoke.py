@@ -35,8 +35,8 @@ machine has more cards): ``mesh_parity`` holds it against the plain mesh
 step and against the solo kernel on the same launch (1-8 shards, both
 regimes, widths 0-4, both tails); ``mesh_full_parity`` holds it against
 the solo kernel at the worker's full launch on 4 shards, first hits deep
-in a later shard, and times that launch beside the solo kernel's and the
-plain mesh step's;
+in a later shard, and against the plain mesh step on the deepest of them,
+and times that launch beside the solo kernel's and the plain mesh step's;
 ``mine_mesh`` mines through ``get_backend("pallas-mesh")`` and
 ``search_mesh`` on 4 shards (every model, md5 also on a 4-way split), the
 mesh launch counts set to 0 just before and read just after; ``rate_mesh``
@@ -1721,13 +1721,12 @@ def main() -> int:
             label, spec, d, mesh, shards, origin, n = max(
                 (c for c in cases if c[0].startswith(prefix)),
                 key=lambda c: (want[c[0]] != SENTINEL, want[c[0]] % SENTINEL))
-            if True:
-                ops = step_operands(spec, d, model, origin.tb_lo, origin.tbc, dev)
-                v = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards, origin,
-                                                model=model))
-                direct.append({"case": label, "plain_mesh_search": v, "judge": want[label]})
-                if v != want[label]:
-                    mismatches.append(direct[-1])
+            ops = step_operands(spec, d, model, origin.tb_lo, origin.tbc, dev)
+            v = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards, origin,
+                                            model=model))
+            direct.append({"case": label, "plain_mesh_search": v, "judge": want[label]})
+            if v != want[label]:
+                mismatches.append(direct[-1])
         if mismatches:
             raise AssertionError(f"{len(mismatches)} of {len(cases)} cases differ: "
                                  f"{mismatches[:10]}")
@@ -1751,8 +1750,8 @@ def main() -> int:
 
     def mesh_timed(model, mesh):
         """The worker's main-path launch on the mesh at difficulty 16 (no
-        hit): the mesh kernels, the solo kernel and the plain mesh step on
-        the same candidates, and the bound."""
+        hit): the mesh kernels and the solo kernel on the same candidates,
+        timed alike (the lower of two readings each), and the bound."""
         nonce = bytes([1, 2, 3, 4])
         step, n = mesh_main_step(model, mesh, nonce, RATE_DIFFICULTY, 256)
         spec = build_tail_spec(nonce, 4, model)
@@ -1761,8 +1760,10 @@ def main() -> int:
                  "solo": lambda: hash_search(model, ops, spec.tb_loc, spec.chunk_locs,
                                              MAIN_CHUNK0, n, 1, device=dev)}
         first = {k: sync_value(f()) for k, f in forms.items()}
+        if first["mesh"] != first["solo"]:
+            raise AssertionError(f"timed launch: {first}")
         ms = {}
-        for name in ("mesh", "solo", "mesh"):
+        for name in ("mesh", "solo", "mesh", "solo"):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(MESH_RATE_LAUNCHES):
@@ -1770,16 +1771,6 @@ def main() -> int:
             end.record()
             end.synchronize()
             ms.setdefault(name, []).append(start.elapsed_time(end) / MESH_RATE_LAUNCHES)
-        shards = mesh_search.mesh_shards(0, 256, MAIN_CHUNK0, mesh.size, MAIN_BATCH // 256,
-                                         n // MAIN_BATCH)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards,
-                                            MeshOrigin(MAIN_CHUNK0, 0, 256), model=model))
-        end.record()
-        end.synchronize()
-        if not first["mesh"] == first["solo"] == plain:
-            raise AssertionError(f"timed launch: {first}, plain {plain}")
         mw = mask_words_for(RATE_DIFFICULTY, model)
         var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
         needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
@@ -1788,9 +1779,10 @@ def main() -> int:
         bound_ms = n * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s) * 1e3
         loop = mesh_issued[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks, True)]
         return {"shards": mesh.size, "candidates": n, "difficulty": RATE_DIFFICULTY,
-                "launches_timed": MESH_RATE_LAUNCHES, "ms": min(ms["mesh"]), "ms_runs": ms["mesh"],
-                "solo_ms": ms["solo"][0], "mesh_over_solo": min(ms["mesh"]) / ms["solo"][0],
-                "plain_ms": start.elapsed_time(end), "result": plain,
+                "launches_timed": MESH_RATE_LAUNCHES, "result": first["mesh"],
+                "ms": min(ms["mesh"]), "ms_runs": ms["mesh"],
+                "solo_ms": min(ms["solo"]), "solo_ms_runs": ms["solo"],
+                "mesh_over_solo": min(ms["mesh"]) / min(ms["solo"]),
                 "needed_ops_per_hash": needed, "bound_ms": bound_ms,
                 "sass_instructions_per_hash": sum(loop.values()),
                 "card": dev_info["nvidia_smi"]}
@@ -1836,9 +1828,25 @@ def main() -> int:
                     raise AssertionError(f"tbc {tbc}, difficulty {d}: mesh {got}, solo {want}")
         if cases[0]["shard"] < MESH_SHARDS // 2:
             raise AssertionError(f"the deep hit lies in shard {cases[0]['shard']}")
+        # the plain mesh step on the deep-hit case (full run, difficulty 7),
+        # timed: the mesh kernels, the solo kernel and it agree on the hit
+        spec = build_tail_spec(nonce, 4, model)
+        ops = step_operands(spec, 7, model, 0, 256, dev)
+        shards = mesh_search.mesh_shards(0, 256, MAIN_CHUNK0, mesh.size, MAIN_BATCH // 256, steps)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = u32_value(plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards,
+                                            MeshOrigin(MAIN_CHUNK0, 0, 256), model=model))
+        end.record()
+        end.synchronize()
+        if not cases[0]["mesh"] == cases[0]["solo"] == plain != SENTINEL:
+            raise AssertionError(f"deep-hit case: mesh {cases[0]['mesh']}, solo "
+                                 f"{cases[0]['solo']}, plain {plain}")
         return {"nonce": nonce.hex(), "shards": MESH_SHARDS, "candidates": n,
                 "launch_steps": steps, "nonces_tried": i + 1, "cases": cases, "mismatches": 0,
                 "max_abs_err": max_err, "tolerance": "exact (integer first-hit index)",
+                "plain": {"tbc": 256, "difficulty": 7, "result": plain,
+                          "ms": start.elapsed_time(end)},
                 "timed": mesh_timed(model, mesh)}
 
     def mine_mesh():
@@ -2073,13 +2081,14 @@ def main() -> int:
         phases = [f"mesh_parity{sfx}", f"mesh_full_parity{sfx}", "mine_mesh"]
         if not all(p in smoke.info for p in phases):
             continue
-        kernel, r = KERNELS[model_name], smoke.info[f"mesh_full_parity{sfx}"]["timed"]
+        full = smoke.info[f"mesh_full_parity{sfx}"]
+        kernel, r = KERNELS[model_name], full["timed"]
         kernels.append({
             "name": f"{kernel}_mesh", "route": "cuda",
             "source": f"distpow_tpu_torch/csrc/{kernel}.cu", "replaces": REPLACES_MESH,
             "launches": smoke.info["mine_mesh"]["mesh_kernel_launches"][kernel],
             "max_abs_err": max(smoke.info[p]["max_abs_err"] for p in phases[:2]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": full["plain"]["ms"],
             "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
     if kernels:
         emit({"kernels": kernels})

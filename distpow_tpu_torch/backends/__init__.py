@@ -8,7 +8,8 @@
 * ``cuda-mesh`` — the kernels' mesh form over a mesh of devices
                (``CudaMeshBackend``, ``parallel/mesh_search.py``)
 * ``auto``   — ``cuda-mesh`` where more than one GPU is visible (as the
-               reference's ``auto`` picks ``pallas-mesh``), else ``cuda``
+               reference's ``auto`` picks ``pallas-mesh``) and ``device``
+               names no card, else ``cuda``
 
 ``get_backend`` also takes the reference's ``Backend`` names: ``pallas``
 and ``jax`` are ``cuda`` (on the card the CUDA kernel is the device step;
@@ -80,12 +81,14 @@ _NOT_PORTED = {
 
 def _wants_mesh(name: str, kwargs: dict) -> bool:
     """A ``cuda`` name served by the mesh: ``mesh_devices`` above 1, or
-    ``auto`` on a host with more than one GPU and no count asked for."""
+    ``auto`` on a host with more than one GPU, no count asked for and no
+    card named (``device="cuda:1"`` pins that one card)."""
     n = int(kwargs.get("mesh_devices") or 0)
     if n > 1:
         return True
-    on_card = torch.device(kwargs.get("device", "cuda")).type == "cuda"
-    return name == "auto" and n == 0 and on_card and torch.cuda.device_count() > 1
+    dev = torch.device(kwargs.get("device", "cuda"))
+    return (name == "auto" and n == 0 and dev.type == "cuda" and dev.index is None
+            and torch.cuda.device_count() > 1)
 
 
 def get_backend(name: str = "auto", **kwargs):

@@ -30,7 +30,7 @@ from ..ops.hash_cuda import hash_search, kernel_name
 from ..ops.operands import Device, u32_value
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
-from ..parallel.mesh_search import _cuda_mesh_step_factory, make_mesh
+from ..parallel.mesh_search import _cuda_mesh_step_factory, gpu_devices, make_mesh
 from ..parallel.partition import contiguous_bounds
 from ..parallel.search import (effective_batch, launch_steps_for, scaled_launch_candidates,
                                search)
@@ -221,11 +221,14 @@ class CudaMeshBackend(CudaBackend):
     counterpart of the reference's ``PallasMeshBackend``.
 
     ``devices`` names the mesh's devices in order (``["cuda:0"] * 4`` is
-    four logical shards on one card); otherwise ``mesh_devices`` counts
-    them: on a card, 0 is every visible GPU and N the first N (fewer visible
-    raises); with ``device="cpu"``, N logical shards of the CPU (0: one),
-    on which the kernels' wrapper runs the plain version.  The kernel takes
-    every shard count, run and tail, so nothing falls back."""
+    four logical shards on one card); a ``device`` that names a card must
+    be the first of them.  Otherwise ``mesh_devices`` counts them: on a
+    card, the mesh starts at ``device`` (a bare ``cuda``: the current GPU)
+    and goes on with the other visible GPUs in order, 0 taking every one
+    and N the first N (fewer visible raises); with ``device="cpu"``, N
+    logical shards of the CPU (0: one), on which the kernels' wrapper runs
+    the plain version.  The kernel takes every shard count, run and tail,
+    so nothing falls back."""
 
     name = "cuda-mesh"
     max_mesh_devices = None
@@ -233,9 +236,7 @@ class CudaMeshBackend(CudaBackend):
     def __init__(self, hash_model: str = "md5", devices: Optional[Sequence[Device]] = None,
                  **kwargs):
         super().__init__(hash_model, **kwargs)
-        if devices is None:
-            devices = _mesh_device_list(self.device, self.mesh_devices)
-        self.mesh = make_mesh(devices)
+        self.mesh = make_mesh(_mesh_device_list(self.device, self.mesh_devices, devices))
         self.device = self.mesh.devices[0]
 
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
@@ -250,13 +251,18 @@ class CudaMeshBackend(CudaBackend):
         return (256, n_dev // 2) if n_dev > 1 else (256,)
 
 
-def _mesh_device_list(device: torch.device, mesh_devices: int) -> list:
-    """The devices of a mesh of ``mesh_devices`` (0: every visible GPU; on
+def _mesh_device_list(device: torch.device, mesh_devices: int,
+                      devices: Optional[Sequence[Device]] = None) -> list:
+    """The devices of the backend's mesh: ``devices`` as given, whose first
+    is of ``device``'s type and is ``device`` where that names one; else
+    ``mesh_devices`` of them from ``device`` on (0: every visible GPU; on
     the CPU, one shard)."""
+    if devices is not None:
+        first = torch.device(devices[0]) if len(devices) else device
+        if first.type != device.type or (device.index is not None and first != device):
+            raise ValueError(f"the mesh starts at {first}, but device={device}: name the "
+                             f"backend's device first")
+        return list(devices)
     if device.type == "cpu":
         return [device] * max(1, mesh_devices)
-    visible = torch.cuda.device_count()
-    n = mesh_devices or visible
-    if n > visible:
-        raise ValueError(f"mesh_devices={n}, but {visible} GPU(s) are visible")
-    return [torch.device("cuda", i) for i in range(n)]
+    return gpu_devices(device, mesh_devices)

@@ -51,8 +51,7 @@ from ..models.registry import HashModel, get_hash_model
 from ..ops.hash_cuda import BLOCK_THREADS, hash_group_search, hash_mesh_search, kernel_name
 from ..ops.operands import MASK32, Device, GroupOperands, u32_bits, u32_min, widen
 from ..ops.packing import build_tail_spec
-from ..ops.search_step import (MeshOrigin, MeshShard, _check_launch, plain_mesh_search,
-                               step_operands)
+from ..ops.search_step import MeshOrigin, MeshShard, _check_launch, step_operands
 from ..runtime.metrics import REGISTRY
 from .partition import contiguous_bounds
 from .search import SearchResult, StepFactory, scaled_launch_candidates, search
@@ -123,6 +122,18 @@ class Mesh:
             cells.append(cell)
         with torch.cuda.device(first):
             return u32_min(torch.stack([c.to(first, non_blocking=True) for c in cells]))
+
+
+def gpu_devices(first: Device = "cuda", n: int = 0) -> List[torch.device]:
+    """The GPUs of a mesh that starts at ``first`` (a bare ``cuda``: the
+    current GPU), then the other visible GPUs in order: ``n`` of them (0:
+    every visible GPU); more than are visible raises."""
+    first = explicit_device(first)
+    visible = torch.cuda.device_count()
+    n = n or visible
+    if n > visible:
+        raise ValueError(f"a mesh of {n} GPUs from {first}, but {visible} GPU(s) are visible")
+    return ([first] + [torch.device("cuda", i) for i in range(visible) if i != first.index])[:n]
 
 
 def make_mesh(devices: Optional[Sequence[Device]] = None, axis: str = AXIS) -> Mesh:
@@ -199,40 +210,6 @@ def _global_chunks(chunks_local: int, tbc: int, n_dev: int, launch_steps: int) -
     """Chunks one launch covers (the driver's cursor advance)."""
     span = chunks_local if tb_split_regime(tbc, n_dev) else chunks_local * n_dev
     return span * launch_steps
-
-
-def _mesh_step_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
-                       model: HashModel, mesh: Mesh) -> StepFactory:
-    """Step factory over the plain version (``plain_mesh_search``, every
-    shard on the mesh's first device): the counterpart of the reference's
-    XLA mesh factory, for the CPU.  ``launch_steps`` as the driver asks, on
-    every mesh and partition."""
-    n_dev = mesh.size
-    dev = mesh.devices[0]
-
-    @functools.lru_cache(maxsize=32)
-    def bind(vw: int, extra: bytes, chunks_local: int, launch_steps: int):
-        spec = build_tail_spec(bytes(nonce), vw, model, extra)
-        ops = step_operands(spec, difficulty, model, tb_lo, tbc, dev)
-
-        def step(chunk0: int) -> torch.Tensor:
-            shards = (mesh_shards(tb_lo, tbc, chunk0, n_dev, chunks_local, launch_steps)
-                      if vw else _width0_probe(tb_lo, tbc))
-            return plain_mesh_search(ops, spec.tb_loc, spec.chunk_locs, shards,
-                                     MeshOrigin(chunk0, tb_lo, tbc), model=model)
-
-        return step
-
-    def factory(vw: int, extra: bytes, target_chunks: int, launch_steps: int = 1):
-        if vw == 0:
-            return bind(0, bytes(extra), 1, 1), 1
-        chunks_local = _chunks_local(target_chunks, tbc, n_dev)
-        k = max(1, launch_steps)
-        _check_launch(_global_chunks(chunks_local, tbc, n_dev, 1) * tbc, k)
-        return bind(vw, bytes(extra), chunks_local, k), _global_chunks(chunks_local, tbc,
-                                                                        n_dev, k)
-
-    return factory
 
 
 def _cuda_mesh_step_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,

@@ -11,15 +11,17 @@ layout) groups.  Each group resolves per (group, batch) to a lane:
 * ``mesh`` — the group kernel on every shard of a mesh
   (``parallel/mesh_search.py`` ``mesh_group_search``, the counterpart of
   the reference's ``mesh_slot_search_step``): a launch covers ``n_shards x
-  mesh_span() x batch`` candidates per slot.  Eligible with more than one
-  shard, or when asked for (``lane="mesh"``), and not for width 0.
+  mesh_span() x batch`` candidates per slot.  Served only when asked for
+  (``lane="mesh"``), and not for width 0.
 * ``torch`` — the plain step (``ops/search_step.py``
   ``mixed_slot_search_step``, one for all of a launch's torch groups): the
   lane on the CPU, and on a card only when asked for (``lane="torch"``).
 
-``auto`` ranks ``cuda`` before ``mesh`` on a card, as the reference ranks
-``pallas`` before ``mesh``, and takes the first.  The reference's lane
-names map: ``pallas`` is ``cuda``, ``xla`` is ``torch``.  Where the
+``auto`` takes ``cuda`` on a card and ``torch`` on the CPU; it never picks
+``mesh``, also with more than one GPU (the reference ranks ``mesh`` after
+``pallas``, which takes every group, so its ``auto`` never reaches it
+either).  The reference's lane names map: ``pallas`` is ``cuda``, ``xla``
+is ``torch``.  Where the
 reference demotes a lane whose build or launch fails and serves the group
 on ``xla``, here the error raises: the engine's loop-death path finishes
 the slots with it (``sched.loop_failures``), so no failure hides the kernel
@@ -39,7 +41,8 @@ from ..models.registry import get_hash_model
 from ..ops.hash_cuda import hash_group_search, kernel_layout, kernel_name
 from ..ops.operands import Device, GroupOperands
 from ..ops.search_step import _check_launch
-from ..parallel.mesh_search import Mesh, explicit_device, make_mesh, mesh_group_search
+from ..parallel.mesh_search import (Mesh, explicit_device, gpu_devices, make_mesh,
+                                    mesh_group_search)
 
 # the names a caller may give (WorkerConfig.SchedLane), the reference's included
 LANE_NAMES = {"auto": "auto", "cuda": "cuda", "pallas": "cuda", "mesh": "mesh",
@@ -77,7 +80,7 @@ class LaneCaps:
     without a card."""
 
     device_type: str  # the scheduler device's type: "cuda" or "cpu"
-    n_devices: int = 1  # the shards of the mesh lane's mesh
+    n_devices: int = 1  # the shards of the mesh lane's mesh (its 2^31 bound)
 
 
 def detect_caps(device: Device, mesh: Optional[Mesh] = None) -> LaneCaps:
@@ -107,8 +110,8 @@ def check_group(gdef: tuple, batch: int) -> None:
 
 class LanePlanner:
     """Per-(group, batch) lane resolution.  ``override`` pins the lane
-    (``auto`` ranks by the device: ``cuda`` then ``mesh`` on a card,
-    ``torch`` on the CPU).  ``mesh`` is the mesh lane's (default: every
+    (``auto`` takes the device's: ``cuda`` on a card, ``torch`` on the
+    CPU).  ``mesh`` is the mesh lane's (default: every
     visible GPU from the scheduler's device on; on the CPU one shard); its
     first device is the scheduler's.  ``caps`` default to the device's and
     the mesh's own."""
@@ -134,9 +137,7 @@ class LanePlanner:
     def mesh(self) -> Mesh:
         if self._mesh is None:
             first = explicit_device(self.device)
-            others = [torch.device("cuda", i) for i in range(torch.cuda.device_count())
-                      if first.type == "cuda" and i != first.index]
-            self._mesh = make_mesh([first] + others)
+            self._mesh = make_mesh(gpu_devices(first) if first.type == "cuda" else [first])
         return self._mesh
 
     def _eligible(self, lane: str, gdef: tuple, batch: int) -> bool:
@@ -144,17 +145,14 @@ class LanePlanner:
             return True
         # width 0 (no chunk bytes) is at most one run of thread bytes, far
         # below one batch: nothing to spread
-        return bool(gdef[3]) and (self.override == "mesh" or self.caps.n_devices > 1) and \
-            batch * mesh_span() * self.caps.n_devices < 1 << 31
+        return bool(gdef[3]) and batch * mesh_span() * self.caps.n_devices < 1 << 31
 
     def rank(self, gdef: tuple, batch: int) -> Tuple[str, ...]:
         """The eligible lanes for a group, first first; the first serves it."""
-        if self.override == "auto":
-            ranked = ("cuda", "mesh") if self.caps.device_type == "cuda" else ("torch",)
-        elif self.override == "mesh":
+        if self.override == "mesh":
             ranked = ("mesh", self.default_lane)
         else:
-            ranked = (self.override,)
+            ranked = (self.default_lane,)
         return tuple(lane for lane in ranked if self._eligible(lane, gdef, batch))
 
     def resolve(self, gdef: tuple, batch: int) -> Tuple[str, int]:

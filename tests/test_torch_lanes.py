@@ -1,9 +1,9 @@
 """The port's lane planner (``distpow_tpu_torch/sched/lanes.py``) with
 injected capabilities, so the matrix runs without a card: on a CUDA device
 the ``cuda`` lane (the group kernel) takes every group, width-0 and
-two-block tails included, ranked before ``mesh`` where there is more than
-one shard; on the CPU the ``torch`` lane; ``mesh`` when asked for, except
-for width 0; the reference's lane names map onto the port's; unknown names
+two-block tails included, also where there is more than one shard
+(``auto`` never picks ``mesh``); on the CPU the ``torch`` lane; ``mesh``
+when asked for, except for width 0; the reference's lane names map onto the port's; unknown names
 raise; the group checks refuse what the kernel cannot take, and nothing
 demotes."""
 
@@ -38,7 +38,7 @@ def _groups():
 
 @pytest.mark.parametrize("caps,override,want,want_w0", [
     (LaneCaps("cuda", 1), "auto", ("cuda",), ("cuda",)),
-    (LaneCaps("cuda", 4), "auto", ("cuda", "mesh"), ("cuda",)),
+    (LaneCaps("cuda", 4), "auto", ("cuda",), ("cuda",)),
     (LaneCaps("cpu", 1), "auto", ("torch",), ("torch",)),
     (LaneCaps("cpu", 4), "auto", ("torch",), ("torch",)),
     (LaneCaps("cuda", 1), "torch", ("torch",), ("torch",)),
@@ -59,7 +59,8 @@ def test_rank_matrix(caps, override, want, want_w0):
 def test_cuda_device_resolves_every_group_to_the_group_kernel():
     """Width 0 and two-block tails included (the reference keeps width 0 on
     xla and rejects two-block tails from its pallas lane), with more than
-    one shard too (cuda ranks first); a launch covers the engine's batch."""
+    one shard too (auto never picks the mesh); a launch covers the engine's
+    batch."""
     for caps in (LaneCaps("cuda", 1), LaneCaps("cuda", 4)):
         planner = LanePlanner(caps=caps, device="cpu")
         for gdef in _groups():

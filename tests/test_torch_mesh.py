@@ -195,10 +195,43 @@ def test_mesh_backend_names_auto_and_device_counts(monkeypatch):
     assert not backends._wants_mesh("auto", {"mesh_devices": 1})
     assert not backends._wants_mesh("cuda", {})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     with pytest.raises(ValueError, match="2 GPU"):
         cuda_backend._mesh_device_list(torch.device("cuda"), 4)
     assert [str(d) for d in cuda_backend._mesh_device_list(torch.device("cuda"), 0)] == \
         ["cuda:0", "cuda:1"]
+
+
+def test_mesh_backend_starts_at_the_callers_card(monkeypatch):
+    """On a host of 4 GPUs: a card the caller names is the mesh's first
+    device, the other visible GPUs follow in order; ``auto`` with a named
+    card stays on that card; a ``devices`` list that starts elsewhere
+    raises instead of moving the worker."""
+    from distpow_tpu_torch import backends
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+    def names(device, n, devices=None):
+        return [str(d) for d in cuda_backend._mesh_device_list(torch.device(device), n, devices)]
+
+    assert names("cuda", 2) == ["cuda:0", "cuda:1"]
+    assert names("cuda:2", 2) == ["cuda:2", "cuda:0"]
+    assert names("cuda:1", 0) == ["cuda:1", "cuda:0", "cuda:2", "cuda:3"]
+    with pytest.raises(ValueError, match="4 GPU"):
+        names("cuda:3", 5)
+    assert names("cuda:1", 0, ["cuda:1"] * 4) == ["cuda:1"] * 4
+    assert names("cuda", 0, ["cuda:3", "cuda:2"]) == ["cuda:3", "cuda:2"]
+    for device, devices in (("cuda:1", ["cuda:0", "cuda:1"]), ("cpu", ["cuda:0"]),
+                            ("cuda", ["cpu"])):
+        with pytest.raises(ValueError, match="the mesh starts at"):
+            names(device, 0, devices)
+    assert not backends._wants_mesh("auto", {"device": "cuda:1"})
+    assert not backends._wants_mesh("auto", {"device": "cuda:0"})
+    assert backends._wants_mesh("auto", {"device": "cuda"})
+    be = get_backend("auto", hash_model="md5", device="cuda:1")
+    assert type(be) is CudaBackend and be.device == torch.device("cuda", 1)
 
 
 def test_mesh_backend_without_a_gpu_raises():
