@@ -5,9 +5,11 @@ ripemd160, sha512, sha384, sha3_256, blake2b_256; and the batching
 scheduler, through each model's group kernel.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``distpow_tpu_torch/csrc`` (one nvcc per source, all
-started together), and for each model holds its kernel against the plain
-PyTorch version on the card (``kernel_parity``, and ``full_parity`` at the
+CUDA kernels from ``distpow_tpu_torch/csrc`` (one nvcc per library, md5's
+source once per var_word, all started together), and for each model holds
+its kernel against the plain PyTorch version on the card
+(``kernel_parity``, md5's at every tail layout it is built for, and
+``full_parity`` at the
 worker's full launch), mines through ``get_backend("auto", hash_model=...)``
 at the worker's full size (batch 2^20, the model's cost-scaled launch)
 with the launch counts set to 0 just before and read just after
@@ -176,7 +178,8 @@ MIXED_MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha3_256", "bl
 
 # sched_cancel: run in a fresh process with a fresh build directory
 # (DISTPOW_TORCH_BUILD_DIR): CudaBackend.warmup builds and loads md5's
-# library and launches each layout once, then a difficulty-16 request is
+# library for the layouts it serves (4-byte nonces: var_word 1) and
+# launches each layout once, then a difficulty-16 request is
 # cancelled 0.5 s after it starts; prints one JSON line.
 WARM_CANCEL = r"""
 import json, os, sys, time
@@ -259,63 +262,101 @@ class Smoke:
         emit({"phase": name, "ok": True, "wall_s": time.monotonic() - t0, **out})
 
 
-# A kernel specialization's key in its mangled name: md5_search_kernel<MW, NB, POW2>
-# or (resident_)hash_search_kernel<Hash, MW, NB, POW2>; MW has two digits for
+# A kernel specialization's key in its mangled name:
+# (resident_)hash_search_kernel<Hash, MW, NB, POW2>; MW has two digits for
 # the full digests of sha512 (16) and sha384 (12)
 KERNEL_KEY = r"_search_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
 
 
-# A group kernel's key in its mangled name: md5_group_search_kernel<NB> or
+# A group kernel's key in its mangled name:
 # (resident_)hash_group_search_kernel<Hash, NB>
 GROUP_KEY = r"group_search_kernelI(?:N\w*?E)?Li(\d)EE"
 
-# A mesh kernel's key: md5_mesh_kernel<MW, NB, POW2> or
-# (resident_)hash_mesh_kernel<Hash, MW, NB, POW2>
+# A mesh kernel's key: (resident_)hash_mesh_kernel<Hash, MW, NB, POW2>
 MESH_KEY = r"_mesh_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
+
+# md5's kernels are built per tail layout: the hash Md5<VW> (or a round
+# variant's Md5As<VW, ...>) carries the run's first message word, which
+# ends each of its keys: (MW, NB, POW2, VW), the group's (NB, VW)
+VAR_WORD_KEY = r"\dMd5\w*?ILi(\d+)E"
+KEYED_MODELS = frozenset({"md5"})
+# the var_word of the main path's launch (nonce 01020304, width 4)
+MAIN_VAR_WORD = 1
+
+PTXAS_FUNCTION = (r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
+                  r"spill stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
+
+
+def name_key(name: str, key: str):
+    """A kernel's specialization from its mangled name, or None if the name
+    does not match ``key``: the ints, bools as such, and the var_word of a
+    kernel built for one."""
+    m = re.search(key, name)
+    if not m:
+        return None
+    parts = tuple(int(g) for g in m.groups())
+    if len(parts) == 3:
+        parts = (parts[0], parts[1], parts[2] == 1)
+    vw = re.search(VAR_WORD_KEY, name)
+    return parts + (int(vw.group(1)),) if vw else parts
+
+
+def timed_key(model_name: str, mw: int = 2, n_blocks: int = 1, var_word: int = MAIN_VAR_WORD):
+    """The key of a model's solo (or mesh) kernel at mask words ``mw`` and
+    a power-of-two run of an ``n_blocks``-block tail at ``var_word``: the
+    timed one by default (mask words 2, one block, the main path's run)."""
+    key = (mw, n_blocks, True)
+    return key + (var_word,) if model_name in KEYED_MODELS else key
+
+
+def group_key(model_name: str, n_blocks: int, var_word: int = MAIN_VAR_WORD):
+    """The key of a model's group kernel for that tail."""
+    return (n_blocks, var_word) if model_name in KEYED_MODELS else n_blocks
 
 
 def parse_group_ptxas(log: str):
-    """Per group kernel specialization ``n_blocks``: registers and spill
-    bytes, from nvcc's ``-Xptxas -v`` output."""
+    """Per group kernel specialization ``n_blocks`` (``(n_blocks,
+    var_word)`` for md5's): registers and spill bytes, from nvcc's ``-Xptxas
+    -v`` output."""
     out = {}
-    pattern = (GROUP_KEY + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-               r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
-    for nb, _, st, ld, regs in re.findall(pattern, log):
-        out[int(nb)] = {"registers": int(regs), "spill_bytes": int(st) + int(ld)}
+    for name, _, st, ld, regs in re.findall(PTXAS_FUNCTION, log):
+        key = name_key(name, GROUP_KEY)
+        if key is not None:
+            out[key[0] if len(key) == 1 else key] = {"registers": int(regs),
+                                                     "spill_bytes": int(st) + int(ld)}
     return out
 
 
 def group_sass_loops(sass: str, path: bool = False):
-    """Per group kernel specialization ``n_blocks``: its loop's opcodes, as
-    ``spec_sass_loops`` gives the solo kernels'."""
+    """Per group kernel specialization (``parse_group_ptxas``'s keys): its
+    loop's opcodes, as ``spec_sass_loops`` gives the solo kernels'."""
     return by_group(sass_loops(sass, path))
 
 
 def by_group(loops):
-    """``sass_loops``'s result, the group kernels' by ``n_blocks``."""
+    """``sass_loops``'s result, the group kernels' by specialization."""
     out = {}
     for name, body in loops.items():
-        m = re.search(GROUP_KEY, name)
-        if m:
-            out[int(m.group(1))] = body
+        key = name_key(name, GROUP_KEY)
+        if key is not None:
+            out[key[0] if len(key) == 1 else key] = body
     return out
 
 
 def spec_label(key) -> str:
-    mw, nb, pow2 = key
-    return f"mw{mw}_nb{nb}_{'pow2' if pow2 else 'div'}"
+    mw, nb, pow2, *vw = key
+    return f"mw{mw}_nb{nb}_{'pow2' if pow2 else 'div'}" + "".join(f"_vw{v}" for v in vw)
 
 
 def parse_ptxas(log: str, key: str = KERNEL_KEY):
-    """Per specialization ``(mask_words, n_blocks, pow2)``: registers and
-    spill bytes, from nvcc's ``-Xptxas -v`` output; ``key`` is the solo
-    kernels' name pattern, or ``MESH_KEY``."""
+    """Per specialization ``(mask_words, n_blocks, pow2)`` (and the var_word
+    of md5's): registers and spill bytes, from nvcc's ``-Xptxas -v``
+    output; ``key`` is the solo kernels' name pattern, or ``MESH_KEY``."""
     out = {}
-    pattern = (key + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-               r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers")
-    for mw, nb, p2, _, st, ld, regs in re.findall(pattern, log):
-        out[(int(mw), int(nb), p2 == "1")] = {"registers": int(regs),
-                                              "spill_bytes": int(st) + int(ld)}
+    for name, _, st, ld, regs in re.findall(PTXAS_FUNCTION, log):
+        spec = name_key(name, key)
+        if spec is not None:
+            out[spec] = {"registers": int(regs), "spill_bytes": int(st) + int(ld)}
     return out
 
 
@@ -378,7 +419,8 @@ def sass_loops(sass: str, path: bool = False):
 
 
 def spec_sass_loops(sass: str, path: bool = False, key: str = KERNEL_KEY):
-    """Per kernel specialization ``(mask_words, n_blocks, pow2)``: the
+    """Per kernel specialization ``(mask_words, n_blocks, pow2)`` (and the
+    var_word of md5's): the
     opcodes of its grid-stride loop body (one candidate; the loop is not
     unrolled), each with its modifiers, as a Counter; with ``path``, those
     one candidate issues (``sass_loops``).  ``key``: the solo kernels, or
@@ -388,12 +430,12 @@ def spec_sass_loops(sass: str, path: bool = False, key: str = KERNEL_KEY):
 
 def by_spec(loops, key: str = KERNEL_KEY):
     """``sass_loops``'s result, the kernels of name pattern ``key`` by
-    specialization ``(mask_words, n_blocks, pow2)``."""
+    specialization ``(mask_words, n_blocks, pow2)`` (and var_word)."""
     out = {}
     for name, body in loops.items():
-        m = re.search(key, name)
-        if m:
-            out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = body
+        spec = name_key(name, key)
+        if spec is not None:
+            out[spec] = body
     return out
 
 
@@ -784,8 +826,9 @@ def main() -> int:
     from distpow_tpu_torch.models import puzzle
     from distpow_tpu_torch.models.registry import get_hash_model
     from distpow_tpu_torch.ops import _build
-    from distpow_tpu_torch.ops.hash_cuda import (BLOCK_THREADS, KERNELS, LAUNCHES, default_grid,
-                                                 hash_search, kernel_mask_words)
+    from distpow_tpu_torch.ops.hash_cuda import (BLOCK_THREADS, KERNELS, KEYED_LAYOUTS, LAUNCHES,
+                                                 default_grid, hash_search, kernel_layout,
+                                                 kernel_mask_words)
     from distpow_tpu_torch.ops.operands import make_operands, u32_value
     from distpow_tpu_torch.ops.packing import build_tail_spec
     from distpow_tpu_torch.ops.difficulty import nibble_masks
@@ -802,6 +845,7 @@ def main() -> int:
     from distpow_tpu_torch.parallel.search import launch_steps_for
     from distpow_tpu_torch.runtime.metrics import REGISTRY
 
+    MODEL_OF = {KERNELS[m]: m for m in MODELS}
     os.makedirs(OUT_DIR, exist_ok=True)
     smoke = Smoke()
     dev = torch.device("cuda", 0)
@@ -838,25 +882,41 @@ def main() -> int:
     mesh_issued = {}
 
     def build():
+        # every library: the eight sources, and md5's once per var_word
         paths = _build.build()
         # copied now: load_library below calls build() again, which resets them
-        build_s, build_log = _build.last_build_s, dict(_build.last_build_log)
-        log = "\n".join(f"== {k}\n{v}" for k, v in build_log.items())
+        build_s, library_log = _build.last_build_s, dict(_build.last_build_log)
+        log = "\n".join(f"== {k}\n{v}" for k, v in library_log.items())
         with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as fh:
             fh.write(log)
+        # per kernel, its libraries' logs and listings together
+        build_log = collections.defaultdict(str)
+        for lib, text in library_log.items():
+            build_log[lib.partition(".vw")[0]] += text
         ptxas, loop_counts, group_info, mesh_info = {}, {}, {}, {}
-        # the nine listings parsed at once, one process each
-        kernels = [KERNELS[m] for m in MODELS]
+        # the listings parsed at once, one process a library
+        libs = sorted(paths)
         with concurrent.futures.ProcessPoolExecutor(
-                len(kernels), mp_context=multiprocessing.get_context("spawn")) as pool:
-            parsed = dict(zip(kernels, pool.map(
-                listing_loops, [_build.find_cuda_tool("cuobjdump")] * len(kernels),
-                [paths[k] for k in kernels],
-                [os.path.join(OUT_DIR, f"{k}.sass.gz") for k in kernels])))
+                min(len(libs), os.cpu_count() or 8),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            by_library = dict(zip(libs, pool.map(
+                listing_loops, [_build.find_cuda_tool("cuobjdump")] * len(libs),
+                [paths[k] for k in libs],
+                [os.path.join(OUT_DIR, f"{k}.sass.gz") for k in libs])))
+        parsed = {}
+        for lib, (whole, path) in by_library.items():
+            kernel = parsed.setdefault(lib.partition(".vw")[0], ({}, {}))
+            kernel[0].update(whole)
+            kernel[1].update(path)
         for model_name in MODELS:
             kernel = KERNELS[model_name]
-            # md5: mask words 1-4; the others 1-4 and the full digest
-            expect = 16 if model_name == "md5" else 20
+            # mask words 1-4 and the full digest (md5's is 4), both runs; md5
+            # at every tail layout it is built for, the others per tail length
+            model = get_hash_model(model_name)
+            mws = sorted({1, 2, 3, 4, model.digest_words})
+            tails = [(nb, vw) for nb, vws in KEYED_LAYOUTS.get(model_name, {1: [0], 2: [0]}).items()
+                     for vw in vws]
+            expect = 2 * len(mws) * len(tails)
             specs = parse_ptxas(build_log.get(kernel, ""))
             if build_log and len(specs) != expect:
                 raise RuntimeError(f"ptxas reported {len(specs)} of {expect} {kernel} kernels")
@@ -869,22 +929,33 @@ def main() -> int:
                                    f"{kernel} specializations")
             loop_counts[kernel] = {spec_label(k): sum(v.values())
                                    for k, v in sorted(loops[kernel].items())}
-            # the group kernel, one specialization per tail length: the solo
-            # kernel's full-digest power-of-two body, beside which it is shown
+            # the group kernel, one specialization per tail: the solo kernel's
+            # full-digest power-of-two body, beside which it is shown (md5's
+            # at the main path's run for a one-block tail, at word 14 for a
+            # two-block one)
             gspecs = parse_group_ptxas(build_log.get(kernel, ""))
             group_loops[kernel] = by_group(whole)
             group_issued[kernel] = by_group(path)
-            if (build_log and len(gspecs) != 2) or len(group_loops[kernel]) != 2:
+            if (build_log and len(gspecs) != len(tails)) or len(group_loops[kernel]) != len(tails):
                 raise RuntimeError(f"{kernel}: ptxas reported {len(gspecs)} and the SASS "
-                                   f"{len(group_loops[kernel])} of 2 group kernels")
-            full = 4 if model_name == "md5" else get_hash_model(model_name).digest_words
+                                   f"{len(group_loops[kernel])} of {len(tails)} group kernels")
+            full = model.digest_words
+            shown = {1: MAIN_VAR_WORD, 2: 14}
             group_info[kernel] = {
-                f"nb{nb}": {**gspecs.get(nb, {}),
-                            "loop_instructions": sum(group_loops[kernel][nb].values()),
+                f"nb{nb}": {**gspecs.get(group_key(model_name, nb, shown[nb]), {}),
+                            "loop_instructions": sum(group_loops[kernel][
+                                group_key(model_name, nb, shown[nb])].values()),
                             "solo_full_digest": {
-                                **ptxas[kernel].get(spec_label((full, nb, True)), {}),
-                                "loop_instructions": sum(loops[kernel][(full, nb, True)].values())}}
+                                **ptxas[kernel].get(spec_label(
+                                    timed_key(model_name, full, nb, shown[nb])), {}),
+                                "loop_instructions": sum(loops[kernel][
+                                    timed_key(model_name, full, nb, shown[nb])].values())}}
                 for nb in (1, 2)}
+            if model_name in KEYED_MODELS:
+                group_info[kernel]["registers_all_layouts"] = sorted(
+                    {v["registers"] for v in gspecs.values()})
+                group_info[kernel]["spill_bytes_all_layouts"] = max(
+                    [v["spill_bytes"] for v in gspecs.values()], default=None)
             # the mesh kernel, one specialization per solo one: the solo
             # loop, the remap to the partition's index after it
             mspecs = parse_ptxas(build_log.get(kernel, ""), MESH_KEY)
@@ -893,33 +964,38 @@ def main() -> int:
             if (build_log and len(mspecs) != expect) or len(mloops) != expect:
                 raise RuntimeError(f"{kernel}: ptxas reported {len(mspecs)} and the SASS "
                                    f"{len(mloops)} of {expect} mesh kernels")
-            solo_specs = parse_ptxas(build_log.get(kernel, ""))
+            tk = timed_key(model_name)
             mesh_info[kernel] = {
                 "same_loop_length_as_solo": sum(sum(mloops[k].values()) == sum(loops[kernel][k].values())
                                                 for k in mloops),
                 "specializations": expect,
-                "register_delta_to_solo": sorted({v["registers"] - solo_specs[k]["registers"]
-                                                  for k, v in mspecs.items() if k in solo_specs}),
+                "register_delta_to_solo": sorted({v["registers"] - specs[k]["registers"]
+                                                  for k, v in mspecs.items() if k in specs}),
                 "spill_bytes": max([v["spill_bytes"] for v in mspecs.values()], default=None),
-                "timed": {**mspecs.get((2, 1, True), {}),
-                          "loop_instructions": sum(mloops[(2, 1, True)].values())}}
-            _build.load_library(kernel)
+                "timed": {**mspecs.get(tk, {}), "loop_instructions": sum(mloops[tk].values())}}
+        for lib in libs:
+            name, _, vw = lib.partition(".vw")
+            _build.load_library(name, int(vw) if vw else None)
         # what one candidate of the timed specialization issues, by opcode
-        # (ISETP and SEL are the byte placement against the runtime layout;
+        # (ISETP and SEL are the byte placement against a runtime layout;
         # the IMAD forms apart) and by pipe
         timed = {}
         for k in issued:
             kinds = collections.Counter()
-            for op, c in issued[k][(2, 1, True)].items():
+            for op, c in issued[k][timed_key(MODEL_OF[k])].items():
                 kinds[opcode_kind(op)] += c
             timed[k] = dict(kinds.most_common())
         return {"build_s": build_s, "libraries": {k: os.path.relpath(v, HERE)
                                                   for k, v in paths.items()},
                 "ptxas": ptxas, "loop_instructions": loop_counts,
                 "timed_loop_opcodes": timed,
-                "timed_loop_pipes": {k: pipe_split(issued[k][(2, 1, True)]) for k in issued},
+                "timed_loop_pipes": {k: pipe_split(issued[k][timed_key(MODEL_OF[k])])
+                                     for k in issued},
                 "group_kernels": group_info, "mesh_kernels": mesh_info,
-                "group_loop_pipes": {k: pipe_split(group_issued[k][1]) for k in group_issued}}
+                "group_loop_pipes": {k: pipe_split(group_issued[k][group_key(MODEL_OF[k], 1)])
+                                     for k in group_issued},
+                "md5_specializations": {"solo": len(loops[KERNELS["md5"]]),
+                                        "group": len(group_loops[KERNELS["md5"]])}}
 
     smoke.phase("build", build, needs=("device",))
 
@@ -964,6 +1040,32 @@ def main() -> int:
                     ops = make_operands(spec.init_state, spec.base_words, masks, tb_lo, tbc, dev)
                     cases.append((f"mask{mw}_n{n_len}_tbc{tbc}_bits{bits}", ops, spec, 70000,
                                   chunks * tbc, 3, grid))
+        # md5: every tail layout its kernels are built for, at mask words
+        # 1-4, 2^14 candidates each (a whole absorbed block before every
+        # other layout's tail)
+        for n_blocks, var_words in KEYED_LAYOUTS.get(model.name, {}).items():
+            for vw in var_words:
+                rem = 4 * vw + int(rng.integers(0, 4))
+                if n_blocks == 1:
+                    rem = min(rem, 53)  # room for a chunk byte
+                    width, extra = min(4, 54 - rem), b""
+                else:
+                    width = int(rng.integers(1, 5))
+                    extra = bytes(rng.integers(1, 256, size=max(0, 56 - rem - 1 - width),
+                                               dtype=np.uint8))
+                nonce = rng.integers(0, 256, size=rem + 64 * (vw % 2), dtype=np.uint8).tobytes()
+                spec = build_tail_spec(nonce, width, model, extra)
+                if (spec.n_blocks, kernel_layout(spec.tb_loc, spec.chunk_locs, model)[0]) != \
+                        (n_blocks, vw):
+                    raise AssertionError(f"no tail at layout {(n_blocks, vw)}")
+                for mw in range(1, 5):
+                    masks = [0] * mw
+                    for b in rng.choice(32 * mw, size=9, replace=False):
+                        masks[int(b) // 32] |= 1 << (int(b) % 32)
+                    tb_lo, tbc, chunks = PARTITIONS[(vw + mw) % len(PARTITIONS)]
+                    ops = make_operands(spec.init_state, spec.base_words, masks, tb_lo, tbc, dev)
+                    cases.append((f"layout_nb{n_blocks}_vw{vw}_mask{mw}_tbc{tbc}", ops, spec,
+                                  max(0, 256 ** width - 3 * chunks), chunks * tbc, 1, None))
         mismatches, hits, max_err = [], 0, 0
         kernel_out = [hash_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0, batch, steps,
                                   device=dev, grid=grid)
@@ -980,8 +1082,11 @@ def main() -> int:
         if mismatches:
             raise AssertionError(f"{len(mismatches)} of {len(cases)} cases differ: "
                                  f"{mismatches[:10]}")
+        layouts = sorted({(spec.n_blocks, kernel_layout(spec.tb_loc, spec.chunk_locs, model)[0])
+                          for _, _, spec, *_ in cases})
         return {"cases": len(cases), "mismatches": 0, "hit_cases": hits,
-                "sentinel_cases": len(cases) - hits, "max_abs_err": max_err,
+                "sentinel_cases": len(cases) - hits, "layouts": len(layouts),
+                "max_abs_err": max_err,
                 "tolerance": "exact (integer first-hit index)"}
 
     def judge_cases(model, cases):
@@ -1230,7 +1335,8 @@ def main() -> int:
         var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
         needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
         dev_info = smoke.info["device"]
-        key = (kernel_mask_words(mw, model), spec.n_blocks, True)
+        key = timed_key(model.name, kernel_mask_words(mw, model), spec.n_blocks,
+                        kernel_layout(spec.tb_loc, spec.chunk_locs, model)[0])
         loop = issued[KERNELS[model.name]][key]
         sass, pipes = sum(loop.values()), pipe_split(loop)
         clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
@@ -1464,7 +1570,9 @@ def main() -> int:
         dev_info = smoke.info["device"]
         clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
         bound_ms = n * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s) * 1e3
-        loop = group_issued[kernel][spec.n_blocks]
+        gkey = group_key(model.name, spec.n_blocks,
+                         kernel_layout(spec.tb_loc, spec.chunk_locs, model)[0])
+        loop = group_issued[kernel][gkey]
         pipes = pipe_split(loop)
         return {"difficulty": RATE_DIFFICULTY, "slots": SCHED_SLOTS, "batch": SCHED_BATCH,
                 "candidates_per_launch": n, "launches_timed": RATE_LAUNCHES,
@@ -1475,7 +1583,7 @@ def main() -> int:
                 "needed_ops_per_hash": needed, "bound_ms": bound_ms,
                 "bound_share": bound_ms / kernel_ms,
                 "sass_instructions_per_hash": sum(loop.values()),
-                "sass_loop_instructions": sum(group_loops[kernel][spec.n_blocks].values()),
+                "sass_loop_instructions": sum(group_loops[kernel][gkey].values()),
                 "alu_pipe_instructions_per_hash": pipes["alu"],
                 "fma_pipe_slots_per_hash": pipes["fma_slots"],
                 **pipe_ms(pipes, n, clocks_per_s), "card": dev_info["nvidia_smi"]}
@@ -1777,7 +1885,9 @@ def main() -> int:
         dev_info = smoke.info["device"]
         clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
         bound_ms = n * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM * clocks_per_s) * 1e3
-        loop = mesh_issued[KERNELS[model.name]][(kernel_mask_words(mw, model), spec.n_blocks, True)]
+        loop = mesh_issued[KERNELS[model.name]][timed_key(
+            model.name, kernel_mask_words(mw, model), spec.n_blocks,
+            kernel_layout(spec.tb_loc, spec.chunk_locs, model)[0])]
         return {"shards": mesh.size, "candidates": n, "difficulty": RATE_DIFFICULTY,
                 "launches_timed": MESH_RATE_LAUNCHES, "result": first["mesh"],
                 "ms": min(ms["mesh"]), "ms_runs": ms["mesh"],

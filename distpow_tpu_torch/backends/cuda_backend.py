@@ -26,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..models.registry import get_hash_model
-from ..ops.hash_cuda import hash_search, kernel_name
+from ..ops.hash_cuda import hash_search, kernel_name, load_kernels
 from ..ops.operands import Device, u32_value
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
@@ -105,8 +105,9 @@ class DeviceBackend:
     """A step factory behind the pipelined driver, on an explicit device.
 
     Subclasses give ``_factory(nonce, difficulty, tb_lo, tbc)`` (a
-    ``parallel.search.StepFactory``) and ``_load()`` (what must be built
-    and loaded before the first launch).  ``mesh_devices``, ``interpret`` and ``loop``
+    ``parallel.search.StepFactory``) and ``_load(nonce_lens, widths)``
+    (what must be built and loaded before the first launch at those
+    layouts).  ``mesh_devices``, ``interpret`` and ``loop``
     are the reference worker's keywords (``check_options``)."""
 
     name = "device"
@@ -132,7 +133,7 @@ class DeviceBackend:
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         raise NotImplementedError
 
-    def _load(self) -> None:
+    def _load(self, nonce_lens: Sequence[int], widths: Sequence[int]) -> None:
         pass
 
     def _warm_runs(self) -> Tuple[int, ...]:
@@ -145,12 +146,13 @@ class DeviceBackend:
         ``_warm_factory``): for each nonce length, width and ``_warm_runs``
         count, the step the driver builds for the partition ``[0, tbc)``
         (at the driver's batch and launch multiplier) at difficulty 1, and
-        read its result.  A kernel's layout is a runtime argument, so this
-        builds and loads the library and touches every layout; under the
-        watchdog, one beat and one first-compile grace per launch."""
+        read its result.  The libraries those layouts launch are built first,
+        all at once (md5's, one per tail layout, only those), then every
+        layout is touched; under the watchdog, one beat and one
+        first-compile grace per launch."""
         with WATCHDOG.active():
             with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
-                self._load()
+                self._load(nonce_lens, widths)
             for tbc in self._warm_runs():
                 target = max(1, effective_batch(self.batch_size) // tbc)
                 for n_len in nonce_lens:
@@ -189,11 +191,11 @@ class CudaBackend(DeviceBackend):
         kernel_name(get_hash_model(hash_model))  # raises for a model without a kernel
         super().__init__(hash_model, **kwargs)
 
-    def _load(self) -> None:
+    def _load(self, nonce_lens: Sequence[int], widths: Sequence[int]) -> None:
         if self.device.type == "cuda":
-            from ..ops import _build
-
-            _build.load_library(kernel_name(self.model))
+            tails = [build_tail_spec(bytes(int(n)), int(vw), self.model)
+                     for n in nonce_lens for vw in widths]
+            load_kernels(self.model, [(t.tb_loc, t.chunk_locs) for t in tails])
 
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         def factory(vw: int, extra: bytes, target_chunks: int, launch_steps: int = 1):

@@ -1,12 +1,13 @@
-// Search scaffold of every kernel but md5's: the flat-index decode, the
-// message words of a candidate in either byte order, the mask check, and
-// (under nvcc) the kernel and its launcher.
+// Search scaffold of every kernel: the flat-index decode, the message words
+// of a candidate in either byte order, the mask check, and (under nvcc) the
+// kernels, their min across the grid and their launchers.
 //
 // Replaces the scaffold of the TPU kernel, distpow_tpu/ops/md5_pallas.py
-// _dyn_pallas_step, for the hashes whose tiles are _sha256_tile,
+// _dyn_pallas_step, for every hash: _md5_tile, _sha256_tile,
 // _sha256d_tile, _sha1_tile, _ripemd160_tile, _sha512_tile, _sha384_tile,
-// _sha3_tile and _blake2b_tile.  A hash is a struct H (sha256.cuh,
-// sha1.cuh, ripemd160.cuh, sha512.cuh, sha3.cuh, blake2b.cuh) with
+// _sha3_tile and _blake2b_tile.  A hash is a struct H (md5.cuh,
+// sha256.cuh, sha1.cuh, ripemd160.cuh, sha512.cuh, sha3.cuh, blake2b.cuh)
+// with
 //   STATE_WORDS, DIGEST_WORDS      uint32 words of the state and the digest
 //   BLOCK_WORDS                    uint32 message words of a block
 //   ROW_WORDS                      words of a tail block's row: the message
@@ -19,18 +20,23 @@
 //                                  after which only the MW trailing digest
 //                                  words of st are defined: the rounds that
 //                                  feed only the others are never computed
-// and, where the hash wants it (sha3.cuh, sha256.cuh's Sha256d),
+// and, where the hash wants it (sha3.cuh, sha256.cuh's Sha256 and Sha256d),
 //   MIN_BLOCKS_PER_SM              resident 256-thread blocks per SM that
 //                                  its kernel asks ptxas for; such a
 //                                  kernel also reads the launch's
 //                                  operands anew for every candidate
+// A hash built for one tail layout (md5.cuh's Md5<VW>) also has
+//   VAR_WORD                       the run's first message word, a
+//                                  compile-time key of its kernels
+//   builds(n_blocks)               whether a kernel exists for the tail
+//                                  length at that var_word
+//   Tail<N_BLOCKS>                 the launch's constants as the candidate
+//                                  loop reads them, made once per thread
+//                                  from the prefix state and the rows, with
+//                                  state<MW>(L, tb, chunk, st) a candidate's
+// and its kernels take the hash's own loop body (KeyedByVarWord below).
 // All words are uint32; a 64-bit hash pairs them in its own limb order
 // and works in uint64_t inside its struct.
-//
-// Layout, decode, rotl32, SENTINEL, the mesh kernels' MeshOrigin and
-// mesh_global_index and the launchers' launch_keyed and launch_group come
-// from md5.cuh, the first slice's header, whose MD5 kernel keeps its own
-// scaffold for now.
 //
 // The host twin (the g++ build of the CPU tests) sees only the
 // __host__ __device__ functions; the kernel is compiled by nvcc alone.
@@ -40,7 +46,12 @@
 
 #include <type_traits>
 
-#include "md5.cuh"
+#if defined(__CUDACC__)
+#include <cuda_runtime.h>
+#define DISTPOW_HD __host__ __device__ __forceinline__
+#else
+#define DISTPOW_HD inline
+#endif
 
 #if defined(__CUDA_ARCH__)
 #define DISTPOW_UNROLL _Pragma("unroll")
@@ -49,6 +60,83 @@
 #endif
 
 namespace distpow {
+
+// A miss: no candidate of the launch solves.
+constexpr uint32_t SENTINEL = 0xFFFFFFFFu;
+
+DISTPOW_HD uint32_t rotl32(uint32_t x, int s) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_l(x, x, s);
+#else
+  return (x << s) | (x >> (32 - s));
+#endif
+}
+
+// The search layout of one launch: what the TailSpec of the nonce and the
+// thread-byte partition fix.  Words are the uint32 bit patterns.
+//
+// The variable bytes of a candidate are contiguous in every tail (thread
+// byte, then chunk bytes 0..width-1), so the layout is the thread byte's
+// word (var_words below) and bit shift; chunk_mask keeps the low 8*width
+// bits of the chunk.
+struct Layout {
+  uint32_t chunk0;
+  uint32_t tb_lo;
+  uint32_t tbc;
+  int32_t log_tbc;  // log2(tbc) when tbc is a power of two, else -1
+  int32_t var_word;
+  int32_t var_shift;
+  uint32_t chunk_mask;
+};
+
+// The layout of one scheduler slot (the group kernel,
+// hash_group_search_kernel): the group's shared tail layout (var_word,
+// var_shift, chunk_mask) with the slot's own cursor and power-of-two
+// thread-byte run tb_lo .. tb_lo + 2^log_tbc - 1.
+DISTPOW_HD Layout slot_layout(uint32_t chunk0, uint32_t tb_lo, uint32_t log_tbc, int var_word,
+                              int var_shift, uint32_t chunk_mask) {
+  return Layout{chunk0, tb_lo, 1u << log_tbc, static_cast<int32_t>(log_tbc), var_word,
+                var_shift, chunk_mask};
+}
+
+// Flat index -> (thread byte, chunk): chunk-major, thread-byte-minor, the
+// reference enumeration order (worker.go:318-319).  POW2 takes the shift
+// and mask of a power-of-two run; otherwise a divide.
+template <bool POW2>
+DISTPOW_HD void decode(const Layout& L, uint32_t f, uint32_t& tb, uint32_t& chunk) {
+  if constexpr (POW2) {
+    chunk = L.chunk0 + (f >> L.log_tbc);
+    tb = L.tb_lo + (f & (L.tbc - 1u));
+  } else {
+    chunk = L.chunk0 + f / L.tbc;
+    tb = L.tb_lo + f % L.tbc;
+  }
+}
+
+// The partition a mesh shard searches part of (the mesh kernel,
+// hash_mesh_kernel): the launch's cursor and the partition's thread-byte
+// run tb_lo .. tb_lo + tbc - 1.  A shard's own Layout is a slice of it, a
+// run of thread bytes or a span of chunks.
+struct MeshOrigin {
+  uint32_t chunk0;
+  uint32_t tb_lo;
+  uint32_t tbc;
+};
+
+// A shard's local flat index f (or SENTINEL) as the partition's flat
+// index: chunk-major over the whole run, (chunk - chunk0) * tbc + (tb -
+// tb_lo), the same expression for a thread-byte slice and a chunk span, a
+// power-of-two run or not.  Within a shard it grows with f, so the
+// shard's first hit maps to its least partition index, and the least
+// across shards is the partition's first hit.  The caller keeps every
+// partition index of the launch below 2^31.
+template <bool POW2>
+DISTPOW_HD uint32_t mesh_global_index(const Layout& L, const MeshOrigin& o, uint32_t f) {
+  if (f == SENTINEL) return SENTINEL;
+  uint32_t tb, chunk;
+  decode<POW2>(L, f, tb, chunk);
+  return (chunk - o.chunk0) * o.tbc + (tb - o.tb_lo);
+}
 
 // The hashes of 64-byte blocks and 16-word rows.
 struct Block16 {
@@ -138,6 +226,23 @@ struct AsksResidentBlocks : std::false_type {};
 template <class H>
 struct AsksResidentBlocks<H, std::void_t<decltype(H::MIN_BLOCKS_PER_SM)>> : std::true_type {};
 
+// Is hash H built for one tail layout, its run's first message word
+// H::VAR_WORD a compile-time key (md5.cuh's Md5<VW>)?  Its kernels then
+// take the hash's own candidate body: H::Tail<N_BLOCKS> made once per
+// thread before the candidate loop, its state<MW> once per candidate.
+template <class H, class = void>
+struct KeyedByVarWord : std::false_type {};
+template <class H>
+struct KeyedByVarWord<H, std::void_t<decltype(H::VAR_WORD)>> : std::true_type {};
+
+// Is there a kernel of hash H for tails of n_blocks blocks?  Every tail
+// length but where a hash built for one layout says otherwise.
+template <class H>
+constexpr bool builds_tail(int n_blocks) {
+  if constexpr (KeyedByVarWord<H>::value) return H::builds(n_blocks);
+  else return true;
+}
+
 // Word i of a launch operand (the prefix state, the tail's rows).  They are
 // loop invariants, so the compiler keeps them in registers across the
 // grid-stride loop (sha3_256's 84 words took 172 registers).  A hash that
@@ -150,11 +255,22 @@ DISTPOW_HD uint32_t operand(const uint32_t* p, int i) {
 }
 
 // ORs the run's words first and second into words k and k + 1 of a
-// 32-word block: k = -1 is a run that started in the block before (only
-// second lands, in word 0), k = 31 one that goes on into the next (only
-// first lands), any other k outside 0..30 misses the block.
+// BLOCK-word block: k = -1 is a run that started in the block before (only
+// second lands, in word 0), k = BLOCK - 1 one that goes on into the next
+// (only first lands), any other k outside 0..BLOCK - 2 misses the block.
 #define DISTPOW_PLACE(K) \
   case K: m[K] |= first; m[K + 1] |= second; break;
+DISTPOW_HD void place_run16(int k, uint32_t first, uint32_t second, uint32_t* m) {
+  switch (k) {
+    case -1: m[0] |= second; break;
+    DISTPOW_PLACE(0) DISTPOW_PLACE(1) DISTPOW_PLACE(2) DISTPOW_PLACE(3) DISTPOW_PLACE(4)
+    DISTPOW_PLACE(5) DISTPOW_PLACE(6) DISTPOW_PLACE(7) DISTPOW_PLACE(8) DISTPOW_PLACE(9)
+    DISTPOW_PLACE(10) DISTPOW_PLACE(11) DISTPOW_PLACE(12) DISTPOW_PLACE(13) DISTPOW_PLACE(14)
+    case 15: m[15] |= first; break;
+    default: break;
+  }
+}
+
 DISTPOW_HD void place_run32(int k, uint32_t first, uint32_t second, uint32_t* m) {
   switch (k) {
     case -1: m[0] |= second; break;
@@ -172,22 +288,25 @@ DISTPOW_HD void place_run32(int k, uint32_t first, uint32_t second, uint32_t* m)
 #undef DISTPOW_PLACE
 
 // The row of tail block blk: the constant words, with the variable bits
-// ORed into the run's two message words.  A 16-word block compares each
-// message word with the run's two.  A 32-word block (sha512, sha384,
-// blake2b_256) would spend about 64 SEL and 34 ISETP a candidate on that,
-// all on the ALU pipe, so it reads the row anew for every candidate
-// (volatile LDS, so no register copy of it has to be restored) and ORs the
-// two words in with one switch on var_word, which is the same in every
-// thread: ptxas makes it a short compare tree and a jump table, no
-// divergence, a few instructions a candidate.
+// ORed into the run's two message words.  A per-word select against the
+// runtime var_word costs two ISETP and two SEL a message word a candidate,
+// all on the ALU pipe (64 a 16-word block, about 98 a 32-word one), so a
+// 16- or 32-word row is read anew for every candidate (volatile LDS, so no
+// register copy of it has to be restored) and the two words are ORed in
+// with one switch on var_word, which is the same in every thread: ptxas
+// makes it a short compare tree and a jump table, no divergence, a few
+// instructions a candidate.  sha3_256's 34-word rows keep the selects.
 template <class H>
 DISTPOW_HD void message_block(const uint32_t* base, const Layout& L, uint32_t first,
                               uint32_t second, int blk, uint32_t m[H::ROW_WORDS]) {
-  if constexpr (H::BLOCK_WORDS == 32) {
+  if constexpr (H::BLOCK_WORDS == 16 || H::BLOCK_WORDS == 32) {
     DISTPOW_UNROLL
     for (int w = 0; w < H::ROW_WORDS; ++w)
       m[w] = static_cast<const volatile uint32_t*>(base)[blk * H::ROW_WORDS + w];
-    place_run32(L.var_word - blk * H::BLOCK_WORDS, first, second, m);
+    if constexpr (H::BLOCK_WORDS == 32)
+      place_run32(L.var_word - blk * H::BLOCK_WORDS, first, second, m);
+    else
+      place_run16(L.var_word - blk * H::BLOCK_WORDS, first, second, m);
   } else {
     DISTPOW_UNROLL
     for (int w = 0; w < H::ROW_WORDS; ++w) {
@@ -231,21 +350,107 @@ DISTPOW_HD bool hash_candidate_hits(const uint32_t* init, const uint32_t* base,
   return acc == 0;
 }
 
+// The same test for a hash built for one tail layout: tail holds the
+// launch's constants as H::Tail made them.
+template <class H, int MASK_WORDS, int N_BLOCKS>
+DISTPOW_HD bool keyed_candidate_hits(const typename H::template Tail<N_BLOCKS>& tail,
+                                     const uint32_t* masks, const Layout& L, uint32_t tb,
+                                     uint32_t chunk) {
+  uint32_t st[H::STATE_WORDS];
+  tail.template state<MASK_WORDS>(L, tb, chunk, st);
+  uint32_t acc = 0;
+  DISTPOW_UNROLL
+  for (int j = 0; j < MASK_WORDS; ++j) acc |= st[H::DIGEST_WORDS - MASK_WORDS + j] & masks[j];
+  return acc == 0;
+}
+
 }  // namespace distpow
 
 #if defined(__CUDACC__)
-#include <cuda_runtime.h>
-
 namespace distpow {
 
-// The kernel: md5_search.cu's design, over any hash H.
+// The kernels' min across the grid, after each thread's first hit: per warp
+// (__reduce_min_sync), then one atomicMin per block into *out, which the
+// wrapper set to SENTINEL on the same stream before the launch.  Every
+// thread of the block calls it.
+template <int THREADS>
+__device__ __forceinline__ void block_min_to(uint32_t best, uint32_t* out) {
+  __shared__ uint32_t warp_min[THREADS / 32];
+  best = __reduce_min_sync(0xFFFFFFFFu, best);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t m = warp_min[0];
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) m = min(m, warp_min[w]);
+    if (m != SENTINEL) atomicMin(out, m);
+  }
+}
+
+// The host side of every solo and mesh search's C function: calls
+// launch(MW, NB, POW2), each a std::integral_constant, at the kernel keys
+// of a launch of n flat indices: mask_words 1-4 or H::DIGEST_WORDS,
+// n_blocks 1 or 2 (where builds_tail), a power-of-two run or not.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// configuration no kernel was built for.
+template <class H, class Launch>
+int launch_keyed(int mask_words, int n_blocks, bool pow2, uint32_t n, Launch launch) {
+  constexpr int FULL = H::DIGEST_WORDS;
+  if (n == 0) return 0;
+  auto at_mw = [&](auto nb) {
+    if constexpr (!builds_tail<H>(decltype(nb)::value)) {
+      return false;
+    } else {
+      auto go = [&](auto mw) {
+        if (pow2) launch(mw, nb, std::true_type{});
+        else launch(mw, nb, std::false_type{});
+        return true;
+      };
+      if (mask_words == FULL) return go(std::integral_constant<int, FULL>{});
+      switch (mask_words) {
+        case 1: return go(std::integral_constant<int, 1>{});
+        case 2: return go(std::integral_constant<int, 2>{});
+        case 3: return go(std::integral_constant<int, 3>{});
+        case 4: return go(std::integral_constant<int, 4>{});
+        default: return false;
+      }
+    }
+  };
+  const bool built = n_blocks == 1   ? at_mw(std::integral_constant<int, 1>{})
+                     : n_blocks == 2 ? at_mw(std::integral_constant<int, 2>{})
+                                     : false;
+  if (!built) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The host side of every group search's C function: checks the group's
+// configuration, then calls launch(std::integral_constant<int, N_BLOCKS>,
+// grid) with the (grid_x, n_slots) grid.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a configuration no kernel was built for.
+template <class H, class Launch>
+int launch_group(int n_blocks, int n_slots, uint32_t batch, int grid_x, Launch launch) {
+  if (n_slots == 0 || batch == 0) return 0;
+  if ((n_blocks != 1 && n_blocks != 2) || !(n_blocks == 1 ? builds_tail<H>(1) : builds_tail<H>(2)) ||
+      n_slots < 0 || n_slots > 65535 || grid_x < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, n_slots);
+  if (n_blocks == 1) {
+    if constexpr (builds_tail<H>(1)) launch(std::integral_constant<int, 1>{}, grid);
+  } else {
+    if constexpr (builds_tail<H>(2)) launch(std::integral_constant<int, 2>{}, grid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel, over any hash H.
 // * One candidate per thread per iteration of a grid-stride loop over the
 //   launch's n < 2^31 flat indices; a thread stops at its first hit, which
 //   is its own minimum.
 // * MASK_WORDS (1-4 or the full digest: the wrapper pads wider masks with
 //   leading zero words, which every candidate passes), N_BLOCKS and POW2
 //   are template keys, so the rounds that feed only unread digest words are
-//   dead code; the layout is a runtime argument.
+//   dead code; the layout is a runtime argument, but for a hash built for
+//   one var_word (md5.cuh's Md5<VW>), whose var_word is a key too.
 // * The launch's prefix state and constant rows are loop invariants that
 //   every thread reads at the same index.  They sit in shared memory,
 //   loaded once per block, where a read is a broadcast.  Copied into
@@ -268,13 +473,26 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
   const uint32_t stride = gridDim.x * blockDim.x;
   // one hash per iteration, so the loop body in the SASS is one candidate's
   // work: chip_smoke.py counts it beside the bound
+  if constexpr (KeyedByVarWord<H>::value) {
+    // the launch's constants, once per thread
+    const typename H::template Tail<N_BLOCKS> tail(init, base);
 #pragma unroll 1
-  for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
-    uint32_t tb, chunk;
-    decode<POW2>(L, f, tb, chunk);
-    if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk)) return f;
+    for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
+      uint32_t tb, chunk;
+      decode<POW2>(L, f, tb, chunk);
+      if (keyed_candidate_hits<H, MASK_WORDS, N_BLOCKS>(tail, masks, L, tb, chunk)) return f;
+    }
+    return SENTINEL;
+  } else {
+#pragma unroll 1
+    for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
+      uint32_t tb, chunk;
+      decode<POW2>(L, f, tb, chunk);
+      if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk))
+        return f;
+    }
+    return SENTINEL;
   }
-  return SENTINEL;
 }
 
 // A thread's first hit in one block's search, the launch's operands loaded
@@ -402,7 +620,7 @@ int launch_hash_group_search(const void* init, const void* base, const void* mas
                              const void* tb_lo, const void* log_tbc, const void* chunk0,
                              int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  return launch_group(n_blocks, n_slots, batch, grid_x, [&](auto n_blk, dim3 grid) {
+  return launch_group<H>(n_blocks, n_slots, batch, grid_x, [&](auto n_blk, dim3 grid) {
     launch_group_kernel<H, decltype(n_blk)::value>(
         grid, static_cast<cudaStream_t>(stream), u(init), u(base), u(masks), u(tb_lo),
         u(log_tbc), u(chunk0), var_word, var_shift, chunk_mask, batch,
@@ -418,7 +636,7 @@ int launch_hash_group_search(const void* init, const void* base, const void* mas
 // jax Mesh and took lax.pmin of the partition indices).  Each block is the
 // solo kernel's body over the shard's slice L of the partition o (a run of
 // thread bytes, or a span of chunks: n flat indices); each thread's first
-// hit becomes the partition's flat index (mesh_global_index, md5.cuh)
+// hit becomes the partition's flat index (mesh_global_index)
 // before the block min, so the least value across the shards' cells is
 // the partition's first hit.  The loop is the solo kernel's: the remap
 // runs once per thread, after it.
@@ -466,8 +684,8 @@ int launch_hash_search(const void* init, const void* base, const void* masks, in
                        uint32_t n, void* out, int grid, void* stream) {
   const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  return launch_keyed<H::DIGEST_WORDS>(mask_words, n_blocks, log_tbc >= 0, n,
-                                       [&](auto mw, auto nb, auto pow2) {
+  return launch_keyed<H>(mask_words, n_blocks, log_tbc >= 0, n,
+                         [&](auto mw, auto nb, auto pow2) {
     launch_search_kernel<H, decltype(mw)::value, decltype(nb)::value, decltype(pow2)::value>(
         u(init), u(base), u(masks), L, n, static_cast<uint32_t*>(out), grid,
         static_cast<cudaStream_t>(stream));
@@ -492,8 +710,8 @@ int launch_hash_mesh_search(const void* init, const void* base, const void* mask
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   auto cell = static_cast<uint32_t*>(out);
-  return launch_keyed<H::DIGEST_WORDS>(mask_words, n_blocks, log_tbc >= 0, n,
-                                       [&](auto mw, auto nb, auto pow2) {
+  return launch_keyed<H>(mask_words, n_blocks, log_tbc >= 0, n,
+                         [&](auto mw, auto nb, auto pow2) {
     constexpr int MW = decltype(mw)::value, NB = decltype(nb)::value;
     constexpr bool P2 = decltype(pow2)::value;
     if constexpr (AsksResidentBlocks<H>::value) {

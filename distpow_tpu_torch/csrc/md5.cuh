@@ -1,29 +1,34 @@
-// MD5 search body shared by the CUDA kernel (md5_search.cu, built by nvcc)
-// and its host twin (the g++-built parity driver of the CPU tests).
+// MD5 for the search scaffold (hash_search.cuh), shared by the CUDA kernel
+// (md5_search.cu) and its host twin (the g++ build of the CPU tests).
 //
-// Everything here is a __host__ __device__ __forceinline__ function with
-// compile-time round indices: md5_rounds<I> recurses over I, so every K[i],
-// S[i] and message-word index is a constant after inlining.  The digest
-// words the difficulty check does not read are dead code, so the MASK_WORDS
-// template parameter of candidate_hits lets the compiler drop rounds 62-63
-// and the dead final adds (mask_words 1 needs rounds 0..61, 2 needs 0..62).
+// Replaces the tile _md5_tile of distpow_tpu/ops/md5_pallas.py, which was
+// compiled once per tail layout (TailSpec): its _round_key folded K[i] +
+// m[g] for every message word the layout fixes.  The kernels here are
+// built the same way, once per var_word, the run's first message word
+// (Md5<VW>; the other layout numbers, var_shift and chunk_mask, stay
+// runtime arguments since they only form the run's two words).  With the
+// run's words known to the compiler:
+// * no select places the run: the candidate's two words are ORed into the
+//   rows' words VW and VW + 1 once a candidate;
+// * every other word is a launch constant, so K[i] + m[g] of each round
+//   that reads one is a loop invariant (Md5Tail::kc), made once per thread
+//   before the candidate loop;
+// * the rounds of the first block before round VW read constants only (the
+//   first 16 rounds read words 0..15 in order), so the state after them is
+//   made once per thread too (Md5Tail::hoisted).
+// A round then is f = F(b, c, d) (one LOP3), t = a + kc (an IMAD with the
+// factor 1 from constant memory, add_fma: off the round's critical path,
+// since a is known three rounds early, and on the FMA pipe), u = f + t
+// (an IMAD too, Md5Keyed's FT_FMA, else an IADD3 on the ALU pipe) and b +
+// rotl(u, s) (one LEA.HI).  Round indices are template parameters, so
+// every K[i], S[i] and message-word index is a constant after inlining, and
+// the rounds that feed only digest words the difficulty check does not
+// read are dead code (mask_words 1 needs rounds 0..61, 2 needs 0..62).
 #pragma once
 
-#include <stdint.h>
-
-#if defined(__CUDACC__)
-#include <cuda_runtime.h>
-
-#include <type_traits>
-#define DISTPOW_HD __host__ __device__ __forceinline__
-#else
-#define DISTPOW_HD inline
-#endif
+#include "hash_search.cuh"
 
 namespace distpow {
-
-// A miss: no candidate of the launch solves.
-constexpr uint32_t SENTINEL = 0xFFFFFFFFu;
 
 // K[i] = floor(abs(sin(i + 1)) * 2^32)
 DISTPOW_HD constexpr uint32_t md5_k(int i) {
@@ -51,232 +56,172 @@ DISTPOW_HD constexpr int md5_g(int i) {
   return i < 16 ? i : i < 32 ? (5 * i + 1) % 16 : i < 48 ? (3 * i + 5) % 16 : (7 * i) % 16;
 }
 
-DISTPOW_HD uint32_t rotl32(uint32_t x, int s) {
-#if defined(__CUDA_ARCH__)
-  return __funnelshift_l(x, x, s);
-#else
-  return (x << s) | (x >> (32 - s));
-#endif
+template <int I>
+DISTPOW_HD uint32_t md5_f(uint32_t b, uint32_t c, uint32_t d) {
+  if constexpr (I < 16) return (b & c) | (~b & d);
+  else if constexpr (I < 32) return (d & b) | (~d & c);
+  else if constexpr (I < 48) return b ^ c ^ d;
+  else return c ^ (b | ~d);
 }
 
-template <int I>
+// Rounds I..END-1 of a compression of block m, in the plain form.
+template <int I, int END>
 DISTPOW_HD void md5_rounds(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d,
                            const uint32_t* m) {
-  if constexpr (I < 64) {
-    uint32_t f;
-    if constexpr (I < 16) {
-      f = (b & c) | (~b & d);
-    } else if constexpr (I < 32) {
-      f = (d & b) | (~d & c);
-    } else if constexpr (I < 48) {
-      f = b ^ c ^ d;
-    } else {
-      f = c ^ (b | ~d);
-    }
-    constexpr uint32_t k = md5_k(I);
-    constexpr int g = md5_g(I);
-    constexpr int s = md5_s(I);
-    f = f + a + (k + m[g]);
+  if constexpr (I < END) {
+    const uint32_t f = md5_f<I>(b, c, d) + a + (md5_k(I) + m[md5_g(I)]);
     a = d;
     d = c;
     c = b;
-    b = b + rotl32(f, s);
-    md5_rounds<I + 1>(a, b, c, d, m);
+    b = b + rotl32(f, md5_s(I));
+    md5_rounds<I + 1, END>(a, b, c, d, m);
   }
 }
 
 // One block compression: st <- st + rounds(st, m).
 DISTPOW_HD void md5_compress(uint32_t st[4], const uint32_t* m) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  md5_rounds<0>(a, b, c, d, m);
+  md5_rounds<0, 64>(a, b, c, d, m);
   st[0] += a;
   st[1] += b;
   st[2] += c;
   st[3] += d;
 }
 
-// The search layout of one launch: what the TailSpec of the nonce and the
-// thread-byte partition fix.  Words are the uint32 bit patterns.
-//
-// The variable bytes of a candidate are contiguous in every MD5 tail
-// (thread byte, then chunk bytes 0..width-1, little-endian), so the layout
-// is the thread byte's word (0..31 over the two tail blocks) and bit shift;
-// chunk_mask keeps the low 8*width bits of the chunk.
-struct Layout {
-  uint32_t chunk0;
-  uint32_t tb_lo;
-  uint32_t tbc;
-  int32_t log_tbc;  // log2(tbc) when tbc is a power of two, else -1
-  int32_t var_word;
-  int32_t var_shift;
-  uint32_t chunk_mask;
-};
-
-// The layout of one scheduler slot (the group kernels,
-// hash_group_search_kernel and md5_group_search_kernel): the group's
-// shared tail layout (var_word, var_shift, chunk_mask) with the slot's own
-// cursor and power-of-two thread-byte run tb_lo .. tb_lo + 2^log_tbc - 1.
-DISTPOW_HD Layout slot_layout(uint32_t chunk0, uint32_t tb_lo, uint32_t log_tbc, int var_word,
-                              int var_shift, uint32_t chunk_mask) {
-  return Layout{chunk0, tb_lo, 1u << log_tbc, static_cast<int32_t>(log_tbc), var_word,
-                var_shift, chunk_mask};
-}
-
-// Flat index -> (thread byte, chunk): chunk-major, thread-byte-minor, the
-// reference enumeration order (worker.go:318-319).  POW2 takes the shift
-// and mask of a power-of-two run; otherwise a divide.
-template <bool POW2>
-DISTPOW_HD void decode(const Layout& L, uint32_t f, uint32_t& tb, uint32_t& chunk) {
-  if constexpr (POW2) {
-    chunk = L.chunk0 + (f >> L.log_tbc);
-    tb = L.tb_lo + (f & (L.tbc - 1u));
-  } else {
-    chunk = L.chunk0 + f / L.tbc;
-    tb = L.tb_lo + f % L.tbc;
+// Rounds I..63 of block BLK of a tail whose run starts at message word VW:
+// a round that reads word VW or VW + 1 adds K[i] and the candidate's word
+// (m0 or m1).  Every other one, in the first block, adds its loop-invariant
+// kc[I] = K[I] + m[g] (KC_TABLE; kc is the table, or an object whose
+// operator[] reads it), or with !KC_TABLE the row word itself, rows[g],
+// with K[I] an immediate of u's add.  The second block of a
+// two-block tail reads its row words anew from the rows (volatile LDS, see
+// Md5Tail).
+template <int I, int BLK, int VW, bool FT_FMA, bool KC_TABLE, class Kc, class Rows>
+DISTPOW_HD void md5_keyed_rounds(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d, Kc kc,
+                                 Rows rows, uint32_t m0, uint32_t m1) {
+  if constexpr (I < 64) {
+    constexpr int word = 16 * BLK + md5_g(I);
+    constexpr uint32_t k = md5_k(I);
+    const uint32_t f = md5_f<I>(b, c, d);
+    uint32_t u;
+    if constexpr (word == VW || word == VW + 1) {
+      const uint32_t t = a + k + (word == VW ? m0 : m1);
+      u = FT_FMA ? add_fma(f, t) : f + t;
+    } else if constexpr (BLK == 0 && KC_TABLE) {
+      const uint32_t t = add_fma(a, kc[I]);
+      u = FT_FMA ? add_fma(f, t) : f + t;
+    } else {
+      u = f + add_fma(a, rows[md5_g(I)]) + k;
+    }
+    a = d;
+    d = c;
+    c = b;
+    b = b + rotl32(u, md5_s(I));
+    md5_keyed_rounds<I + 1, BLK, VW, FT_FMA, KC_TABLE>(a, b, c, d, kc, rows, m0, m1);
   }
 }
 
-// The partition a mesh shard searches part of (the mesh kernels,
-// hash_mesh_kernel and md5_mesh_kernel): the launch's cursor and the
-// partition's thread-byte run tb_lo .. tb_lo + tbc - 1.  A shard's own
-// Layout is a slice of it, a run of thread bytes or a span of chunks.
-struct MeshOrigin {
-  uint32_t chunk0;
-  uint32_t tb_lo;
-  uint32_t tbc;
+// The launch's constants of an N_BLOCKS-block tail whose run starts at
+// message word VW, as the candidate loop reads them: made once per thread
+// from the prefix state init[4] and the rows base[16 * N_BLOCKS] (shared
+// memory in the kernels).  The first block's table of K[i] + m[g] takes 56
+// registers or so; with the second block's too, ptxas gave the two-block
+// kernels 128-149 registers, some spilling, so a two-block tail's second
+// row is read anew from the rows for every candidate instead.
+template <int VW, int N_BLOCKS, bool FT_FMA, bool KC_TABLE = true, class KcRead = void>
+struct Md5Tail {
+  static_assert(VW >= 0 && VW < 16, "the run starts in the first block");
+  uint32_t init[4];
+  // a, b, c, d after the first block's rounds 0..VW-1
+  uint32_t hoisted[4];
+  // K[i] + m[g] of the first block's round i (the run's rounds' entries
+  // are never read)
+  uint32_t kc[64];
+  // the first block's row (read where !KC_TABLE)
+  uint32_t row[16];
+  // the rows' words VW and VW + 1 (0 past the tail)
+  uint32_t row0, row1;
+  // the second block's row
+  const uint32_t* rows1;
+
+  DISTPOW_HD Md5Tail(const uint32_t* init_, const uint32_t* base) : rows1(base + 16) {
+    DISTPOW_UNROLL
+    for (int i = 0; i < 4; ++i) init[i] = init_[i];
+    DISTPOW_UNROLL
+    for (int i = 0; i < 16; ++i) row[i] = base[i];
+    DISTPOW_UNROLL
+    for (int i = 0; i < 64; ++i) kc[i] = md5_k(i) + base[md5_g(i)];
+    row0 = base[VW];
+    row1 = VW + 1 < 16 * N_BLOCKS ? base[VW + 1] : 0u;
+    uint32_t a = init[0], b = init[1], c = init[2], d = init[3];
+    md5_rounds<0, VW>(a, b, c, d, base);
+    hoisted[0] = a;
+    hoisted[1] = b;
+    hoisted[2] = c;
+    hoisted[3] = d;
+  }
+
+  // The state after the tail blocks of candidate (tb, chunk), of which the
+  // MW trailing digest words are defined.
+  template <int MW>
+  DISTPOW_HD void state(const Layout& L, uint32_t tb, uint32_t chunk, uint32_t st[4]) const {
+    uint32_t first, second;
+    var_words<false>(L, tb, chunk, first, second);
+    const uint32_t m0 = row0 | first, m1 = row1 | second;
+    uint32_t a = hoisted[0], b = hoisted[1], c = hoisted[2], d = hoisted[3];
+    if constexpr (std::is_void_v<KcRead>)
+      md5_keyed_rounds<VW, 0, VW, FT_FMA, KC_TABLE>(a, b, c, d, kc, row, m0, m1);
+    else
+      md5_keyed_rounds<VW, 0, VW, FT_FMA, KC_TABLE>(a, b, c, d, KcRead{kc}, row, m0, m1);
+    st[0] = init[0] + a;
+    st[1] = init[1] + b;
+    st[2] = init[2] + c;
+    st[3] = init[3] + d;
+    if constexpr (N_BLOCKS == 2) {
+      a = st[0], b = st[1], c = st[2], d = st[3];
+      md5_keyed_rounds<0, 1, VW, FT_FMA, KC_TABLE>(
+          a, b, c, d, kc, static_cast<const volatile uint32_t*>(rows1), m0, m1);
+      st[0] += a;
+      st[1] += b;
+      st[2] += c;
+      st[3] += d;
+    }
+  }
 };
 
-// A shard's local flat index f (or SENTINEL) as the partition's flat
-// index: chunk-major over the whole run, (chunk - chunk0) * tbc + (tb -
-// tb_lo), the same expression for a thread-byte slice and a chunk span, a
-// power-of-two run or not.  Within a shard it grows with f, so the
-// shard's first hit maps to its least partition index, and the least
-// across shards is the partition's first hit.  The caller keeps every
-// partition index of the launch below 2^31.
-template <bool POW2>
-DISTPOW_HD uint32_t mesh_global_index(const Layout& L, const MeshOrigin& o, uint32_t f) {
-  if (f == SENTINEL) return SENTINEL;
-  uint32_t tb, chunk;
-  decode<POW2>(L, f, tb, chunk);
-  return (chunk - o.chunk0) * o.tbc + (tb - o.tb_lo);
-}
+// MD5 built for tails whose run starts at message word VW (Md5<VW> below),
+// with u = f + t in the form FT_FMA, the first block's K[i] + m[g] from a
+// table (KC_TABLE; the Tail's own, or read by KcRead{table}[i]) or added at
+// each round.  A one-block tail holds the run, the 0x80 byte and the 8-byte
+// length, so its run starts at word 13 at the latest; a two-block tail's
+// starts anywhere in the first block.
+template <int VW, bool FT_FMA, bool KC_TABLE = true, class KcRead = void>
+struct Md5Keyed : Block16 {
+  static constexpr int STATE_WORDS = 4;
+  static constexpr int DIGEST_WORDS = 4;
+  static constexpr bool BIG_ENDIAN_WORDS = false;
+  static constexpr int VAR_WORD = VW;
 
-// The MD5 state after the N_BLOCKS tail blocks of candidate (tb, chunk).
-// init[4] is the absorbed prefix state, base[16 * N_BLOCKS] the tail's
-// constant words.
-template <int N_BLOCKS>
-DISTPOW_HD void tail_state(const uint32_t* init, const uint32_t* base, const Layout& L,
-                           uint32_t tb, uint32_t chunk, uint32_t st[4]) {
-  // the variable bytes, placed at their shift: at most 5 bytes + 3 bytes of
-  // offset, so they span the words var_word and var_word + 1
-  const uint64_t v = ((uint64_t)tb | ((uint64_t)(chunk & L.chunk_mask) << 8))
-                     << L.var_shift;
-  const uint32_t lo = (uint32_t)v;
-  const uint32_t hi = (uint32_t)(v >> 32);
-  st[0] = init[0];
-  st[1] = init[1];
-  st[2] = init[2];
-  st[3] = init[3];
-#if defined(__CUDA_ARCH__)
-#pragma unroll
-#endif
-  for (int blk = 0; blk < N_BLOCKS; ++blk) {
-    uint32_t m[16];
-#if defined(__CUDA_ARCH__)
-#pragma unroll
-#endif
-    for (int w = 0; w < 16; ++w) {
-      const int word = blk * 16 + w;
-      m[w] = base[word] | (word == L.var_word ? lo : 0u) |
-             (word == L.var_word + 1 ? hi : 0u);
-    }
+  static constexpr bool builds(int n_blocks) { return n_blocks == 2 || VW <= 13; }
+
+  template <int N_BLOCKS>
+  using Tail = Md5Tail<VW, N_BLOCKS, FT_FMA, KC_TABLE, KcRead>;
+
+  static DISTPOW_HD void block(uint32_t st[4], const uint32_t m[16]) { md5_compress(st, m); }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[4], const uint32_t m[16]) {
     md5_compress(st, m);
   }
-}
+};
 
-// Does candidate (tb, chunk) meet the difficulty?  masks[] holds the
-// MASK_WORDS trailing digest-word masks.
-template <int MASK_WORDS, int N_BLOCKS>
-DISTPOW_HD bool candidate_hits(const uint32_t* init, const uint32_t* base,
-                               const uint32_t* masks, const Layout& L,
-                               uint32_t tb, uint32_t chunk) {
-  uint32_t st[4];
-  tail_state<N_BLOCKS>(init, base, L, tb, chunk, st);
-  uint32_t acc = 0;
-#if defined(__CUDA_ARCH__)
-#pragma unroll
-#endif
-  for (int j = 0; j < MASK_WORDS; ++j) acc |= st[4 - MASK_WORDS + j] & masks[j];
-  return acc == 0;
-}
-
-#if defined(__CUDACC__)
-// The kernels' min across the grid, after each thread's first hit: per warp
-// (__reduce_min_sync), then one atomicMin per block into *out, which the
-// wrapper set to SENTINEL on the same stream before the launch.  Every
-// thread of the block calls it.
-template <int THREADS>
-__device__ __forceinline__ void block_min_to(uint32_t best, uint32_t* out) {
-  __shared__ uint32_t warp_min[THREADS / 32];
-  best = __reduce_min_sync(0xFFFFFFFFu, best);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x / 32] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t m = warp_min[0];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) m = min(m, warp_min[w]);
-    if (m != SENTINEL) atomicMin(out, m);
-  }
-}
-
-// The host side of every solo and mesh search's C function: calls
-// launch(MW, NB, POW2), each a std::integral_constant, at the kernel keys
-// of a launch of n flat indices: mask_words 1-4 or FULL (the digest's
-// words), n_blocks 1 or 2, a power-of-two run or not.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a configuration no
-// kernel was built for.
-template <int FULL, class Launch>
-int launch_keyed(int mask_words, int n_blocks, bool pow2, uint32_t n, Launch launch) {
-  if (n == 0) return 0;
-  auto at_mw = [&](auto nb) {
-    auto go = [&](auto mw) {
-      if (pow2) launch(mw, nb, std::true_type{});
-      else launch(mw, nb, std::false_type{});
-      return true;
-    };
-    if (mask_words == FULL) return go(std::integral_constant<int, FULL>{});
-    switch (mask_words) {
-      case 1: return go(std::integral_constant<int, 1>{});
-      case 2: return go(std::integral_constant<int, 2>{});
-      case 3: return go(std::integral_constant<int, 3>{});
-      case 4: return go(std::integral_constant<int, 4>{});
-      default: return false;
-    }
-  };
-  const bool built = n_blocks == 1   ? at_mw(std::integral_constant<int, 1>{})
-                     : n_blocks == 2 ? at_mw(std::integral_constant<int, 2>{})
-                                     : false;
-  if (!built) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The host side of every group search's C function: checks the group's
-// configuration, then calls launch(std::integral_constant<int, N_BLOCKS>,
-// grid) with the (grid_x, n_slots) grid.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a configuration no kernel was built for.
-template <class Launch>
-int launch_group(int n_blocks, int n_slots, uint32_t batch, int grid_x, Launch launch) {
-  if (n_slots == 0 || batch == 0) return 0;
-  if ((n_blocks != 1 && n_blocks != 2) || n_slots < 0 || n_slots > 65535 || grid_x < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(grid_x, n_slots);
-  if (n_blocks == 1) {
-    launch(std::integral_constant<int, 1>{}, grid);
-  } else {
-    launch(std::integral_constant<int, 2>{}, grid);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-#endif  // __CUDACC__
+// md5's kernels: the FMA-pipe form of u = f + t and the first block's
+// table.  tools/round_variants.py times the other forms beside it: u as
+// an IADD3 ran 1.9 % slower, the row word added per round 0.3 % faster
+// (within the turns' spread), the table in constant memory 0.8 % faster
+// at 29 registers, which the kernels cannot take (a __constant__ table is
+// one for all streams; PERF.md).
+template <int VW>
+struct Md5 : Md5Keyed<VW, true> {};
 
 }  // namespace distpow

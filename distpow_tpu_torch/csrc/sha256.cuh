@@ -41,7 +41,8 @@ DISTPOW_HD constexpr uint32_t sha256_k(int i) {
 // FMA = true routes sha256_rounds' adds and shifts to the FMA pipe: every
 // sum of two or three terms as IMADs (add_fma), the schedule's plain
 // shifts as IMAD.HI (shr_fma).  false is the plain form, all on the ALU
-// pipe but a few VIADDs.
+// pipe but a few VIADDs (tools/round_variants.py times it beside the
+// kernels).
 template <bool FMA>
 DISTPOW_HD uint32_t add2(uint32_t x, uint32_t y) {
   if constexpr (FMA) return add_fma(x, y);
@@ -119,16 +120,28 @@ DISTPOW_HD void sha256_compress(uint32_t st[8], const uint32_t m[16]) {
   }
 }
 
+// The plain form is bound by the ALU pipe: every instruction but a few
+// VIADDs issues there, at 64 thread results a clock per SM, while the FMA
+// pipe beside it idles.  So the rounds put their sums (the two- and
+// three-term adds of t1, E, A, each schedule word and the digest) on the
+// FMA pipe as IMADs and the schedule's plain shifts as IMAD.HI (FMA =
+// true), as sha256d's do: 1211 ALU-pipe instructions a hash become 936.
+// Asking for four resident blocks keeps its 47 registers but reads the
+// operands anew per candidate, and ran 1.1 % faster than the bare launch
+// bounds, five blocks 0.3 % (tools/round_variants.py, PERF.md).
 struct Sha256 : Block16 {
   static constexpr int STATE_WORDS = 8;
   static constexpr int DIGEST_WORDS = 8;
   static constexpr bool BIG_ENDIAN_WORDS = true;
+  static constexpr int MIN_BLOCKS_PER_SM = 4;
 
-  static DISTPOW_HD void block(uint32_t st[8], const uint32_t m[16]) { sha256_compress<8>(st, m); }
+  static DISTPOW_HD void block(uint32_t st[8], const uint32_t m[16]) {
+    sha256_compress<8, true>(st, m);
+  }
 
   template <int MW>
   static DISTPOW_HD void last(uint32_t st[8], const uint32_t m[16]) {
-    sha256_compress<MW>(st, m);
+    sha256_compress<MW, true>(st, m);
   }
 };
 
@@ -140,13 +153,9 @@ struct Sha256 : Block16 {
 // second block and its initial state are constants, so their K + w and the
 // first rounds' sums fold at compile time.
 //
-// The plain form is bound by the ALU pipe: every instruction but a few
-// VIADDs issues there, at 64 thread results a clock per SM, while the FMA
-// pipe beside it idles.  So both stages put their sums (the two- and
-// three-term adds of t1, E, A, each schedule word and the digest) on the
-// FMA pipe as IMADs and the schedule's plain shifts as IMAD.HI (FMA =
-// true; plain sha256 keeps the plain form).  That takes the timed loop from
-// 2481 ALU-pipe instructions a hash to 1950, and 1140 on the FMA pipe.
+// Both stages take the FMA-pipe form of Sha256's rounds (FMA = true).
+// That takes the timed loop from 2481 ALU-pipe instructions a hash to
+// 1950, and 1140 on the FMA pipe.
 // Those sums need more registers (64), so the kernel asks for five
 // resident blocks (48 registers), which also reads the launch's operands
 // anew for every candidate.

@@ -10,6 +10,12 @@ at import time: the first ``load_library`` call builds that one library
 and loads it; ``build()`` builds them all (a backend's ``warmup`` builds its
 own before the first request).
 
+md5's source is built once per tail layout: ``md5_search.cu`` with
+``-DDISTPOW_VAR_WORD=<w>`` holds the kernels of the tails whose run of
+variable bytes starts at message word ``w`` (``VAR_WORDS``), and its
+library, ``md5_search.vw<w>`` here, is built at the first launch at that
+layout, the way the reference's Pallas step compiled per ``TailSpec``.
+
 Each library ``<model>_search`` exports three C functions:
 ``distpow_<model>_search``, the search of one request,
 ``distpow_<model>_group_search``, the scheduler's search of a group of
@@ -41,6 +47,10 @@ BUILD_DIR = os.environ.get("DISTPOW_TORCH_BUILD_DIR") or os.path.join(PKG_DIR, "
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile", "0")
 
+# Sources built once per var_word, the message word where a tail's run of
+# variable bytes starts: source -> the var_words it is built for
+VAR_WORDS = {"md5_search": range(0, 16)}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # What the last build() did: seconds of wall time (0.0 when every library
@@ -66,23 +76,56 @@ def sources() -> List[str]:
             for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))]
 
 
-def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` at its current contents lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_key(name: str, var_word: Optional[int] = None) -> str:
+    """The library of source ``name``, at ``var_word`` for a source built
+    per var_word (``md5_search.vw1``); raises for a var_word it is not
+    built for, or for none where it needs one."""
+    if name not in VAR_WORDS:
+        if var_word is not None:
+            raise ValueError(f"{name} is not built per var_word")
+        return name
+    if var_word not in VAR_WORDS[name]:
+        raise ValueError(f"{name} is built for var_words {VAR_WORDS[name]}, not {var_word}")
+    return f"{name}.vw{var_word}"
+
+
+def libraries(names: Optional[Sequence[str]] = None) -> List[str]:
+    """The libraries of ``names`` (sources or libraries; all sources by
+    default): a source built per var_word stands for all of its libraries."""
+    out = []
+    for name in sources() if names is None else names:
+        if name in VAR_WORDS:
+            out += [library_key(name, w) for w in VAR_WORDS[name]]
+        else:
+            out.append(name)
+    return out
+
+
+def _split(key: str):
+    """A library's source and ``-D`` flags."""
+    name, _, vw = key.partition(".vw")
+    return name, ([f"-DDISTPOW_VAR_WORD={int(vw)}"] if vw else [])
+
+
+def library_path(key: str) -> str:
+    """Where library ``key``'s build at its source's current contents
+    lives."""
+    name, defines = _split(key)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{key}_{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
-    """Compile every source (or those of ``names``) not built at its
-    current contents, one nvcc each, all at once; return ``{name: library
-    path}``."""
+    """Compile every library (or those of ``names``, sources or libraries,
+    as ``libraries`` reads them) not built at its source's current
+    contents, one nvcc each, all at once; return ``{library: path}``."""
     global last_build_s, last_build_log
-    paths = {name: library_path(name) for name in (sources() if names is None else names)}
+    paths = {key: library_path(key) for key in libraries(names)}
     todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
     last_build_s, last_build_log = 0.0, {}
     if not todo:
@@ -91,11 +134,12 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.monotonic()
     procs = {}
-    for name, path in todo.items():
+    for key, path in todo.items():
+        name, defines = _split(key)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, cmd)
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), tmp, cmd)
     failed = []
     for name, (proc, tmp, cmd) in procs.items():
         out, _ = proc.communicate()
@@ -153,11 +197,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     mesh.restype = i32
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build if needed, load ``csrc/<name>.cu``'s library once, declare types."""
+def load_library(name: str, var_word: Optional[int] = None) -> ctypes.CDLL:
+    """Build if needed, load ``csrc/<name>.cu``'s library (at ``var_word``
+    for a source built per var_word) once, declare types."""
+    key = library_key(name, var_word)
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(build([name])[name])
+        if key not in _libs:
+            path = library_path(key)
+            # built already (by build() of several at once): no build call,
+            # which would reset last_build_s
+            lib = ctypes.CDLL(path if os.path.exists(path) else build([key])[key])
             _declare(name, lib)
-            _libs[name] = lib
-        return _libs[name]
+            _libs[key] = lib
+        return _libs[key]

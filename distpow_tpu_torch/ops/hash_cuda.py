@@ -9,7 +9,9 @@ same C interface: ``md5_search`` (``md5.cuh``), ``sha256_search`` and
 ``sha384_search`` (``sha512.cuh``), ``sha3_256_search`` (``sha3.cuh``) and
 ``blake2b_256_search`` (``blake2b.cuh``).  ``hash_search`` checks the
 operands against the model, allocates the result cell, launches the
-model's kernel on the current stream and counts the launch.  For CUDA
+model's kernel on the current stream and counts the launch (md5's
+kernels are built per tail layout, each layout's library at its first
+launch, or by ``load_kernels``).  For CUDA
 tensors it launches or raises; only for tensors on the CPU does it run the
 plain version (``plain_search``, the same function in PyTorch).  No
 ``try`` falls back from one to the other.
@@ -67,6 +69,14 @@ KERNELS = {
 # difficulty that reads more trailing words than this runs the full-digest
 # kernel on masks padded with leading zero words, which every candidate meets.
 MASK_WORD_KEYS = (1, 2, 3, 4)
+
+# The kernels built for each tail layout (md5.cuh's Md5<VW>): model ->
+# {n_blocks: the var_words a kernel exists for}.  md5's run starts in the
+# tail's first block, whose remainder of the nonce is at most 63 bytes: at
+# word 0-15 of a two-block tail, and at word 13 at the latest in a
+# one-block tail, which also holds the 0x80 byte and the 8-byte length.
+# ops/packing.py produces no other md5 layout, whatever the chunk width.
+KEYED_LAYOUTS = {"md5": {1: range(0, 14), 2: range(0, 16)}}
 
 
 class LaunchCounter:
@@ -143,7 +153,51 @@ def kernel_layout(tb_loc, chunk_locs, model: HashModel) -> Tuple[int, int, int]:
     width = len(chunk_locs)
     if width > 4:
         raise ValueError("at most 4 variable chunk bytes")
-    return b * wpb + w, s, (1 << (8 * width)) - 1
+    var_word = b * wpb + w
+    keyed = KEYED_LAYOUTS.get(model.name)
+    if keyed is not None and all(var_word not in words for words in keyed.values()):
+        raise ValueError(f"no {model.name} kernel is built for a run at message word "
+                         f"{var_word}")
+    return var_word, s, (1 << (8 * width)) - 1
+
+
+def check_tail(model: HashModel, n_blocks: int, var_word: int, tb_loc) -> None:
+    """Raises unless a kernel of ``model`` exists for a run at message word
+    ``var_word`` of an ``n_blocks``-block tail."""
+    if var_word >= model.words_per_block * n_blocks:
+        raise ValueError(f"thread byte at {tb_loc} is outside the {n_blocks}-block tail")
+    keyed = KEYED_LAYOUTS.get(model.name)
+    if keyed is not None and var_word not in keyed.get(n_blocks, ()):
+        raise ValueError(f"no {model.name} kernel is built for a run at message word "
+                         f"{var_word} of a {n_blocks}-block tail")
+
+
+def _library(name: str, model: HashModel, var_word: int):
+    """The loaded library of kernel ``name`` that serves a run at message
+    word ``var_word``: the one library of the kernel, or for a model whose
+    kernels are built per tail layout, the one built for ``var_word``
+    (built now if it is not yet)."""
+    from ._build import load_library
+
+    return load_library(name, var_word if model.name in KEYED_LAYOUTS else None)
+
+
+def load_kernels(model: HashModel, tails) -> None:
+    """Build, all at once, and load the libraries of ``model``'s kernel
+    that launches at the tail layouts ``tails`` (``(tb_loc, chunk_locs)``
+    pairs) need: its one library, or for a model whose kernels are built per
+    tail layout, the one of each layout's var_word."""
+    from ._build import build, library_key, load_library
+
+    name = kernel_name(model)
+    if model.name not in KEYED_LAYOUTS:
+        load_library(name)
+        return
+    var_words = sorted({kernel_layout(tb_loc, chunk_locs, model)[0]
+                        for tb_loc, chunk_locs in tails})
+    build([library_key(name, w) for w in var_words])
+    for w in var_words:
+        load_library(name, w)
 
 
 def default_grid(n: int, sm_count: int) -> int:
@@ -196,11 +250,8 @@ def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands
     the three ``origin`` words the mesh shard's) over ``n`` flat indices on
     the current stream of the operands' device; return its result cell."""
     var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
-    if var_word >= model.words_per_block * ops.n_blocks:
-        raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
-    from ._build import load_library
-
-    lib = load_library(name)
+    check_tail(model, ops.n_blocks, var_word, tb_loc)
+    lib = _library(name, model, var_word)
     mw = kernel_mask_words(ops.mask_words, model)
     masks = F.pad(ops.masks, (mw - ops.mask_words, 0)) if mw != ops.mask_words else ops.masks
     tbc = ops.tb_count
@@ -330,11 +381,10 @@ def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, 
     if not torch.cuda.is_available():
         raise RuntimeError("hash_group_search on a CUDA device, but CUDA is not available")
     var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
-    if var_word >= model.words_per_block * ops.n_blocks:
-        raise ValueError(f"thread byte at {tb_loc} is outside the {ops.n_blocks}-block tail")
-    from ._build import group_function, load_library
+    check_tail(model, ops.n_blocks, var_word, tb_loc)
+    from ._build import group_function
 
-    lib = load_library(name)
+    lib = _library(name, model, var_word)
     dev = ops.device
     with torch.cuda.device(dev):
         grid_x = group_grid(batch, ops.n_slots,

@@ -4,10 +4,11 @@ Builds both checkouts' kernels (each with its own sources and build code,
 in its own process, the two at once), then prints per model: whether
 ptxas gave every specialization the same registers, whether every
 specialization's SASS loop has the same length, the same two for the
-group kernel (the scheduler's search of a group of slots), the timed
-specialization's
-(mask words 2, one tail block, power-of-two run) registers, spills and
-loop instructions by pipe on each side, and the main-path launch time
+group kernel (the scheduler's search of a group of slots), the number of
+specializations on each side, the timed specialization's (mask words 2,
+one tail block, power-of-two run, and for md5's kernels, built per tail
+layout, the main path's var_word) registers, spills and loop
+instructions by pipe on each side, and the main-path launch time
 (difficulty 16, as ``operand_placement`` times it) in ``PAIRS`` pairs of
 turns, each turn in its own process, the pairs in alternating order (other
 then this, this then other, ...).  Both sides must agree on each launch's
@@ -45,19 +46,23 @@ PAIRS = 6
 
 def build_side(proc, what: str, cs) -> dict:
     """Per kernel: ptxas per specialization and the SASS loop per
-    specialization, from one side's build child."""
+    specialization, from one side's build child (the libraries of a kernel
+    built per tail layout, ``md5_search.vw<w>``, merged into its own)."""
     from distpow_tpu_torch.ops import _build
 
     out = finish(proc, f"build ({what})")
     kernels = {}
-    for kernel, path in out["paths"].items():
+    for library, path in out["paths"].items():
         sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", path],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        kernels[kernel] = {"ptxas": cs.parse_ptxas(out["log"].get(kernel, "")),
-                           "loops": cs.spec_sass_loops(sass),
-                           "issued": cs.spec_sass_loops(sass, path=True),
-                           "group_ptxas": cs.parse_group_ptxas(out["log"].get(kernel, "")),
-                           "group_loops": cs.group_sass_loops(sass)}
+        log = out["log"].get(library, "")
+        kernel = kernels.setdefault(library.partition(".vw")[0], {
+            "ptxas": {}, "loops": {}, "issued": {}, "group_ptxas": {}, "group_loops": {}})
+        kernel["ptxas"].update(cs.parse_ptxas(log))
+        kernel["loops"].update(cs.spec_sass_loops(sass))
+        kernel["issued"].update(cs.spec_sass_loops(sass, path=True))
+        kernel["group_ptxas"].update(cs.parse_group_ptxas(log))
+        kernel["group_loops"].update(cs.group_sass_loops(sass))
     return kernels
 
 
@@ -80,7 +85,6 @@ def main(argv) -> int:
         for side in (("other", "this") if i % 2 == 0 else ("this", "other")):
             runs[side].append(finish(child(roots[side], "time", models), f"timing ({side})"))
     agree = True
-    timed = (2, 1, True)
     rows = {}
     for m in models:
         k = KERNELS[m]
@@ -103,17 +107,30 @@ def main(argv) -> int:
             "same_group_loop_lengths":
                 {s: sum(v.values()) for s, v in a["group_loops"].items()} ==
                 {s: sum(v.values()) for s, v in b["group_loops"].items()},
-            "timed": {side: {**built[side][k]["ptxas"][timed],
-                             "loop": sum(built[side][k]["loops"][timed].values()),
-                             "issued": sum(built[side][k]["issued"][timed].values()),
-                             **cs.pipe_split(built[side][k]["issued"][timed])}
-                      for side in built},
+            "specializations": {side: len(built[side][k]["loops"]) for side in built},
+            "group_specializations": {side: len(built[side][k]["group_loops"])
+                                      for side in built},
+            "timed": {side: timed_row(built[side][k], cs) for side in built},
             "results_agree": same}
     print(json.dumps({"verdicts": verdicts(rows.values())}), flush=True)
     for row in rows.values():
         print(json.dumps(row), flush=True)
     print(json.dumps({"results_agree": agree}), flush=True)
     return 0 if agree else 1
+
+
+def timed_row(kernel: dict, cs) -> dict:
+    """One side's timed specialization (mask words 2, one tail block, a
+    power-of-two run; for a kernel built per tail layout, the main path's
+    var_word): ptxas, loop length, what one candidate issues, by pipe.  So
+    a model whose set of specializations changed (md5, keyed by var_word
+    since) is still compared at the launch both sides time."""
+    key = (2, 1, True)
+    if key not in kernel["loops"]:
+        key += (cs.MAIN_VAR_WORD,)
+    return {"key": cs.spec_label(key), **kernel["ptxas"].get(key, {}),
+            "loop": sum(kernel["loops"][key].values()),
+            "issued": sum(kernel["issued"][key].values()), **cs.pipe_split(kernel["issued"][key])}
 
 
 def verdicts(rows) -> dict:

@@ -69,8 +69,9 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    # the two libraries this run loads, one nvcc each, both at once
-    _build.build([KERNELS["md5"], KERNELS["sha512"]])
+    # the libraries this run's 4-byte nonces launch (md5's for var_word 1),
+    # one nvcc each, all at once
+    _build.build([_build.library_key(KERNELS["md5"], 1), KERNELS["sha512"]])
     cards = [torch.device("cuda", i) for i in range(n_cards)]
     first = cards[0]
     mesh = mesh_search.make_mesh(cards)

@@ -147,7 +147,7 @@ def main() -> int:
     for v, proc in builds.items():
         log = finish(proc, f"build ({v})")["log"]
         ptxas[v] = {k: {cs.spec_label(s): r for s, r in sorted(cs.parse_ptxas(log[k]).items())}
-                    for k in sorted(log) if k != "md5_search"}
+                    for k in sorted(log) if not k.startswith("md5_search")}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "operand_placement.json"), "w") as fh:
         json.dump(ptxas, fh, indent=1)

@@ -28,3 +28,14 @@ extern "C" int variant_search(const void* init, const void* base, const void* ma
   else launch_search_kernel<V, 2, 1, true>(i, b, m, L, n, o, grid, s);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The table of K[i] + m[g] of a variant that reads it from constant memory
+// (Md5KcConst): written before a launch on the default stream.
+extern "C" int variant_set_kc(const uint32_t* kc) {
+#if defined(VARIANT_KC_CONST)
+  return static_cast<int>(cudaMemcpyToSymbol(distpow::kVariantKc, kc, 64 * sizeof(uint32_t)));
+#else
+  (void)kc;
+  return 0;
+#endif
+}

@@ -1,11 +1,19 @@
-// Formulations of the BLAKE2b-256 and SHA-512/384 rounds that move work
-// onto Hopper's FMA pipe, as hashes for the search scaffold
-// (hash_search.cuh): the designs that round_variants.py builds and times
-// beside the kernels in csrc/.  None of them is a kernel of the port.
+// Formulations of the MD5, SHA-256, BLAKE2b-256 and SHA-512/384 rounds
+// that move work onto Hopper's FMA pipe or off it, as hashes for the search
+// scaffold (hash_search.cuh): the designs that round_variants.py builds
+// and times beside the kernels in csrc/.  None of them is a kernel of the
+// port.
 //
-// A variant differs from csrc/blake2b.cuh or csrc/sha512.cuh only in the
-// form of its 64-bit sums (SumForm) and rotates (RotForm, fma_forms.cuh),
-// and in the resident blocks it asks for (Resident):
+// A variant differs from its csrc/ hash only in the form of its sums and
+// rotates, and in the resident blocks it asks for (Resident):
+//   Md5Keyed<VW, FT_FMA, KC_TABLE>, Md5KcConst<VW>
+//       md5.cuh's rounds with u = f + t as an IMAD or an IADD3, K[i] + m[g]
+//       from a table in registers, in constant memory, or added per round
+//   Sha256Unbounded, Sha256Plain
+//       sha256.cuh's Sha256 without its resident blocks, and in the plain
+//       form (FMA = false) too
+// and, for BLAKE2b-256 and SHA-512/384, their 64-bit sums (SumForm) and
+// rotates (RotForm, fma_forms.cuh):
 //   Blake2bAs<BlakeForms<SUM, R24, R16, R63, EVERY_OTHER>>
 //       every sum of a G in form SUM, its rotates by 24, 16 and 63 in forms
 //       R24, R16 and R63 (in every G, or with EVERY_OTHER in G 0, 2, 4 and
@@ -24,6 +32,8 @@
 
 #include "blake2b.cuh"
 #include "fma_forms.cuh"
+#include "md5.cuh"
+#include "sha256.cuh"
 #include "sha512.cuh"
 
 namespace distpow {
@@ -53,6 +63,62 @@ DISTPOW_HD uint64_t shr64_form(uint64_t x) {
 template <class H, int N>
 struct Resident : H {
   static constexpr int MIN_BLOCKS_PER_SM = N;
+};
+
+// ---- MD5 and SHA-256 ----------------------------------------------------
+
+// md5.cuh's Md5<VW> with u = f + t of every round as an IMAD (FT_FMA) or
+// an IADD3, and the first block's K[i] + m[g] from the per-thread table or
+// added at each round: Md5Keyed<VW, FT_FMA, KC_TABLE>, used as it is.  And
+// with the table in constant memory (Md5KcConst<VW>), where an IMAD reads
+// it as an operand, with no register and no instruction of its own: the
+// kernel parameter block would give the same operand, but the kernels take
+// the rows on the device, so the tool writes the table for each launch's
+// rows (variant_set_kc, round_variants.cu) before it launches, one stream
+// at a time.  On the host the variant reads the per-thread table.
+#if defined(__CUDACC__)
+__constant__ uint32_t kVariantKc[64];
+#endif
+
+struct ConstKc {
+  const uint32_t* table;
+  DISTPOW_HD uint32_t operator[](int i) const {
+#if defined(__CUDA_ARCH__)
+    return kVariantKc[i];
+#else
+    return table[i];
+#endif
+  }
+};
+
+template <int VW>
+struct Md5KcConst : Md5Keyed<VW, true, true, ConstKc> {};
+
+// sha256.cuh's Sha256 without its resident blocks (the bare launch
+// bounds)
+struct Sha256Unbounded : Block16 {
+  static constexpr int STATE_WORDS = 8;
+  static constexpr int DIGEST_WORDS = 8;
+  static constexpr bool BIG_ENDIAN_WORDS = true;
+  static DISTPOW_HD void block(uint32_t st[8], const uint32_t m[16]) { Sha256::block(st, m); }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[8], const uint32_t m[16]) {
+    Sha256::template last<MW>(st, m);
+  }
+};
+
+// and in the plain form too, all on the ALU pipe but a few VIADDs (the
+// kernel before it took the FMA-pipe form)
+struct Sha256Plain : Sha256Unbounded {
+  static DISTPOW_HD void block(uint32_t st[8], const uint32_t m[16]) {
+    sha256_compress<8, false>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[8], const uint32_t m[16]) {
+    sha256_compress<MW, false>(st, m);
+  }
 };
 
 // ---- BLAKE2b-256 -------------------------------------------------------

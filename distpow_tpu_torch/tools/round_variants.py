@@ -1,7 +1,10 @@
-"""The FMA-pipe designs of the blake2b_256, sha512 and sha384 rounds,
-timed beside the kernels as built, on one card.
+"""The FMA-pipe designs of the md5, sha256, blake2b_256, sha512 and
+sha384 rounds, timed beside the kernels as built, on one card.
 
-``round_variants.cuh`` (beside this file) holds the BLAKE2b and SHA-512
+``round_variants.cuh`` (beside this file) holds md5's rounds with u = f +
+t as an IADD3 or an IMAD (``Md5Keyed``, built for the main path's var_word
+1), sha256's without resident blocks and in the plain form
+(``Sha256Unbounded``, ``Sha256Plain``), the BLAKE2b and SHA-512
 rounds with their 64-bit sums and rotates in the forms of
 ``fma_forms.cuh`` (the high limb of a sum as IMAD.X or through IMAD.WIDE,
 a rotate's limbs as IMAD + IMAD.HI), and a wrapper that asks for resident
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -49,7 +53,6 @@ REPO = os.path.dirname(PKG)
 SOURCE = os.path.join(PKG, "tools", "round_variants.cu")
 BUILD = os.path.join(PKG, "build", "round_variants")
 TURNS = 4
-TIMED_KEY = (2, 1, True)  # mask words, tail blocks, power-of-two run
 
 
 def blake(sum_="SUM_PLAIN", r24="ROT_SHF", r16="ROT_SHF", r63="ROT_SHF", every_other=False):
@@ -91,7 +94,20 @@ VARIANTS = {
     "sha384": ("sha384", "Sha384"),
     "sha384.big_half": ("sha384", sha(12, big="ROT_HALF")),
     "sha384.resident3": ("sha384", resident("Sha384", 3)),
+    "md5": ("md5", "Md5<1>"),
+    "md5.ft_alu": ("md5", "Md5Keyed<1, false>"),
+    "md5.rows": ("md5", "Md5Keyed<1, true, false>"),
+    "md5.kc_const": ("md5", "Md5KcConst<1>"),
+    "sha256": ("sha256", "Sha256"),
+    "sha256.unbounded": ("sha256", "Sha256Unbounded"),
+    "sha256.resident5": ("sha256", resident("Sha256", 5)),
+    "sha256.plain": ("sha256", "Sha256Plain"),
+    "sha256.plain.resident5": ("sha256", resident("Sha256Plain", 5)),
 }
+# The nonce lengths of the first-hit checks: one-block tails, and for md5,
+# whose variants are built for the main path's var_word 1 only, tails whose
+# run starts at word 1 (a 4-7 byte remainder)
+CHECK_NONCE_LENS = {"md5": (4, 5, 6, 7, 68, 71), "sha256": (4, 9, 20, 37, 40, 50)}
 
 
 def build(names):
@@ -104,8 +120,10 @@ def build(names):
     for name in names:
         # nvcc's -D splits at commas, so the type goes into a source file
         src, lib = os.path.join(BUILD, f"{name}.cu"), os.path.join(BUILD, f"lib{name}.so")
+        kc_const = "#define VARIANT_KC_CONST 1\n" if "KcConst" in VARIANTS[name][1] else ""
         with open(src, "w") as fh:
-            fh.write(f"#define VARIANT {VARIANTS[name][1]}\n#include \"round_variants.cu\"\n")
+            fh.write(f"{kc_const}#define VARIANT {VARIANTS[name][1]}\n"
+                     f"#include \"round_variants.cu\"\n")
         cmd = [nvcc, *_build.NVCC_FLAGS, "-I", os.path.dirname(SOURCE), "-I", _build.CSRC_DIR,
                "-o", lib, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -140,26 +158,43 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
-    fns, rows = {}, {}
+    fns, set_kc, rows = {}, {}, {}
     for name, (proc, lib) in build(names).items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
         sass = subprocess.run([_build.find_cuda_tool("cuobjdump"), "-sass", lib],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        issued = cs.spec_sass_loops(sass, path=True)[TIMED_KEY]
+        # mask words 2, one tail block, a power-of-two run (md5's at var_word 1)
+        timed = cs.timed_key(VARIANTS[name][0])
+        issued = cs.spec_sass_loops(sass, path=True)[timed]
         rows[name] = {"variant": name, "type": VARIANTS[name][1],
-                      **cs.parse_ptxas(log)[TIMED_KEY],
-                      "loop": sum(cs.spec_sass_loops(sass)[TIMED_KEY].values()),
+                      **cs.parse_ptxas(log)[timed],
+                      "loop": sum(cs.spec_sass_loops(sass)[timed].values()),
                       "issued": sum(issued.values()), **cs.pipe_split(issued)}
-        fn = ctypes.CDLL(lib).variant_search
+        dll = ctypes.CDLL(lib)
+        fn = dll.variant_search
         fn.argtypes = [vp, vp, vp, i32, i32, u32, u32, u32, i32, i32, i32, u32, u32, vp, i32, vp]
         fn.restype = i32
         fns[name] = fn
+        set_kc[name] = dll.variant_set_kc
+        set_kc[name].argtypes, set_kc[name].restype = [vp], i32
+    md5_k = [int(abs(math.sin(i + 1)) * (1 << 32)) & 0xFFFFFFFF for i in range(64)]
+    md5_g = [i if i < 16 else (5 * i + 1) % 16 if i < 32 else (3 * i + 5) % 16 if i < 48
+             else (7 * i) % 16 for i in range(64)]
+    tables = {}
 
     def launch(name, ops, spec, chunk0, n):
         model = get_hash_model(VARIANTS[name][0])
         vw, vs, cm = kernel_layout(spec.tb_loc, spec.chunk_locs, model)
+        if "KcConst" in VARIANTS[name][1] and tables.get(name) != spec.base_words[0]:
+            # the table of this launch's first row, before the launch
+            kc = np.array([(md5_k[i] + spec.base_words[0][md5_g[i]]) & 0xFFFFFFFF
+                           for i in range(64)], dtype=np.uint32)
+            torch.cuda.synchronize(dev)
+            if set_kc[name](kc.ctypes.data):
+                raise RuntimeError(f"{name}: writing the table failed")
+            tables[name] = spec.base_words[0]
         out = torch.full((), -1, dtype=torch.int32, device=dev)
         log_tbc = ops.tb_count.bit_length() - 1
         rc = fns[name](ops.init.data_ptr(), ops.base.data_ptr(), ops.masks.data_ptr(), 1,
@@ -188,7 +223,8 @@ def main(argv) -> int:
         model = get_hash_model(m)
         rng = np.random.default_rng(7)
         checks = []
-        for mw, nonce_len in ((1, 4), (1, 37), (2, 70), (2, 101), (1, 9), (2, 62)):
+        lens = CHECK_NONCE_LENS.get(m, (4, 37, 70, 101, 9, 62))
+        for mw, nonce_len in zip((1, 1, 2, 2, 1, 2), lens):
             spec = build_tail_spec(rng.integers(0, 256, size=nonce_len, dtype=np.uint8).tobytes(),
                                    4, model)
             masks = [0] * mw

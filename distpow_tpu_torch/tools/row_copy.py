@@ -78,8 +78,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("row_copy: this needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from distpow_tpu_torch.ops._build import load_library
-    from distpow_tpu_torch.ops.hash_cuda import KERNELS
+    from distpow_tpu_torch.models.registry import get_hash_model
+    from distpow_tpu_torch.ops.hash_cuda import load_kernels
+    from distpow_tpu_torch.ops.packing import build_tail_spec
     from distpow_tpu_torch.ops.operands import group_operands
     from distpow_tpu_torch.runtime.metrics import Metrics
     from distpow_tpu_torch.sched import BatchingScheduler
@@ -87,8 +88,10 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    for model in MODELS:  # built before any window is timed
-        load_library(KERNELS[model])
+    for model in MODELS:  # built before any window is timed: 4-byte nonces, widths 0-4
+        m = get_hash_model(model)
+        load_kernels(m, [(t.tb_loc, t.chunk_locs)
+                         for t in (build_tail_spec(bytes(4), w, m) for w in range(5))])
     forms = {"pinned": group_operands, "blocking": blocking_group_operands}
     out = {"host_ms": {name: {m: [] for m in MODELS} for name in forms}, "sync_debug": {}}
     try:

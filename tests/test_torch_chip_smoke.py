@@ -304,3 +304,59 @@ def test_mesh_kernel_parsers_keep_apart_from_the_solo_ones():
     assert cs.spec_sass_loops(sass) == {} and cs.group_sass_loops(sass) == {}
     # the kernels line names the mesh kernels' TPU counterpart
     assert cs.REPLACES_MESH.startswith("distpow_tpu/parallel/mesh_search.py:178 ")
+
+
+KEYED_PTXAS = """
+ptxas info    : Compiling entry function '_ZN7distpow18hash_search_kernelINS_3Md5ILi1EEELi2ELi1ELb1EEEvPKjS4_S4_NS_6LayoutEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow18hash_search_kernelINS_3Md5ILi1EEELi2ELi1ELb1EEEvPKjS4_S4_NS_6LayoutEjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 112 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow16hash_mesh_kernelINS_3Md5ILi14EEELi4ELi2ELb0EEEvPKjS4_S4_NS_6LayoutENS_10MeshOriginEjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow16hash_mesh_kernelINS_3Md5ILi14EEELi4ELi2ELb0EEEvPKjS4_S4_NS_6LayoutENS_10MeshOriginEjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 176 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow24hash_group_search_kernelINS_3Md5ILi13EEELi1EEEvPKjS4_S4_S4_S4_S4_iijjPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow24hash_group_search_kernelINS_3Md5ILi13EEELi1EEEvPKjS4_S4_S4_S4_S4_iijjPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 70 registers, used 1 barriers, 112 bytes smem
+"""
+
+
+def test_parsers_read_md5_var_word_keys():
+    """md5's kernels are built per tail layout: each key ends in the run's
+    first message word, the variants' Md5Keyed<VW, ...> too, and the other
+    hashes' keys keep their form."""
+    cs = _load()
+    assert cs.parse_ptxas(KEYED_PTXAS) == {(2, 1, True, 1): {"registers": 72, "spill_bytes": 0}}
+    assert cs.parse_ptxas(KEYED_PTXAS, cs.MESH_KEY) == {
+        (4, 2, False, 14): {"registers": 96, "spill_bytes": 0}}
+    assert cs.parse_group_ptxas(KEYED_PTXAS) == {(1, 13): {"registers": 70, "spill_bytes": 0}}
+    assert cs.spec_label((2, 1, True, 1)) == "mw2_nb1_pow2_vw1"
+    assert cs.spec_label((16, 2, False)) == "mw16_nb2_div"
+    variant = ("_ZN7distpow18hash_search_kernelINS_8Md5KeyedILi1ELb0EEELi2ELi1ELb1EEEvPKjS4_S4_"
+               "NS_6LayoutEjPj")
+    assert cs.name_key(variant, cs.KERNEL_KEY) == (2, 1, True, 1)
+    assert cs.timed_key("md5") == (2, 1, True, 1) and cs.timed_key("sha1") == (2, 1, True)
+    assert cs.group_key("md5", 2, 14) == (2, 14) and cs.group_key("sha256", 2, 14) == 2
+    sass = SASS.replace("18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEv",
+                        "18hash_search_kernelINS_3Md5ILi7EEELi4ELi1ELb1EEEv")
+    assert cs.spec_sass_loops(sass) == {(4, 1, True, 7): {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
+
+
+def test_compare_builds_times_the_main_path_key_on_either_side():
+    """A model whose set of specializations changed (md5, keyed by var_word
+    on one side only) is compared at the timed launch on both sides."""
+    from distpow_tpu_torch.tools.compare_builds import timed_row
+
+    cs = _load()
+    body = {"IADD3": 3, "IMAD": 2, "BRA": 1}
+    old = {"ptxas": {(2, 1, True): {"registers": 60, "spill_bytes": 0}},
+           "loops": {(2, 1, True): body}, "issued": {(2, 1, True): body}}
+    new = {"ptxas": {(2, 1, True, 1): {"registers": 70, "spill_bytes": 0}},
+           "loops": {(2, 1, True, 1): body, (2, 1, True, 5): {"IADD3": 9}},
+           "issued": {(2, 1, True, 1): body, (2, 1, True, 5): {"IADD3": 9}}}
+    assert timed_row(old, cs) == {"key": "mw2_nb1_pow2", "registers": 60, "spill_bytes": 0,
+                                  "loop": 6, "issued": 6, "alu": 3, "fma": 2, "fma_slots": 2,
+                                  "other": 1}
+    assert timed_row(new, cs)["key"] == "mw2_nb1_pow2_vw1"
+    assert timed_row(new, cs)["registers"] == 70

@@ -1,7 +1,7 @@
-"""Host twins of every kernel but md5's: the scaffold
-``csrc/hash_search.cuh`` with ``sha256.cuh``, ``sha1.cuh``,
-``ripemd160.cuh``, ``sha512.cuh``, ``sha3.cuh`` and ``blake2b.cuh``, built
-with g++.
+"""Host twins of the kernels: the scaffold ``csrc/hash_search.cuh`` with
+``sha256.cuh``, ``sha1.cuh``, ``ripemd160.cuh``, ``sha512.cuh``,
+``sha3.cuh`` and ``blake2b.cuh``, built with g++ (md5's, ``md5.cuh``, in
+``test_torch_md5_host.py``, and here its group and mesh bodies).
 
 The headers' functions are ``__host__ __device__``; compiled for the host
 they run the kernels' own decode, byte placement (big-endian for the SHA-1
@@ -14,9 +14,9 @@ hashing).  The in-place Keccak permutation is also held, lane for lane, to
 the straightforward formulation with a full rho-pi copy (kept here as the
 reference) for every last-round lane mask the kernels use.  And one slot
 of the scheduler's group kernel (its per-slot layout, ``slot_layout``, at
-the full digest and a power-of-two run) for all nine hashes, md5's from
-``md5.cuh``, against the port's plain group step; and one shard of the mesh
-kernel (the solo search over the shard's slice, its first hit remapped to
+the full digest and a power-of-two run) for all nine hashes, md5's over
+``md5.cuh``'s ``Md5<VW>`` at the launch's var_word, against the port's
+plain group step; and one shard of the mesh kernel (the solo search over the shard's slice, its first hit remapped to
 the partition's flat index by ``mesh_global_index``) for all nine, the
 least across a mesh's shards held to the port's plain mesh step.
 """
@@ -526,22 +526,24 @@ def test_wide_twin_first_hit_every_width(twins, name, mask_words, tail):
 
 
 # The run placed into a tail block's row by the switch on var_word
-# (hash_search.cuh message_block, place_run32): a struct with the 64-bit
+# (hash_search.cuh message_block, place_run16 and place_run32): a struct
+# with the 32-bit hashes' block and row width, and one with the 64-bit
 # hashes' block width and either row width.
 PLACE_SOURCE = r"""
 #include "hash_search.cuh"
 using namespace distpow;
 
-template <int ROW>
+template <int BLOCK, int ROW>
 struct Row {
-  static constexpr int BLOCK_WORDS = 32, ROW_WORDS = ROW;
+  static constexpr int BLOCK_WORDS = BLOCK, ROW_WORDS = ROW;
 };
 
 extern "C" int place(int row_words, int var_word, int blk, uint32_t first, uint32_t second,
                      const uint32_t* base, uint32_t* m) {
   Layout L{0, 0, 1, 0, var_word, 0, 0};
-  if (row_words == 32) message_block<Row<32>>(base, L, first, second, blk, m);
-  else if (row_words == 36) message_block<Row<36>>(base, L, first, second, blk, m);
+  if (row_words == 16) message_block<Row<16, 16>>(base, L, first, second, blk, m);
+  else if (row_words == 32) message_block<Row<32, 32>>(base, L, first, second, blk, m);
+  else if (row_words == 36) message_block<Row<32, 36>>(base, L, first, second, blk, m);
   else return 1;
   return 0;
 }
@@ -566,58 +568,74 @@ def place_twin(tmp_path_factory):
     return dll
 
 
-@pytest.mark.parametrize("row_words", [32, 36])  # sha512/sha384 and blake2b_256 rows
+# the 16-word rows of md5's scaffold peers (sha256, sha256d, sha1,
+# ripemd160), sha512/sha384's and blake2b_256's
+@pytest.mark.parametrize("row_words", [16, 32, 36])
 @pytest.mark.parametrize("blk", [0, 1])
 def test_switch_placement_matches_selects(place_twin, row_words, blk):
     """The switch on var_word places the run's two words where a plain
-    per-word placement does (word 32 * blk + w gets first if it is
-    var_word, second if it is var_word + 1), for every var_word of a
-    two-block tail (and past it), in either block, with the parameter
-    words of a 36-word row untouched: a run in one block, one that crosses
-    into the next, one in the other block (exact)."""
+    per-word placement does (word B * blk + w gets first if it is
+    var_word, second if it is var_word + 1, B the block's message words),
+    for every var_word of a two-block tail (and past it), in either block,
+    with the parameter words of a 36-word row untouched: a run in one
+    block, one that crosses into the next, one in the other block
+    (exact)."""
+    words = 16 if row_words == 16 else 32
     rng = np.random.default_rng(row_words + blk)
     base = rng.integers(0, 1 << 32, size=2 * row_words, dtype=np.uint64).astype(np.uint32)
     base_a, base_p = _arr(base)
     row = base[blk * row_words:(blk + 1) * row_words]
     placed = 0
-    for var_word in range(-1, 66):
+    for var_word in range(-1, 2 * words + 2):
         first, second = (int(v) for v in rng.integers(1, 1 << 32, size=2, dtype=np.uint64))
         want = row.copy()
-        for w in range(32):
-            word = 32 * blk + w
+        for w in range(words):
+            word = words * blk + w
             want[w] |= (first if word == var_word else 0) | (second if word == var_word + 1 else 0)
         m, m_p = _arr([0] * row_words)
         assert place_twin.place(row_words, var_word, blk, first, second, base_p, m_p) == 0
         assert m.tolist() == want.tolist(), var_word
         placed += m.tolist() != row.tolist()
-    assert placed == 33  # var_word 32 * blk - 1 .. 32 * blk + 31 touch the block
+    assert placed == words + 1  # var_word B * blk - 1 .. B * blk + B - 1 touch the block
 
 
-# md5's group and mesh kernel bodies, from md5.cuh (its own scaffold)
+# md5's group and mesh kernel bodies: the scaffold's per-slot and per-shard
+# code over Md5<VW>, the hash built for the launch's var_word
 MD5_GROUP_SOURCE = r"""
 #include "md5.cuh"
 using namespace distpow;
 
-template <int MW, int NB, bool POW2>
-static uint32_t search(const uint32_t* init, const uint32_t* base, const uint32_t* masks,
-                       const Layout& L, uint32_t n) {
-  for (uint32_t f = 0; f < n; ++f) {
-    uint32_t tb, chunk;
-    decode<POW2>(L, f, tb, chunk);
-    if (candidate_hits<MW, NB>(init, base, masks, L, tb, chunk)) return f;
-  }
-  return SENTINEL;
+template <int VW = 0, class F>
+static uint32_t at_var_word(int vw, F f) {
+  if constexpr (VW > 15) return 0xFFFFFFFEu;  // a run starts in the first block
+  else return vw == VW ? f(Md5<VW>{}) : at_var_word<VW + 1>(vw, f);
 }
 
-template <int NB, bool POW2>
+template <class H, int MW, int NB, bool POW2>
+static uint32_t search(const uint32_t* init, const uint32_t* base, const uint32_t* masks,
+                       const Layout& L, uint32_t n) {
+  if constexpr (!H::builds(NB)) {
+    return 0xFFFFFFFEu;
+  } else {
+    const typename H::template Tail<NB> tail(init, base);
+    for (uint32_t f = 0; f < n; ++f) {
+      uint32_t tb, chunk;
+      decode<POW2>(L, f, tb, chunk);
+      if (keyed_candidate_hits<H, MW, NB>(tail, masks, L, tb, chunk)) return f;
+    }
+    return SENTINEL;
+  }
+}
+
+template <class H, int NB, bool POW2>
 static uint32_t shard(int mw, const uint32_t* i, const uint32_t* b, const uint32_t* m,
                       const Layout& L, const MeshOrigin& o, uint32_t n) {
   uint32_t f;
   switch (mw) {
-    case 1: f = search<1, NB, POW2>(i, b, m, L, n); break;
-    case 2: f = search<2, NB, POW2>(i, b, m, L, n); break;
-    case 3: f = search<3, NB, POW2>(i, b, m, L, n); break;
-    default: f = search<4, NB, POW2>(i, b, m, L, n); break;
+    case 1: f = search<H, 1, NB, POW2>(i, b, m, L, n); break;
+    case 2: f = search<H, 2, NB, POW2>(i, b, m, L, n); break;
+    case 3: f = search<H, 3, NB, POW2>(i, b, m, L, n); break;
+    default: f = search<H, 4, NB, POW2>(i, b, m, L, n); break;
   }
   return mesh_global_index<POW2>(L, o, f);
 }
@@ -631,11 +649,14 @@ extern "C" uint32_t host_mesh_shard(int n_blocks, int mask_words, const uint32_t
   const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
   const MeshOrigin o{origin_chunk0, origin_tb_lo, origin_tbc};
   const bool pow2 = log_tbc >= 0;
-  if (n_blocks == 1)
-    return pow2 ? shard<1, true>(mask_words, init, base, masks, L, o, n)
-                : shard<1, false>(mask_words, init, base, masks, L, o, n);
-  return pow2 ? shard<2, true>(mask_words, init, base, masks, L, o, n)
-              : shard<2, false>(mask_words, init, base, masks, L, o, n);
+  return at_var_word(var_word, [&](auto h) -> uint32_t {
+    using H = decltype(h);
+    if (n_blocks == 1)
+      return pow2 ? shard<H, 1, true>(mask_words, init, base, masks, L, o, n)
+                  : shard<H, 1, false>(mask_words, init, base, masks, L, o, n);
+    return pow2 ? shard<H, 2, true>(mask_words, init, base, masks, L, o, n)
+                : shard<H, 2, false>(mask_words, init, base, masks, L, o, n);
+  });
 }
 
 extern "C" uint32_t host_group_slot(int n_blocks, const uint32_t* init, const uint32_t* base,
@@ -643,14 +664,11 @@ extern "C" uint32_t host_group_slot(int n_blocks, const uint32_t* init, const ui
                                     uint32_t log_tbc, int var_word, int var_shift,
                                     uint32_t chunk_mask, uint32_t batch) {
   const Layout L = slot_layout(chunk0, tb_lo, log_tbc, var_word, var_shift, chunk_mask);
-  for (uint32_t f = 0; f < batch; ++f) {
-    uint32_t tb, chunk;
-    decode<true>(L, f, tb, chunk);
-    if (n_blocks == 1 ? candidate_hits<4, 1>(init, base, masks, L, tb, chunk)
-                      : candidate_hits<4, 2>(init, base, masks, L, tb, chunk))
-      return f;
-  }
-  return SENTINEL;
+  return at_var_word(var_word, [&](auto h) -> uint32_t {
+    using H = decltype(h);
+    return n_blocks == 1 ? search<H, 4, 1, true>(init, base, masks, L, batch)
+                         : search<H, 4, 2, true>(init, base, masks, L, batch);
+  });
 }
 """
 

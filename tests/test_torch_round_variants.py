@@ -1,5 +1,5 @@
 """The round variants of ``tools/round_variants.cuh`` (the FMA-pipe forms
-of the blake2b_256, sha512 and sha384 rounds that
+of the md5, sha256, blake2b_256, sha512 and sha384 rounds that
 ``tools/round_variants.py`` times on the card), built with g++.
 
 On the host their sum and rotate forms (``tools/fma_forms.cuh``) are the
@@ -7,7 +7,9 @@ same integer arithmetic as on the card, written in C++: the carry of
 ``add.cc``/``madc``, the sum of ``mad.wide``, a rotate's limb as
 ``hi * 2^k + hi32(lo * 2^k)``.  Every variant is held to its model's
 kernel (``csrc/``) exactly, for a full compression and for the last block
-at every mask-word count, with the state words the count leaves live."""
+at every mask-word count, with the state words the count leaves live; md5's,
+built for one tail layout, by the state of a candidate of a one-block tail
+at that layout."""
 
 import ctypes
 import os
@@ -23,25 +25,40 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "distpow_tpu_torch", "csrc")
 TOOLS = os.path.join(REPO, "distpow_tpu_torch", "tools")
 NAMES = list(VARIANTS)
-DIGEST_WORDS = {"blake2b_256": 8, "sha512": 16, "sha384": 12}
-ROW_WORDS = {"blake2b_256": 36, "sha512": 32, "sha384": 32}
+DIGEST_WORDS = {"blake2b_256": 8, "sha512": 16, "sha384": 12, "md5": 4, "sha256": 8}
+ROW_WORDS = {"blake2b_256": 36, "sha512": 32, "sha384": 32, "md5": 16, "sha256": 16}
 
 DRIVER = r"""
 #include "round_variants.cuh"
 using namespace distpow;
 
-// V::last<mw>, or V::block for mw = 0
+// the MW trailing words of the state of candidate (tb, chunk) = (st[4] &
+// 0xFF, st[5]) of a one-block tail of prefix state st[0..3] and row m, a run
+// at V's var_word from byte 1, three chunk bytes
+template <class V, int MW>
+static void keyed_state(uint32_t* st, const uint32_t* m) {
+  const typename V::template Tail<1> tail(st, m);
+  const Layout L{0, 0, 1, 0, V::VAR_WORD, 8, 0xFFFFFFu};
+  uint32_t out[4];
+  tail.template state<MW>(L, st[4] & 0xFFu, st[5], out);
+  for (int j = 4 - MW; j < 4; ++j) st[j] = out[j];
+}
+
+// V::last<mw>, or V::block for mw = 0 (for a hash built for one tail
+// layout, keyed_state at mw, or at the full digest for mw = 0)
 template <class V, int MW = 1>
 static int compress(int mw, uint32_t* st, const uint32_t* m) {
   if (mw == 0) {
-    V::block(st, m);
+    if constexpr (KeyedByVarWord<V>::value) keyed_state<V, 4>(st, m);
+    else V::block(st, m);
     return 0;
   }
   if constexpr (MW > V::DIGEST_WORDS) {
     return 1;
   } else {
     if (mw == MW) {
-      V::template last<MW>(st, m);
+      if constexpr (KeyedByVarWord<V>::value) keyed_state<V, MW>(st, m);
+      else V::template last<MW>(st, m);
       return 0;
     }
     return compress<V, MW + 1>(mw, st, m);
