@@ -15,6 +15,19 @@
 // so with MW trailing words live each line stops at the last chain index its
 // live words read (the NEED table), which prunes one round of the right line
 // for MW = 1.  Round indices are template parameters (ripemd160_line<R>).
+//
+// A round issues a LOP3 for f, a SHF for in(r-3) and one LEA.HI for
+// rotl(t, S) + e, all on the ALU pipe.  In the plain form (FMA = false) so
+// is the IADD3 of t = a + f + (K + w), and the loop is bound by that pipe
+// while the FMA pipe beside it idles.  FMA = true puts the sums on the FMA
+// pipe as IMADs (add_fma): a = in(r-5) is known rounds before the chain
+// needs it, so a + (K + w) is off the critical path, and f + t is one IMAD
+// ahead of the LEA.HI: 492 ALU-pipe instructions a hash and 456 FMA-pipe
+// slots (the plain form 652 and 136).  The two lines stay
+// independent, two chains for ptxas to interleave.  Each in(i) is made
+// once (Y below), as in sha1.cuh.  The rotates stay funnel shifts and the
+// + e stays in the LEA.HI: as rotl_fma on the FMA pipe, or the + e as an
+// IMAD, every form tried was slower (tools/round_variants.py, PERF.md).
 #pragma once
 
 #include "hash_search.cuh"
@@ -78,27 +91,20 @@ DISTPOW_HD uint32_t ripemd160_f(uint32_t x, uint32_t y, uint32_t z) {
   }
 }
 
-// X[I + 5] holds chain index I.
-template <int I>
-DISTPOW_HD uint32_t ripemd160_in(const uint32_t* X) {
-  if constexpr (I <= -3) {
-    return X[I + 5];
-  } else {
-    return rotl32(X[I + 5], 10);
-  }
-}
-
-template <int R, int LAST, bool RIGHT>
-DISTPOW_HD void ripemd160_line(uint32_t* X, const uint32_t* m) {
+// X[I + 5] holds chain index I, Y[I + 5] in(I), made once, at round I + 3,
+// the first to read it.
+template <int R, int LAST, bool RIGHT, bool FMA>
+DISTPOW_HD void ripemd160_line(uint32_t* X, uint32_t* Y, const uint32_t* m) {
   if constexpr (R <= LAST) {
     constexpr uint32_t k = ripemd160_k(RIGHT, R / 16);
     constexpr int word = ripemd160_word(RIGHT, R);
     constexpr int s = ripemd160_shift(RIGHT, R);
-    const uint32_t b = X[R + 4], c = X[R + 3];
-    const uint32_t d = ripemd160_in<R - 3>(X), e = ripemd160_in<R - 4>(X),
-                   a = ripemd160_in<R - 5>(X);
-    X[R + 5] = rotl32(a + ripemd160_f<RIGHT ? 79 - R : R>(b, c, d) + (k + m[word]), s) + e;
-    ripemd160_line<R + 1, LAST, RIGHT>(X, m);
+    Y[R + 2] = R <= 0 ? X[R + 2] : rotl32(X[R + 2], 10);
+    const uint32_t b = X[R + 4], c = X[R + 3], d = Y[R + 2], e = Y[R + 1], a = Y[R];
+    const uint32_t f = ripemd160_f<RIGHT ? 79 - R : R>(b, c, d);
+    if constexpr (FMA) X[R + 5] = rotl32(add_fma(f, add_fma(a, k + m[word])), s) + e;
+    else X[R + 5] = rotl32(a + f + (k + m[word]), s) + e;
+    ripemd160_line<R + 1, LAST, RIGHT, FMA>(X, Y, m);
   }
 }
 
@@ -120,19 +126,19 @@ DISTPOW_HD constexpr int ripemd160_last(int mw, bool right) {
 
 // One compression of block m into st, of which the MW trailing digest words
 // are defined afterwards (the others keep their old values).
-template <int MW>
+template <int MW, bool FMA = false>
 DISTPOW_HD void ripemd160_compress(uint32_t st[5], const uint32_t m[16]) {
   static_assert(MW >= 1 && MW <= 5, "1..5 live digest words");
   constexpr int LAST_L = ripemd160_last(MW, false);
   constexpr int LAST_R = ripemd160_last(MW, true);
-  uint32_t XL[LAST_L + 6], XR[LAST_R + 6];
-  XL[0] = XR[0] = st[0];
-  XL[1] = XR[1] = st[4];
+  uint32_t XL[LAST_L + 6], XR[LAST_R + 6], YL[LAST_L + 3], YR[LAST_R + 3];
+  XL[0] = XR[0] = YL[0] = YR[0] = st[0];
+  XL[1] = XR[1] = YL[1] = YR[1] = st[4];
   XL[2] = XR[2] = st[3];
   XL[3] = XR[3] = st[2];
   XL[4] = XR[4] = st[1];
-  ripemd160_line<0, LAST_L, false>(XL, m);
-  ripemd160_line<0, LAST_R, true>(XR, m);
+  ripemd160_line<0, LAST_L, false, FMA>(XL, YL, m);
+  ripemd160_line<0, LAST_R, true, FMA>(XR, YR, m);
   const uint32_t h0 = st[0], h1 = st[1], h2 = st[2], h3 = st[3], h4 = st[4];
   // chain index i is X[i + 5]; each word's terms are read only when it is live
   if constexpr (MW >= 5) st[0] = h1 + XL[83] + rotl32(XR[82], 10);
@@ -148,12 +154,12 @@ struct Ripemd160 : Block16 {
   static constexpr bool BIG_ENDIAN_WORDS = false;
 
   static DISTPOW_HD void block(uint32_t st[5], const uint32_t m[16]) {
-    ripemd160_compress<5>(st, m);
+    ripemd160_compress<5, true>(st, m);
   }
 
   template <int MW>
   static DISTPOW_HD void last(uint32_t st[5], const uint32_t m[16]) {
-    ripemd160_compress<MW>(st, m);
+    ripemd160_compress<MW, true>(st, m);
   }
 };
 

@@ -4,7 +4,9 @@ Builds both checkouts' kernels (each with its own sources and build code,
 in its own process, the two at once), then prints per model: whether
 ptxas gave every specialization the same registers, whether every
 specialization's SASS loop has the same length, the same two for the
-group kernel (the scheduler's search of a group of slots), the number of
+group kernel (the scheduler's search of a group of slots), every solo,
+group and mesh specialization that spills on either side (``spills``,
+bytes of spill stores and loads), the number of
 specializations on each side, the timed specialization's (mask words 2,
 one tail block, power-of-two run, and for md5's kernels, built per tail
 layout, the main path's var_word) registers, spills and loop
@@ -57,8 +59,10 @@ def build_side(proc, what: str, cs) -> dict:
                               capture_output=True, text=True, check=True, timeout=300).stdout
         log = out["log"].get(library, "")
         kernel = kernels.setdefault(library.partition(".vw")[0], {
-            "ptxas": {}, "loops": {}, "issued": {}, "group_ptxas": {}, "group_loops": {}})
+            "ptxas": {}, "loops": {}, "issued": {}, "group_ptxas": {}, "group_loops": {},
+            "mesh_ptxas": {}})
         kernel["ptxas"].update(cs.parse_ptxas(log))
+        kernel["mesh_ptxas"].update(cs.parse_ptxas(log, cs.MESH_KEY))
         kernel["loops"].update(cs.spec_sass_loops(sass))
         kernel["issued"].update(cs.spec_sass_loops(sass, path=True))
         kernel["group_ptxas"].update(cs.parse_group_ptxas(log))
@@ -111,6 +115,7 @@ def main(argv) -> int:
             "group_specializations": {side: len(built[side][k]["group_loops"])
                                       for side in built},
             "timed": {side: timed_row(built[side][k], cs) for side in built},
+            "spills": {side: spills(built[side][k], cs) for side in built},
             "results_agree": same}
     print(json.dumps({"verdicts": verdicts(rows.values())}), flush=True)
     for row in rows.values():
@@ -131,6 +136,22 @@ def timed_row(kernel: dict, cs) -> dict:
     return {"key": cs.spec_label(key), **kernel["ptxas"].get(key, {}),
             "loop": sum(kernel["loops"][key].values()),
             "issued": sum(kernel["issued"][key].values()), **cs.pipe_split(kernel["issued"][key])}
+
+
+def spills(kernel: dict, cs) -> dict:
+    """One side's specializations that spill: ``form:label`` -> spill bytes,
+    over the solo, group and mesh kernels."""
+    out = {}
+    for form, key in (("solo", "ptxas"), ("group", "group_ptxas"), ("mesh", "mesh_ptxas")):
+        for spec, v in kernel[key].items():
+            if v["spill_bytes"]:
+                if form != "group":
+                    label = cs.spec_label(spec)
+                else:  # n_blocks, or (n_blocks, var_word)
+                    nb, *vw = spec if isinstance(spec, tuple) else (spec,)
+                    label = f"nb{nb}" + "".join(f"_vw{w}" for w in vw)
+                out[f"{form}:{label}"] = v["spill_bytes"]
+    return out
 
 
 def verdicts(rows) -> dict:

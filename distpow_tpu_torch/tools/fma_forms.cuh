@@ -1,7 +1,7 @@
-// 64-bit sums and rotates in forms that put some of their work on Hopper's
-// FMA pipe, for the probes (pipe_rates.cu) and the round variants
-// (round_variants.cuh).  The kernels in csrc/ use none of them: each was
-// slower there (PERF.md, section 6).  The factors 1 and 2^k come
+// 64-bit sums and rotates, and a 32-bit rotate, in forms that put some of
+// their work on Hopper's FMA pipe, for the probes (pipe_rates.cu) and the
+// round variants (round_variants.cuh).  The kernels in csrc/ use none of
+// them: each was slower there (PERF.md, section 6).  The factors 1 and 2^k come
 // from kPow2 (hash_search.cuh), so ptxas cannot turn a product back into
 // an add or a shift.  On the host the same arithmetic is plain C++.
 #pragma once
@@ -55,6 +55,23 @@ DISTPOW_HD uint32_t shl_or_fma(uint32_t hi, uint32_t lo, int k) {
   return hi * kPow2[k] + __umulhi(lo, kPow2[k]);
 #else
   return hi * (1u << k) + (uint32_t)(((uint64_t)lo << k) >> 32);
+#endif
+}
+
+// rotl32(x, s) + y for 0 < s < 32 on the FMA pipe: the 64-bit product
+// x * 2^s holds x << s in its low word and x >> (32 - s) in its high word,
+// which share no bit, so their sum is the rotate.  The high word plus y is
+// one IMAD.HI (mad.hi), the low word plus that one IMAD: three FMA-pipe
+// slots against one SHF (or, with y, one LEA.HI) on the ALU pipe.
+DISTPOW_HD uint32_t rotl_fma(uint32_t x, int s, uint32_t y = 0) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t p = kPow2[s];
+  uint32_t hi;
+  asm("mad.hi.u32 %0, %1, %2, %3;" : "=r"(hi) : "r"(x), "r"(p), "r"(y));
+  return x * p + hi;
+#else
+  const uint64_t p = (uint64_t)x * ((uint64_t)1 << s);
+  return (uint32_t)p + ((uint32_t)(p >> 32) + y);
 #endif
 }
 

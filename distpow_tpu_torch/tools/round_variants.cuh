@@ -1,4 +1,5 @@
-// Formulations of the MD5, SHA-256, BLAKE2b-256 and SHA-512/384 rounds
+// Formulations of the MD5, SHA-256, SHA-1, RIPEMD-160, BLAKE2b-256 and
+// SHA-512/384 rounds
 // that move work onto Hopper's FMA pipe or off it, as hashes for the search
 // scaffold (hash_search.cuh): the designs that round_variants.py builds
 // and times beside the kernels in csrc/.  None of them is a kernel of the
@@ -12,6 +13,21 @@
 //   Sha256Unbounded, Sha256Plain
 //       sha256.cuh's Sha256 without its resident blocks, and in the plain
 //       form (FMA = false) too
+//   Sha1Plain, Ripemd160Plain
+//       sha1.cuh's and ripemd160.cuh's rounds in the plain form (FMA =
+//       false), all on the ALU pipe
+//   Sha1As<Sha1Forms<SUMS, FT, ROT5, WROT, ROT30, CROT>>
+//       SHA-1's rounds with e + (K + w[r]) as an IMAD (SUMS), f + t as an
+//       IMAD (FT), and as rotl_fma in every ROT5-th round rotl(a, 5) + s,
+//       in every WROT-th schedule word its rotl(x, 1), in every ROT30-th
+//       chain value its rotl(x, 30) (0: never); the other rotates through
+//       __funnelshift_l (rotl32), or with CROT as C shifts, (x << s) |
+//       (x >> (32 - s)), which the compiler makes a funnel shift itself
+//   Ripemd160As<RmdForms<SUMS, FT, E_IMAD, ROT, ROT10, CROT>>
+//       RIPEMD-160's lines with a + (K + w) as an IMAD (SUMS), f + t as an
+//       IMAD (FT), + e after a funnel shift as an IMAD (E_IMAD), and as
+//       rotl_fma in every ROT-th round rotl(t, S) + e, in every ROT10-th
+//       chain value its rotl(x, 10); CROT as SHA-1's
 // and, for BLAKE2b-256 and SHA-512/384, their 64-bit sums (SumForm) and
 // rotates (RotForm, fma_forms.cuh):
 //   Blake2bAs<BlakeForms<SUM, R24, R16, R63, EVERY_OTHER>>
@@ -33,6 +49,8 @@
 #include "blake2b.cuh"
 #include "fma_forms.cuh"
 #include "md5.cuh"
+#include "ripemd160.cuh"
+#include "sha1.cuh"
 #include "sha256.cuh"
 #include "sha512.cuh"
 
@@ -118,6 +136,183 @@ struct Sha256Plain : Sha256Unbounded {
   template <int MW>
   static DISTPOW_HD void last(uint32_t st[8], const uint32_t m[16]) {
     sha256_compress<MW, false>(st, m);
+  }
+};
+
+// ---- SHA-1 and RIPEMD-160 ----------------------------------------------
+
+// the kernels' rounds in the plain form (FMA = false)
+struct Sha1Plain : Sha1 {
+  static DISTPOW_HD void block(uint32_t st[5], const uint32_t m[16]) {
+    sha1_compress<5, false>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[5], const uint32_t m[16]) {
+    sha1_compress<MW, false>(st, m);
+  }
+};
+
+struct Ripemd160Plain : Ripemd160 {
+  static DISTPOW_HD void block(uint32_t st[5], const uint32_t m[16]) {
+    ripemd160_compress<5, false>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[5], const uint32_t m[16]) {
+    ripemd160_compress<MW, false>(st, m);
+  }
+};
+
+// Is the form that a variant takes in every EVERY-th round (0: never) the
+// one of round or chain index i?
+DISTPOW_HD constexpr bool every(int every_, int i) {
+  return every_ > 0 && (i < 0 ? -i : i) % every_ == 0;
+}
+
+// x + y as an IMAD (FMA) or an add
+template <bool FMA>
+DISTPOW_HD uint32_t add_form(uint32_t x, uint32_t y) {
+  if constexpr (FMA) return add_fma(x, y);
+  else return x + y;
+}
+
+// rotl32(x, s) as C shifts (CROT) or through __funnelshift_l
+template <bool CROT>
+DISTPOW_HD uint32_t rotl_c(uint32_t x, int s) {
+  if constexpr (CROT) return (x << s) | (x >> (32 - s));
+  else return rotl32(x, s);
+}
+
+// rotl32(x, s) + y as rotl_fma (FMA) or a funnel shift and an add
+template <bool FMA, bool CROT>
+DISTPOW_HD uint32_t rotl_form(uint32_t x, int s, uint32_t y = 0) {
+  if constexpr (FMA) return rotl_fma(x, s, y);
+  else return rotl_c<CROT>(x, s) + y;
+}
+
+template <int SUMS_, int FT_, int ROT5_, int WROT_, int ROT30_, int CROT_>
+struct Sha1Forms {
+  static constexpr bool SUMS = SUMS_ != 0, FT = FT_ != 0, CROT = CROT_ != 0;
+  static constexpr int ROT5 = ROT5_, WROT = WROT_, ROT30 = ROT30_;
+};
+
+// sha1.cuh's sha1_rounds in the forms of P.  Y[I + 5] holds in(I), made at
+// round I + 3, the first to read it.
+template <class P, int R, int LAST>
+DISTPOW_HD void sha1_rounds_as(uint32_t* X, uint32_t* Y, uint32_t* w) {
+  if constexpr (R <= LAST) {
+    if constexpr (R >= 16)
+      w[R] = rotl_form<every(P::WROT, R), P::CROT>(w[R - 3] ^ w[R - 8] ^ w[R - 14] ^ w[R - 16],
+                                                   1);
+    if constexpr (R - 3 <= -3) Y[R + 2] = X[R + 2];
+    else Y[R + 2] = rotl_form<every(P::ROT30, R - 3), P::CROT>(X[R + 2], 30);
+    const uint32_t a = X[R + 4], b = X[R + 3], c = Y[R + 2], d = Y[R + 1], e = Y[R];
+    uint32_t f;
+    if constexpr (R < 20) {
+      f = (b & c) | (~b & d);
+    } else if constexpr (R >= 40 && R < 60) {
+      f = (b & c) | (b & d) | (c & d);
+    } else {
+      f = b ^ c ^ d;
+    }
+    constexpr uint32_t k = sha1_k(R);
+    constexpr bool rot5 = every(P::ROT5, R);
+    if constexpr (!P::SUMS && !P::FT && !rot5) {
+      X[R + 5] = rotl_c<P::CROT>(a, 5) + f + e + (k + w[R]);  // the plain form, as sha1.cuh has it
+    } else {
+      const uint32_t t = P::SUMS ? add_fma(e, k + w[R]) : e + (k + w[R]);
+      X[R + 5] = rotl_form<rot5, P::CROT>(a, 5, add_form<P::FT>(f, t));
+    }
+    sha1_rounds_as<P, R + 1, LAST>(X, Y, w);
+  }
+}
+
+// sha1.cuh's sha1_compress over sha1_rounds_as
+template <class P, int MW>
+DISTPOW_HD void sha1_compress_as(uint32_t st[5], const uint32_t m[16]) {
+  constexpr int LAST = 74 + MW;
+  uint32_t w[LAST + 1], X[LAST + 6], Y[LAST + 3];
+  DISTPOW_UNROLL
+  for (int i = 0; i < 16; ++i) w[i] = m[i];
+  X[0] = st[4]; X[1] = st[3]; X[2] = st[2]; X[3] = st[1]; X[4] = st[0];
+  Y[0] = X[0]; Y[1] = X[1];
+  sha1_rounds_as<P, 0, LAST>(X, Y, w);
+  DISTPOW_UNROLL
+  for (int j = 5 - MW; j < 5; ++j) st[j] += j < 2 ? X[84 - j] : rotl_c<P::CROT>(X[84 - j], 30);
+}
+
+template <class P>
+struct Sha1As : Sha1 {
+  static DISTPOW_HD void block(uint32_t st[5], const uint32_t m[16]) {
+    sha1_compress_as<P, 5>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[5], const uint32_t m[16]) {
+    sha1_compress_as<P, MW>(st, m);
+  }
+};
+
+template <int SUMS_, int FT_, int E_IMAD_, int ROT_, int ROT10_, int CROT_>
+struct RmdForms {
+  static constexpr bool SUMS = SUMS_ != 0, FT = FT_ != 0, E_IMAD = E_IMAD_ != 0,
+                        CROT = CROT_ != 0;
+  static constexpr int ROT = ROT_, ROT10 = ROT10_;
+};
+
+// ripemd160.cuh's ripemd160_line in the forms of P.  Y[I + 5] holds in(I),
+// made at round I + 3, the first to read it.
+template <class P, int R, int LAST, bool RIGHT>
+DISTPOW_HD void ripemd160_line_as(uint32_t* X, uint32_t* Y, const uint32_t* m) {
+  if constexpr (R <= LAST) {
+    constexpr uint32_t k = ripemd160_k(RIGHT, R / 16);
+    constexpr int word = ripemd160_word(RIGHT, R);
+    constexpr int s = ripemd160_shift(RIGHT, R);
+    if constexpr (R - 3 <= -3) Y[R + 2] = X[R + 2];
+    else Y[R + 2] = rotl_form<every(P::ROT10, R - 3), P::CROT>(X[R + 2], 10);
+    const uint32_t b = X[R + 4], c = X[R + 3], d = Y[R + 2], e = Y[R + 1], a = Y[R];
+    const uint32_t f = ripemd160_f<RIGHT ? 79 - R : R>(b, c, d);
+    // the plain form's sum as ripemd160.cuh has it
+    const uint32_t t = !P::SUMS && !P::FT ? a + f + (k + m[word])
+                       : add_form<P::FT>(f, P::SUMS ? add_fma(a, k + m[word]) : a + (k + m[word]));
+    if constexpr (every(P::ROT, R)) X[R + 5] = rotl_fma(t, s, e);
+    else X[R + 5] = add_form<P::E_IMAD>(rotl_c<P::CROT>(t, s), e);
+    ripemd160_line_as<P, R + 1, LAST, RIGHT>(X, Y, m);
+  }
+}
+
+// ripemd160.cuh's ripemd160_compress over ripemd160_line_as
+template <class P, int MW>
+DISTPOW_HD void ripemd160_compress_as(uint32_t st[5], const uint32_t m[16]) {
+  constexpr int LAST_L = ripemd160_last(MW, false);
+  constexpr int LAST_R = ripemd160_last(MW, true);
+  uint32_t XL[LAST_L + 6], XR[LAST_R + 6], YL[LAST_L + 3], YR[LAST_R + 3];
+  XL[0] = XR[0] = YL[0] = YR[0] = st[0];
+  XL[1] = XR[1] = YL[1] = YR[1] = st[4];
+  XL[2] = XR[2] = st[3];
+  XL[3] = XR[3] = st[2];
+  XL[4] = XR[4] = st[1];
+  ripemd160_line_as<P, 0, LAST_L, false>(XL, YL, m);
+  ripemd160_line_as<P, 0, LAST_R, true>(XR, YR, m);
+  const uint32_t h0 = st[0], h1 = st[1], h2 = st[2], h3 = st[3], h4 = st[4];
+  constexpr bool C = P::CROT;
+  if constexpr (MW >= 5) st[0] = h1 + XL[83] + rotl_c<C>(XR[82], 10);
+  if constexpr (MW >= 4) st[1] = h2 + rotl_c<C>(XL[82], 10) + rotl_c<C>(XR[81], 10);
+  if constexpr (MW >= 3) st[2] = h3 + rotl_c<C>(XL[81], 10) + rotl_c<C>(XR[80], 10);
+  if constexpr (MW >= 2) st[3] = h4 + rotl_c<C>(XL[80], 10) + XR[84];
+  st[4] = h0 + XL[84] + XR[83];
+}
+
+template <class P>
+struct Ripemd160As : Ripemd160 {
+  static DISTPOW_HD void block(uint32_t st[5], const uint32_t m[16]) {
+    ripemd160_compress_as<P, 5>(st, m);
+  }
+
+  template <int MW>
+  static DISTPOW_HD void last(uint32_t st[5], const uint32_t m[16]) {
+    ripemd160_compress_as<P, MW>(st, m);
   }
 };
 

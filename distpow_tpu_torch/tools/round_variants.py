@@ -1,10 +1,13 @@
-"""The FMA-pipe designs of the md5, sha256, blake2b_256, sha512 and
-sha384 rounds, timed beside the kernels as built, on one card.
+"""The FMA-pipe designs of the md5, sha256, sha1, ripemd160, blake2b_256,
+sha512 and sha384 rounds, timed beside the kernels as built, on one card.
 
 ``round_variants.cuh`` (beside this file) holds md5's rounds with u = f +
 t as an IADD3 or an IMAD (``Md5Keyed``, built for the main path's var_word
 1), sha256's without resident blocks and in the plain form
-(``Sha256Unbounded``, ``Sha256Plain``), the BLAKE2b and SHA-512
+(``Sha256Unbounded``, ``Sha256Plain``), sha1's and ripemd160's in the
+plain form (``Sha1Plain``, ``Ripemd160Plain``) and in the variants' own
+copy of their rounds with each sum and rotate as an IMAD, rotl_fma or on
+the ALU pipe (``Sha1As``, ``Ripemd160As``), the BLAKE2b and SHA-512
 rounds with their 64-bit sums and rotates in the forms of
 ``fma_forms.cuh`` (the high limb of a sum as IMAD.X or through IMAD.WIDE,
 a rotate's limbs as IMAD + IMAD.HI), and a wrapper that asks for resident
@@ -17,8 +20,8 @@ specializations only: one tail block, a power-of-two run, mask words 1
 and 2), all at once, and prints per variant:
 
 - ptxas's registers and spills, and what one candidate of the timed
-  specialization (mask words 2) issues, by pipe (``chip_smoke.py``'s
-  ``sass_loops`` and ``pipe_split``);
+  specialization (mask words 2) issues, by pipe and by opcode
+  (``chip_smoke.py``'s ``sass_loops`` and ``pipe_split``);
 - whether its first hits equal the plain version's on small launches at
   mask words 1 and 2, and its model's kernel's on a difficulty-6 launch of
   the main path's size;
@@ -67,6 +70,22 @@ def resident(hash_type: str, n: int) -> str:
     return f"Resident<{hash_type}, {n}>"
 
 
+def sha1(sums=0, ft=0, rot5=0, wrot=0, rot30=0, crot=0):
+    """sha1's rounds with e + (K + w) (``sums``) and f + t (``ft``) as IMAD,
+    and rotl_fma in every ``rot5``-th round, schedule word and chain value
+    (0: never); the other rotates as C shifts (``crot``) or through
+    __funnelshift_l."""
+    return f"Sha1As<Sha1Forms<{sums}, {ft}, {rot5}, {wrot}, {rot30}, {crot}>>"
+
+
+def rmd(sums=0, ft=0, e_imad=0, rot=0, rot10=0, crot=0):
+    """ripemd160's lines with a + (K + w) (``sums``), f + t (``ft``) and the +
+    e after a funnel shift (``e_imad``) as IMAD, and rotl_fma for rotl(t,
+    S) + e in every ``rot``-th round and for rotl(x, 10) in every
+    ``rot10``-th chain value (0: never); ``crot`` as sha1's."""
+    return f"Ripemd160As<RmdForms<{sums}, {ft}, {e_imad}, {rot}, {rot10}, {crot}>>"
+
+
 H3 = dict(r24="ROT_HALF", r16="ROT_HALF", r63="ROT_HALF")
 # name -> (model, the variant's hash type in namespace distpow)
 VARIANTS = {
@@ -103,11 +122,41 @@ VARIANTS = {
     "sha256.resident5": ("sha256", resident("Sha256", 5)),
     "sha256.plain": ("sha256", "Sha256Plain"),
     "sha256.plain.resident5": ("sha256", resident("Sha256Plain", 5)),
+    "sha1": ("sha1", "Sha1"),
+    "sha1.plain": ("sha1", "Sha1Plain"),
+    "sha1.as": ("sha1", sha1()),
+    "sha1.sums": ("sha1", sha1(1)),
+    "sha1.sums_ft": ("sha1", sha1(1, 1)),
+    "sha1.sums_ft_crot": ("sha1", sha1(1, 1, crot=1)),
+    "sha1.sums_ft_rot5": ("sha1", sha1(1, 1, rot5=1)),
+    "sha1.sums_ft_rot5_half": ("sha1", sha1(1, 1, rot5=2)),
+    "sha1.sums_ft_wrot": ("sha1", sha1(1, 1, wrot=1)),
+    "sha1.sums_ft_wrot_half": ("sha1", sha1(1, 1, wrot=2)),
+    "sha1.sums_ft_rot30": ("sha1", sha1(1, 1, rot30=1)),
+    "sha1.sums_ft_rot30_half": ("sha1", sha1(1, 1, rot30=2)),
+    "sha1.resident7": ("sha1", resident("Sha1", 7)),
+    "sha1.resident8": ("sha1", resident("Sha1", 8)),
+    "ripemd160": ("ripemd160", "Ripemd160"),
+    "ripemd160.plain": ("ripemd160", "Ripemd160Plain"),
+    "ripemd160.as": ("ripemd160", rmd()),
+    "ripemd160.sums": ("ripemd160", rmd(1)),
+    "ripemd160.sums_ft": ("ripemd160", rmd(1, 1)),
+    "ripemd160.sums_ft_crot": ("ripemd160", rmd(1, 1, crot=1)),
+    "ripemd160.sums_ft_e": ("ripemd160", rmd(1, 1, e_imad=1)),
+    "ripemd160.sums_ft_rot": ("ripemd160", rmd(1, 1, rot=1)),
+    "ripemd160.sums_ft_rot_half": ("ripemd160", rmd(1, 1, rot=2)),
+    "ripemd160.sums_ft_rot10": ("ripemd160", rmd(1, 1, rot10=1)),
+    "ripemd160.sums_ft_rot10_half": ("ripemd160", rmd(1, 1, rot10=2)),
+    "ripemd160.resident7": ("ripemd160", resident("Ripemd160", 7)),
+    "ripemd160.resident8": ("ripemd160", resident("Ripemd160", 8)),
 }
-# The nonce lengths of the first-hit checks: one-block tails, and for md5,
+# The nonce lengths of the first-hit checks: one-block tails (of 64-byte
+# blocks: ONE_BLOCK16), and for md5,
 # whose variants are built for the main path's var_word 1 only, tails whose
 # run starts at word 1 (a 4-7 byte remainder)
-CHECK_NONCE_LENS = {"md5": (4, 5, 6, 7, 68, 71), "sha256": (4, 9, 20, 37, 40, 50)}
+ONE_BLOCK16 = (4, 9, 20, 37, 40, 50)
+CHECK_NONCE_LENS = {"md5": (4, 5, 6, 7, 68, 71), "sha256": ONE_BLOCK16, "sha1": ONE_BLOCK16,
+                    "ripemd160": ONE_BLOCK16}
 
 
 def build(names):
@@ -171,7 +220,8 @@ def main(argv) -> int:
         rows[name] = {"variant": name, "type": VARIANTS[name][1],
                       **cs.parse_ptxas(log)[timed],
                       "loop": sum(cs.spec_sass_loops(sass)[timed].values()),
-                      "issued": sum(issued.values()), **cs.pipe_split(issued)}
+                      "issued": sum(issued.values()), **cs.pipe_split(issued),
+                      "opcodes": dict(sorted(issued.items()))}
         dll = ctypes.CDLL(lib)
         fn = dll.variant_search
         fn.argtypes = [vp, vp, vp, i32, i32, u32, u32, u32, i32, i32, i32, u32, u32, vp, i32, vp]

@@ -1,11 +1,12 @@
 """The round variants of ``tools/round_variants.cuh`` (the FMA-pipe forms
-of the md5, sha256, blake2b_256, sha512 and sha384 rounds that
+of the md5, sha256, sha1, ripemd160, blake2b_256, sha512 and sha384 rounds that
 ``tools/round_variants.py`` times on the card), built with g++.
 
 On the host their sum and rotate forms (``tools/fma_forms.cuh``) are the
 same integer arithmetic as on the card, written in C++: the carry of
 ``add.cc``/``madc``, the sum of ``mad.wide``, a rotate's limb as
-``hi * 2^k + hi32(lo * 2^k)``.  Every variant is held to its model's
+``hi * 2^k + hi32(lo * 2^k)``, a 32-bit rotate (``rotl_fma``) as the
+two words of ``x * 2^s``.  Every variant is held to its model's
 kernel (``csrc/``) exactly, for a full compression and for the last block
 at every mask-word count, with the state words the count leaves live; md5's,
 built for one tail layout, by the state of a candidate of a one-block tail
@@ -25,8 +26,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "distpow_tpu_torch", "csrc")
 TOOLS = os.path.join(REPO, "distpow_tpu_torch", "tools")
 NAMES = list(VARIANTS)
-DIGEST_WORDS = {"blake2b_256": 8, "sha512": 16, "sha384": 12, "md5": 4, "sha256": 8}
-ROW_WORDS = {"blake2b_256": 36, "sha512": 32, "sha384": 32, "md5": 16, "sha256": 16}
+DIGEST_WORDS = {"blake2b_256": 8, "sha512": 16, "sha384": 12, "md5": 4, "sha256": 8, "sha1": 5,
+                "ripemd160": 5}
+ROW_WORDS = {"blake2b_256": 36, "sha512": 32, "sha384": 32, "md5": 16, "sha256": 16, "sha1": 16,
+             "ripemd160": 16}
 
 DRIVER = r"""
 #include "round_variants.cuh"
@@ -150,6 +153,9 @@ ROT_CASES
 extern "C" uint64_t rotr(int fma, int s, uint64_t x) {
   return fma ? rot<ROT_FMA>(s, x) : rot<ROT_HALF>(s, x);
 }
+
+extern "C" uint32_t rotl32_fma(uint32_t x, int s, uint32_t y) { return rotl_fma(x, s, y); }
+extern "C" uint32_t rotl32_shf(uint32_t x, int s) { return rotl32(x, s); }
 """
 # every rotate distance of a BLAKE2b G and a SHA-512 round but 32 (a swap)
 ROTATES = (1, 8, 14, 16, 18, 19, 24, 28, 34, 39, 41, 61, 63)
@@ -172,6 +178,9 @@ def forms_twin(tmp_path_factory):
     u64, i32 = ctypes.c_uint64, ctypes.c_int
     dll.sum3.argtypes, dll.sum3.restype = [i32, u64, u64, u64], u64
     dll.rotr.argtypes, dll.rotr.restype = [i32, i32, u64], u64
+    u32 = ctypes.c_uint32
+    dll.rotl32_fma.argtypes, dll.rotl32_fma.restype = [u32, i32, u32], u32
+    dll.rotl32_shf.argtypes, dll.rotl32_shf.restype = [u32, i32], u32
     return dll
 
 
@@ -207,3 +216,20 @@ def test_fma_rotates_match_rotr64(forms_twin, fma, s):
         x = int(x)
         want = ((x >> s) | (x << (64 - s))) & M64
         assert forms_twin.rotr(fma, s, x) == want, hex(x)
+
+
+@pytest.mark.parametrize("s", range(1, 32))
+def test_fma_rotl32_matches_rotl32(forms_twin, s):
+    """``rotl_fma(x, s)`` (the low and high words of x * 2^s, as IMAD and
+    IMAD.HI on the card) is ``rotl32`` for every distance 1..31, and with an
+    addend y it is ``rotl32(x, s) + y`` modulo 2^32 (exact)."""
+    rng = np.random.default_rng(100 + s)
+    words = [0, 1, 0xFFFFFFFF, 0x80000000, *rng.integers(0, 1 << 32, size=40,
+                                                         dtype=np.uint64).tolist()]
+    addends = rng.integers(0, 1 << 32, size=len(words), dtype=np.uint64).tolist()
+    for x, y in zip(words, addends):
+        x, y = int(x), int(y)
+        want = ((x << s) | (x >> (32 - s))) & 0xFFFFFFFF
+        assert forms_twin.rotl32_shf(x, s) == want, hex(x)
+        assert forms_twin.rotl32_fma(x, s, 0) == want, hex(x)
+        assert forms_twin.rotl32_fma(x, s, y) == (want + y) & 0xFFFFFFFF, (hex(x), hex(y))
