@@ -44,7 +44,19 @@ and times that launch beside the solo kernel's and the plain mesh step's;
 mesh launch counts set to 0 just before and read just after; ``rate_mesh``
 times md5's main-path launch on 4 shards against the solo kernel's; and
 ``sched_mesh`` serves ``sched_md5``'s requests on the scheduler's mesh
-lane.  Every phase prints one
+lane.  Last, the worker node (``distpow_tpu_torch.nodes.Worker``) over
+RPC, with the port's ``RPCServer`` standing in for the coordinator:
+``worker_mine`` (after the boot warm-up, the reference demo's four Mines
+and a difficulty-8 one, each secret checked with hashlib and against the
+direct backend, the worker's actions and nil ACK, the kernel's launches,
+the device ms of the launches whose results were read against the wall
+ms from Mine to Result, and no library built after warm-up),
+``worker_fanout`` (one request raced by four workers on the card),
+``worker_sched`` (eight md5 and sha1 Mines through the batching
+scheduler's group kernels, under sync debug mode "error") and
+``worker_cli`` (``python -m distpow_tpu_torch.cli.worker`` in a fresh
+process whose ``CompilationCacheDir`` is empty: warm-up, one Mine,
+SIGTERM, exit 0).  Every phase prints one
 JSON line; the line before the card's name lists every kernel; the last
 line, printed only when every phase passed, is ``{"ok": true, "device":
 {...}}``.  It imports neither JAX nor the JAX package.  Long outputs (the
@@ -64,8 +76,10 @@ import hashlib
 import json
 import multiprocessing
 import os
+import queue
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -175,6 +189,20 @@ MESH_RATE_LAUNCHES = 5
 MESH_SHARDS = 4
 # sched_mixed: md5 (the default) and the models it admits besides
 MIXED_MODELS = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha3_256", "blake2b_256")
+
+# worker_*: the reference demo's requests (distpow_tpu/cli/client.py at its
+# default difficulty 5: the first nonce and the repeat at 5 + 2), then one
+# difficulty-8 Mine; worker_fanout's workers (worker_bits 2) and request;
+# worker_sched's requests per model and their seed
+WORKER_DEMO = ((bytes([1, 2, 3, 4]), 7), (bytes([5, 6, 7, 8]), 5), (bytes([2, 2, 2, 2]), 5),
+               (bytes([2, 2, 2, 2]), 7), (bytes([9, 8, 7, 6]), 8))
+WORKER_FANOUT, WORKER_FANOUT_REQUEST = 4, (bytes([4, 3, 2, 1]), 8)
+WORKER_SCHED_MODELS, WORKER_SCHED_PER_MODEL = ("md5", "sha1"), 4
+# the worker's configuration in every worker_* phase (the reference's
+# defaults but the hang timeout)
+WORKER_CONFIG = {"Backend": "auto", "HashModel": "md5", "BatchSize": 1 << 20,
+                 "WarmupNonceLens": [2, 4], "WarmupWidths": [0, 1, 2, 3, 4],
+                 "DeviceHangTimeoutS": 30.0}
 
 # sched_cancel: run in a fresh process with a fresh build directory
 # (DISTPOW_TORCH_BUILD_DIR): CudaBackend.warmup builds and loads md5's
@@ -844,6 +872,11 @@ def main() -> int:
     from distpow_tpu_torch.parallel.partition import thread_bytes, worker_bits
     from distpow_tpu_torch.parallel.search import launch_steps_for
     from distpow_tpu_torch.runtime.metrics import REGISTRY
+    from distpow_tpu_torch.backends import cuda_backend
+    from distpow_tpu_torch.nodes import Worker
+    from distpow_tpu_torch.runtime import rpc, tracing
+    from distpow_tpu_torch.runtime.config import WorkerConfig
+    from distpow_tpu_torch.runtime.spans import SPANS
 
     MODEL_OF = {KERNELS[m]: m for m in MODELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2112,6 +2145,396 @@ def main() -> int:
             out["cuda_lane_secrets_equal"] = True
         return out
 
+    # 12. worker_*: the port's worker node over its RPC plane -----------------
+    class StandIn:
+        """The coordinator's side of the worker protocol: the port's
+        ``RPCServer`` with a ``CoordRPCHandler.Result`` that queues what
+        arrives (with the time it arrived), and ``RPCClient``s that send
+        ``Mine`` and ``Found`` with tracing tokens."""
+
+        def __init__(self):
+            arrived = self.results = queue.Queue()
+
+            class CoordRPCHandler:
+                def Result(self, params):
+                    arrived.put((time.monotonic(), params))
+                    return {}
+
+            self.server = rpc.RPCServer()
+            self.server.register("CoordRPCHandler", CoordRPCHandler())
+            self.addr = self.server.listen("127.0.0.1:0")
+            self.server.serve_in_background()
+            self.tracer = tracing.Tracer("coordinator", tracing.MemorySink())
+            self.clients = {}
+
+        def call(self, addr, method, params):
+            if addr not in self.clients:
+                self.clients[addr] = rpc.RPCClient(addr)
+            return self.clients[addr].call(method, params, timeout=60)
+
+        def params(self, nonce, d, worker_byte, trace, **extra):
+            return {"nonce": nonce, "num_trailing_zeros": d, "worker_byte": worker_byte,
+                    "token": tracing.wire_token(trace.generate_token()), **extra}
+
+        def mine(self, addr, nonce, d, worker_byte=0, worker_bits=0, trace=None, **extra):
+            trace = trace or self.tracer.create_trace()
+            self.call(addr, "WorkerRPCHandler.Mine",
+                      self.params(nonce, d, worker_byte, trace, worker_bits=worker_bits, **extra))
+            return trace
+
+        def found(self, addr, nonce, d, worker_byte, secret, trace, **extra):
+            self.call(addr, "WorkerRPCHandler.Found",
+                      self.params(nonce, d, worker_byte, trace, secret=secret, **extra))
+
+        def take(self, timeout=120):
+            return self.results.get(timeout=timeout)
+
+        def close(self):
+            for c in self.clients.values():
+                c.close()
+            self.server.shutdown()
+
+    class LaunchTimer:
+        """Wraps the CUDA backend's call of the kernel wrapper
+        (``cuda_backend.hash_search``): a CUDA event pair around each launch,
+        on the stream it launches on, kept per worker (the span node the
+        miner thread is bound to).  The wrapper itself still counts the
+        launch."""
+
+        def __init__(self):
+            self.pairs = collections.defaultdict(list)
+            self.lock = threading.Lock()
+            self.orig = orig = cuda_backend.hash_search
+
+            def timed(model, ops, *args, **kwargs):
+                stream = torch.cuda.current_stream(ops.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                out = orig(model, ops, *args, **kwargs)
+                end.record(stream)
+                with self.lock:
+                    self.pairs[SPANS.current_node()].append((start, end))
+                return out
+
+            cuda_backend.hash_search = timed
+
+        def take(self, node):
+            """The device ms of each of ``node``'s launches since the last
+            take, in launch order."""
+            with self.lock:
+                pairs = self.pairs.pop(node, [])
+            for _, end in pairs:
+                end.synchronize()
+            return [a.elapsed_time(b) for a, b in pairs]
+
+        def close(self):
+            cuda_backend.hash_search = self.orig
+
+    def start_worker(coord, **config):
+        sink = tracing.MemorySink()
+        w = Worker(WorkerConfig(**{"WorkerID": "worker1", "ListenAddr": "127.0.0.1:0",
+                                   "CoordAddr": coord.addr, **WORKER_CONFIG, **config}),
+                   sink=sink, device=dev)
+        return w, w.initialize_rpcs(), sink
+
+    def worker_actions(sink, trace):
+        names = [e["action"] for e in sink.events
+                 if e["type"] == "action" and e["trace_id"] == trace.trace_id]
+        if names[0] != "WorkerMine" or names[-1] != "WorkerCancel":
+            raise AssertionError(f"worker actions {names}")
+        return names
+
+    def check_secret(model_name, nonce, d, secret, tbs):
+        """hashlib's digest of the secret, which must also be the direct
+        backend's secret for the same request."""
+        h = puzzle.new_hash(model_name)
+        h.update(nonce + secret)
+        digest = h.hexdigest()
+        direct = CudaBackend(hash_model=model_name, device=dev).search(nonce, d, tbs)
+        if not digest.endswith("0" * d) or secret[0] not in tbs or secret != direct:
+            raise AssertionError(f"{model_name} {nonce.hex()} d{d}: {secret.hex()} ({digest}), "
+                                 f"direct backend {direct and direct.hex()}")
+        return digest
+
+    def mine_once(coord, w, addr, sink, timer, nonce, d):
+        """One Mine to one worker: the result, Found, the nil ACK."""
+        kernel = KERNELS["md5"]
+        launches0 = LAUNCHES[kernel].value
+        syncs0 = REGISTRY.get("search.blocking_syncs")
+        t0 = time.monotonic()
+        trace = coord.mine(addr, nonce, d)
+        t_res, res = coord.take()
+        if res["secret"] is None:
+            raise AssertionError(f"{nonce.hex()} d{d}: a nil result first")
+        secret = bytes(res["secret"])
+        coord.found(addr, nonce, d, 0, secret, trace)
+        _, ack = coord.take(30)
+        if ack["secret"] is not None or not coord.results.empty():
+            raise AssertionError(f"after Found: {ack}, {coord.results.qsize()} more")
+        names = worker_actions(sink, trace)
+        if names[1:3] != ["CacheMiss", "WorkerResult"] or \
+                not all(n.startswith("Cache") for n in names[3:-1]):
+            raise AssertionError(f"worker actions {names}")
+        # read before the direct backend's check launches the kernel again
+        kernel_launches = LAUNCHES[kernel].value - launches0
+        syncs = REGISTRY.get("search.blocking_syncs") - syncs0
+        times = timer.take(w.config.WorkerID)
+        if kernel_launches <= 0 or len(times) != kernel_launches:
+            raise AssertionError(f"{kernel}: {kernel_launches} launches, {len(times)} timed")
+        wall_ms = (t_res - t0) * 1e3
+        # the search driver reads each launch's result with one blocking sync, in
+        # launch order, and keeps the next launch in flight: the launches
+        # after the last one read ran past the hit, after the result left
+        read_ms = sum(times[:syncs])
+        return {"nonce": nonce.hex(), "difficulty": d, "secret": secret.hex(),
+                "md5": check_secret("md5", nonce, d, secret, list(range(256))),
+                "direct_backend_equal": True, "actions": names,
+                "kernel_launches": kernel_launches, "blocking_syncs": syncs,
+                "wall_ms": wall_ms, "device_ms_read": read_ms,
+                "device_ms_past_hit": sum(times[syncs:]), "host_share": 1 - read_ms / wall_ms}
+
+    def worker_mine():
+        coord, timer = StandIn(), None
+        w = None
+        try:
+            t0 = time.monotonic()
+            w, addr, sink = start_worker(coord)
+            w.start_forwarder()
+            if not w.warmed.wait(600) or w.warmup_error is not None:
+                raise AssertionError(f"warm-up failed: {w.warmup_error!r}")
+            warm_wall = time.monotonic() - t0
+            if not isinstance(w.handler.backend, CudaBackend):
+                raise AssertionError(f"Backend auto gave {w.handler.backend!r}")
+            # nothing may be built once warm-up has finished
+            builds, orig_build = [], _build.build
+            _build.build = lambda names=None: builds.append(names) or orig_build(names)
+            timer = LaunchTimer()
+            for counter in LAUNCHES.values():
+                counter.reset()
+            REGISTRY.reset()
+            try:
+                requests = [mine_once(coord, w, addr, sink, timer, nonce, d)
+                            for nonce, d in WORKER_DEMO]
+            finally:
+                _build.build = orig_build
+            if builds:
+                raise AssertionError(f"libraries built after warm-up: {builds}")
+            stats = coord.call(addr, "WorkerRPCHandler.Stats", {})
+            if stats["role"] != "worker" or stats["watchdog_armed"] is not True:
+                raise AssertionError(f"Stats: role {stats['role']}, watchdog "
+                                     f"{stats['watchdog_armed']}")
+            return {"requests": requests, "warmup_s": w.warmup_s,
+                    "boot_to_warm_s": warm_wall, "builds_after_warmup": 0,
+                    "stats_role": stats["role"], "stats_backend": stats["backend"],
+                    "stats_device": stats["device"], "watchdog_armed": True,
+                    "solve_s": REGISTRY.get_observed("worker.solve_s"),
+                    "card": smoke.info["device"]["nvidia_smi"]}
+        finally:
+            if timer is not None:
+                timer.close()
+            if w is not None:
+                w.shutdown()
+            coord.close()
+
+    def worker_fanout():
+        """One request to four workers on the card, each on its quarter of
+        the first byte: the first result wins, Found goes to all four, and
+        every worker sends two messages (the losers two nil ACKs)."""
+        coord, timer = StandIn(), LaunchTimer()
+        workers = []
+        try:
+            for i in range(WORKER_FANOUT):
+                workers.append(start_worker(coord, WorkerID=f"worker{i + 1}",
+                                            WarmupNonceLens=[], WarmupWidths=[]))
+                workers[-1][0].start_forwarder()
+            nonce, d = WORKER_FANOUT_REQUEST
+            bits = worker_bits(WORKER_FANOUT)
+            trace = coord.tracer.create_trace()
+            t0 = time.monotonic()
+            for i, (w, addr, _) in enumerate(workers):
+                coord.mine(addr, nonce, d, worker_byte=i, worker_bits=bits, trace=trace)
+            msgs = collections.defaultdict(list)
+            while True:
+                t, res = coord.take()
+                msgs[res["worker_byte"]].append(res)
+                if res["secret"] is not None:
+                    break
+            solve_s, winner, secret = t - t0, res["worker_byte"], bytes(res["secret"])
+            for i, (w, addr, _) in enumerate(workers):
+                coord.found(addr, nonce, d, i, secret, trace)
+            while sum(len(m) for m in msgs.values()) < 2 * WORKER_FANOUT:
+                t, res = coord.take(60)
+                msgs[res["worker_byte"]].append(res)
+            all_acks_s = t - t0
+            per_worker = []
+            for i, (w, _, sink) in enumerate(workers):
+                got = [m["secret"] is not None for m in msgs[i]]
+                if got not in ([False, False], [True, False]):
+                    raise AssertionError(f"worker {i}: messages {msgs[i]}")
+                times = timer.take(w.config.WorkerID)
+                per_worker.append({"worker": w.config.WorkerID, "result": got[0],
+                                   "nil_acks": got.count(False), "kernel_launches": len(times),
+                                   "device_ms": sum(times),
+                                   "actions": worker_actions(sink, trace)})
+            digest = check_secret("md5", nonce, d, secret, thread_bytes(winner, bits))
+            if not coord.results.empty():
+                raise AssertionError("messages after the ledger closed")
+            if min(p["kernel_launches"] for p in per_worker) <= 0:
+                raise AssertionError(f"a worker launched no kernel: {per_worker}")
+            return {"nonce": nonce.hex(), "difficulty": d, "winner": winner,
+                    "secret": secret.hex(), "md5": digest, "direct_backend_equal": True,
+                    "solve_s": solve_s, "all_acks_s": all_acks_s, "workers": per_worker,
+                    "card": smoke.info["device"]["nvidia_smi"]}
+        finally:
+            timer.close()
+            for w, _, _ in workers:
+                w.shutdown()
+            coord.close()
+
+    def worker_sched():
+        """Eight concurrent Mines, md5 and sha1, through one worker's batching
+        scheduler, under sync debug mode "error" as in sched_*."""
+        import numpy as np
+
+        coord = StandIn()
+        w = None
+        try:
+            w, addr, sink = start_worker(coord, Scheduler="batching",
+                                         SchedHashModels=["sha1"])
+            w.start_forwarder()
+            if not w.warmed.wait(600) or w.warmup_error is not None:
+                raise AssertionError(f"warm-up failed: {w.warmup_error!r}")
+            rng = np.random.default_rng(SCHED_SEED + 2)
+            reqs = [(m, rng.integers(0, 256, size=6, dtype=np.uint8).tobytes(),
+                     int(rng.integers(5, 7)))
+                    for m in WORKER_SCHED_MODELS for _ in range(WORKER_SCHED_PER_MODEL)]
+            for counter in LAUNCHES.values():
+                counter.reset()
+            REGISTRY.reset()
+            traces, got = {}, {}
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.monotonic()
+                for model_name, nonce, d in reqs:
+                    extra = {} if model_name == "md5" else {"hash_model": model_name}
+                    traces[nonce] = coord.mine(addr, nonce, d, **extra)
+                while len(got) < len(reqs):
+                    t, res = coord.take()
+                    got[bytes(res["nonce"])] = (t - t0, res)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches = {k: c.value for k, c in LAUNCHES.items()}
+            counts = {k: REGISTRY.get(k) for k in ("sched.launches", "sched.mixed_hash_launches",
+                                                   "sched.lane_launches.cuda",
+                                                   "sched.lane_launches.torch",
+                                                   "sched.fallback_searches",
+                                                   "search.blocking_syncs")}
+            out = []
+            for model_name, nonce, d in reqs:
+                wall, res = got[nonce]
+                if res["secret"] is None:
+                    raise AssertionError(f"{model_name} {nonce.hex()}: a nil result first")
+                secret = bytes(res["secret"])
+                extra = {} if model_name == "md5" else {"hash_model": model_name}
+                if res.get("hash_model") != extra.get("hash_model"):
+                    raise AssertionError(f"result tagged {res.get('hash_model')}")
+                coord.found(addr, nonce, d, 0, secret, traces[nonce], **extra)
+                out.append({"model": model_name, "nonce": nonce.hex(), "difficulty": d,
+                            "secret": secret.hex(),
+                            model_name: check_secret(model_name, nonce, d, secret,
+                                                     list(range(256))),
+                            "direct_backend_equal": True, "wall_s": wall})
+            acks = [coord.take(30)[1] for _ in reqs]
+            if any(a["secret"] is not None for a in acks):
+                raise AssertionError(f"non-nil ACKs: {acks}")
+            for model_name, nonce, _ in reqs:
+                names = worker_actions(sink, traces[nonce])
+                if "WorkerResult" not in names:
+                    raise AssertionError(f"{model_name} {nonce.hex()}: {names}")
+            group = {KERNELS[m]: launches[f"{KERNELS[m]}_group"] for m in WORKER_SCHED_MODELS}
+            solo = {k: launches[k] for k in KERNELS.values() if launches[k]}
+            if min(group.values()) <= 0 or counts["sched.lane_launches.cuda"] <= 0 or solo \
+                    or counts["sched.lane_launches.torch"]:
+                raise AssertionError(f"group launches {group}, solo {solo}, {counts}")
+            return {"requests": out, "group_launches": group, **counts,
+                    "batch_occupancy": REGISTRY.get_observed("sched.batch_occupancy"),
+                    "sync_debug_mode": "error", "card": smoke.info["device"]["nvidia_smi"]}
+        finally:
+            if w is not None:
+                w.shutdown()
+            coord.close()
+
+    def worker_cli():
+        """``python -m distpow_tpu_torch.cli.worker`` in a fresh process on
+        the card, its ``CompilationCacheDir`` a build directory that holds
+        nothing yet: boot, warm-up (which builds the kernels there), one
+        Mine, SIGTERM."""
+        import socket
+
+        coord = StandIn()
+        build_dir = os.path.join(HERE, "distpow_tpu_torch", "build", f"worker-cli-{os.getpid()}")
+        cfg_path = os.path.join(OUT_DIR, "worker_cli_config.json")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            listen = f"127.0.0.1:{sk.getsockname()[1]}"
+        with open(cfg_path, "w") as fh:
+            json.dump({"WorkerID": "worker1", "CoordAddr": coord.addr, **WORKER_CONFIG,
+                       "CompilationCacheDir": build_dir}, fh)
+        lines, marks = [], {}
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distpow_tpu_torch.cli.worker", "--config", cfg_path,
+             "--listen", listen], cwd=HERE, env={**os.environ, "PYTHONPATH": HERE},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def reader():
+            for line in proc.stdout:
+                lines.append(line)
+                for mark in ("serving worker1 RPCs", "warmup done", "warmup failed"):
+                    if mark in line and mark not in marks:
+                        marks[mark] = time.monotonic() - t0
+
+        threading.Thread(target=reader, daemon=True).start()
+        try:
+            deadline = time.monotonic() + 600
+            while "warmup done" not in marks and time.monotonic() < deadline:
+                if proc.poll() is not None or "warmup failed" in marks:
+                    break
+                time.sleep(0.05)
+            if "warmup done" not in marks:
+                raise AssertionError(f"no warm-up: {''.join(lines)[-3000:]}")
+            built = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else []
+            nonce, d = bytes([1, 2, 3, 4]), 6
+            t1 = time.monotonic()
+            trace = coord.mine(listen, nonce, d)
+            t_res, res = coord.take()
+            secret = bytes(res["secret"])
+            coord.found(listen, nonce, d, 0, secret, trace)
+            if coord.take(30)[1]["secret"] is not None:
+                raise AssertionError("the ACK carries a secret")
+            digest = check_secret("md5", nonce, d, secret, list(range(256)))
+            t2 = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"exit code {rc} after SIGTERM: {''.join(lines)[-3000:]}")
+            if not any(name.startswith("libmd5_search.vw") for name in built):
+                raise AssertionError(f"the warm-up built nothing in {build_dir}: {built}")
+            return {"boot_to_serving_s": marks["serving worker1 RPCs"],
+                    "boot_to_warmup_done_s": marks["warmup done"],
+                    "libraries_built_in_cache_dir": [b for b in built if b.endswith(".so")],
+                    "nonce": nonce.hex(), "difficulty": d, "secret": secret.hex(),
+                    "md5": digest, "direct_backend_equal": True,
+                    "mine_to_result_s": t_res - t1, "sigterm_to_exit_s": time.monotonic() - t2,
+                    "exit_code": rc}
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            coord.close()
+            shutil.rmtree(build_dir, ignore_errors=True)
+
     for i, model_name in enumerate(MODELS):
         model = get_hash_model(model_name)
         sfx = suffix(model_name)
@@ -2155,6 +2578,12 @@ def main() -> int:
     smoke.phase("rate_mesh", rate_mesh, needs=("mesh_full_parity",))
     # the requests run under sync debug mode "error", as in sched_*
     smoke.phase("sched_mesh", sched_mesh, needs=("group_parity", "mesh_parity"))
+    smoke.phase("worker_mine", worker_mine, needs=("build", "mine"))
+    smoke.phase("worker_fanout", worker_fanout, needs=("build", "mine"))
+    # the Mines run under sync debug mode "error", as in sched_*
+    smoke.phase("worker_sched", worker_sched,
+                needs=tuple(f"group_parity{suffix(m)}" for m in WORKER_SCHED_MODELS))
+    smoke.phase("worker_cli", worker_cli, needs=("build", "mine"))
 
     kernels = []
     for model_name in MODELS:

@@ -13,7 +13,13 @@ Layout mirrors the reference package:
                 step, the CUDA kernels' build and wrapper
 * ``parallel/`` partition algebra and the pipelined search driver
 * ``backends/`` ``python`` / ``torch`` / ``cuda`` miners and ``get_backend``
-* ``runtime/``  the small metrics registry the driver writes
+* ``sched/``    the batching scheduler and its launch lanes
+* ``nodes/``    the worker node (``Worker``, ``WorkerRPCHandler``)
+* ``cli/``      ``python -m distpow_tpu_torch.cli.worker``
+* ``fleet/``    the worker's side of the elastic fleet
+* ``runtime/``  metrics, spans, flight recorder, watchdog, and the worker's
+                RPC plane: wire codec, RPC, tracing, config, cache, faults,
+                health
 * ``csrc/``     the hand-written CUDA sources (built at first use)
 
 Entry points run on the card unless the caller asks for the CPU

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` (all started
 together) for ``sm_90a`` into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds) under
 ``distpow_tpu_torch/build/``, or the directory ``DISTPOW_TORCH_BUILD_DIR``
-names.  A library's file name carries a hash of its source, the shared
-headers and the flags, so a stale build is never loaded.  Nothing happens
+names, or the one ``set_build_dir`` sets (the worker's
+``CompilationCacheDir``).  A library's file name carries a hash of its
+source, the shared headers and the flags, so a stale build is never
+loaded.  Nothing happens
 at import time: the first ``load_library`` call builds that one library
 and loads it; ``build()`` builds them all (a backend's ``warmup`` builds its
 own before the first request).
@@ -152,6 +154,16 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def set_build_dir(path: str) -> None:
+    """Build libraries in, and load them from, ``path`` from now on: the
+    worker's ``CompilationCacheDir``, so that a later boot on the same
+    machine loads what an earlier one built.  Libraries loaded already stay
+    loaded."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = os.path.abspath(path)
 
 
 def group_function(name: str) -> str:

@@ -4,19 +4,16 @@ histograms.
 The port's own copy of the reference registry (``distpow_tpu/runtime/
 metrics.py``), without the lint declarations.  Every process has one
 ``REGISTRY``; a caller may also create a ``Metrics`` and pass it to a
-backend or to the search driver.  Names the port writes:
-
-* counters ``search.hashes``, ``search.launches``, ``search.found``,
-  ``search.cancelled``, ``search.blocking_syncs`` (the search driver and
-  the scheduler), ``sched.launches``, ``sched.mixed_hash_launches``,
-  ``sched.lane_launches.<lane>``, ``sched.slots_preempted``,
-  ``sched.fallback_searches``, ``sched.loop_failures`` (the scheduler),
-  ``spans.dropped``, ``telemetry.dropped_events``, ``telemetry.dumps``;
-* gauges ``search.hashes_per_s`` (the driver's rate meter),
-  ``sched.active_slots``, ``sched.run_queue_depth``;
-* histograms ``search.launch_s`` (time blocked on one launch's result),
-  ``sched.batch_occupancy`` (real slots per engine launch),
-  ``sched.slot_wait_s`` (submit to first launch).
+backend or to the search driver.  The names the port writes are declared
+below (``KNOWN_*``, with the reference's names): the search driver and
+the scheduler (``search.*``, ``sched.*``), the worker node (``worker.*``,
+``worker.solve_s.<model>``), its dominance cache (``cache.*``), the RPC
+layer (``rpc.*``, ``rpc.client.call_s.<method>``,
+``rpc.server.dispatch_s.<method>``), the fault plane
+(``faults.injected.<kind>``), the fleet agent (``fleet.*``), the resource
+sentinels (``proc.*``, ``ring.*``, ``health.leak_suspects``), the span
+ring and the flight recorder (``spans.dropped``, ``telemetry.*``).
+``worker.warmup_failures`` is the port's own: a failed boot warm-up.
 """
 
 from __future__ import annotations
@@ -27,6 +24,49 @@ import time
 from typing import Dict, List, Optional, Tuple, Union
 
 Number = Union[int, float]
+
+KNOWN_COUNTERS = frozenset({
+    "search.hashes", "search.launches", "search.cancelled", "search.found",
+    "search.blocking_syncs",
+    "worker.mine_rpcs", "worker.found_rpcs", "worker.cancel_rpcs",
+    "worker.results_sent", "worker.forward_retries", "worker.warmup_failures",
+    "cache.hit", "cache.miss", "cache.add", "cache.evict",
+    "sched.launches", "sched.slots_preempted", "sched.fallback_searches",
+    "sched.loop_failures", "sched.mixed_hash_launches",
+    "rpc.handler_errors", "rpc.codec.negotiated_v2", "rpc.codec.fallback_v1",
+    "telemetry.dropped_events", "telemetry.dumps",
+    "spans.dropped",
+    "health.leak_suspects",
+})
+# Families minted from runtime values: the literal prefix is one of these.
+KNOWN_COUNTER_PREFIXES = frozenset({
+    "faults.injected.",
+    "search.",  # the backends' exit reasons: search.{cancelled,found}
+    "sched.lane_launches.",
+})
+KNOWN_HISTOGRAMS = frozenset({
+    "worker.solve_s", "worker.time_to_cancel_s",
+    "search.launch_s",
+    "sched.batch_occupancy", "sched.slot_wait_s",
+    "rpc.frame.sent_bytes", "rpc.frame.recv_bytes",
+    "fleet.heartbeat_rtt_s",
+})
+KNOWN_HISTOGRAM_PREFIXES = frozenset({
+    "rpc.client.call_s.",
+    "rpc.server.dispatch_s.",
+    "worker.solve_s.",  # per hash model
+})
+# Gauge names are load-bearing: the resource sentinels (runtime/health.py)
+# register only declared ones.
+KNOWN_GAUGES = frozenset({
+    "worker.active_searches", "worker.mine_queue_depth",
+    "worker.forward_queue_depth",
+    "search.hashes_per_s", "search.mesh_devices",
+    "sched.active_slots", "sched.run_queue_depth",
+    "proc.rss_bytes", "proc.open_fds", "proc.threads",
+    "ring.spans_depth", "ring.flightrec_depth",
+})
+KNOWN_GAUGE_PREFIXES = frozenset()
 
 # Log-bucket geometry: 4 buckets per octave, so a bucket is at most ~19 %
 # wide and a percentile estimate errs high by at most that much.
@@ -116,6 +156,25 @@ class Histogram:
         return out
 
 
+class _Timer:
+    """Context manager returned by ``Metrics.time``: observes the block's
+    wall-clock seconds into the named histogram."""
+
+    __slots__ = ("_metrics", "_name", "_t0")
+
+    def __init__(self, metrics: "Metrics", name: str):
+        self._metrics = metrics
+        self._name = name
+        self._t0 = 0.0
+
+    def __enter__(self) -> "_Timer":
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._metrics.observe(self._name, time.monotonic() - self._t0)
+
+
 class Metrics:
     def __init__(self) -> None:
         self._counters: Dict[str, Number] = {}
@@ -141,6 +200,11 @@ class Metrics:
             if h is None:
                 h = self._hists[name] = Histogram()
             h.observe(value, trace_id if self.exemplars_enabled else None)
+
+    def time(self, name: str) -> _Timer:
+        """``with metrics.time("x.y"): ...`` observes the block's seconds
+        into histogram ``x.y``."""
+        return _Timer(self, name)
 
     def get(self, name: str) -> Number:
         """A counter, else a gauge, else 0."""

@@ -2,7 +2,8 @@
 
 An AST scan of every module of ``distpow_tpu_torch`` and of
 ``chip_smoke.py``, and a fresh interpreter that imports the port's main path
-and finds no ``jax`` in ``sys.modules`` (this pytest process has JAX loaded
+(the worker node, its CLI and RPC layer among it), builds a worker on the
+CPU, and finds no ``jax`` in ``sys.modules`` (this pytest process has JAX loaded
 already, so the check needs its own process).
 """
 
@@ -59,6 +60,17 @@ def test_main_path_imports_no_jax_in_a_fresh_process():
         "b.get_backend('cuda', device='cpu').search(b'\\x01', 1, range(256))\n"
         "b.get_backend('pallas-mesh', device='cpu', mesh_devices=4).search(b'\\x01', 1, "
         "range(256))\n"
+        "import distpow_tpu_torch.nodes.worker, distpow_tpu_torch.cli.worker\n"
+        "import distpow_tpu_torch.runtime.rpc as rpc\n"
+        "from distpow_tpu_torch.runtime.config import WorkerConfig\n"
+        "coord = rpc.RPCServer()\n"
+        "addr = coord.listen('127.0.0.1:0')\n"
+        "coord.serve_in_background()\n"
+        "w = distpow_tpu_torch.nodes.worker.Worker(WorkerConfig(ListenAddr='127.0.0.1:0', "
+        "CoordAddr=addr, BatchSize=1 << 12, WarmupNonceLens=[]), device='cpu')\n"
+        "w.initialize_rpcs()\n"
+        "w.shutdown()\n"
+        "coord.shutdown()\n"
         "bad = sorted(m for m in set(sys.modules) - pre if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distpow_tpu'))\n"
         "assert not bad, bad\n"
