@@ -56,7 +56,19 @@ ms from Mine to Result, and no library built after warm-up),
 scheduler's group kernels, under sync debug mode "error") and
 ``worker_cli`` (``python -m distpow_tpu_torch.cli.worker`` in a fresh
 process whose ``CompilationCacheDir`` is empty: warm-up, one Mine,
-SIGTERM, exit 0).  Every phase prints one
+SIGTERM, exit 0), and ``worker_mesh`` (a Mine through a worker whose
+backend is the mesh kernels' on 4 logical shards).  The persistent loop
+(the reference worker's default ``SearchLoop``): ``persistent_parity``
+holds each model's persistent kernel, solo and on 4 logical shards,
+against the plain persistent step on both of its words (hits in the
+first, a middle and no segment, widths 0-4, both tails, a set stop flag)
+and at the main path's launch; ``mine`` serves every request under both
+loops (``persistent`` and ``serial``) with the same secrets, ``rate``
+times the persistent launch without a hit beside the solo one, ``cancel``
+runs under both loops, and ``worker_mine`` serves the reference's
+defaults (persistent) and one serial Mine, the device time of the
+launches behind the hit's, and a ``torch.profiler`` record of two
+difficulty-5 Mines.  Every phase prints one
 JSON line; the line before the card's name lists every kernel; the last
 line, printed only when every phase passed, is ``{"ok": true, "device":
 {...}}``.  It imports neither JAX nor the JAX package.  Long outputs (the
@@ -185,6 +197,18 @@ MESH_DIFFICULTIES = (2, 3, 4, 0, 5)
 MESH_CASE_CANDIDATES = 1 << 14
 # mesh_full_parity: launches timed of the main-path mesh and solo launches
 MESH_RATE_LAUNCHES = 5
+# persistent_parity: (tb_lo, tbc, chunks a segment) of the cases, about
+# 2^12 candidates a segment; the segments of a launch; the difficulties: a
+# hit in the first segment, in a later one (about 1 in 4096), none
+PERSISTENT_PARTITIONS = ((0, 256, 16), (16, 96, 40), (5, 3, 1300))
+PERSISTENT_SEGMENTS = (4, 1)
+PERSISTENT_DIFFICULTIES = (1, 3, 8)
+# its mesh cases on 4 logical shards: (tb_lo, tbc) of a thread-byte split
+# and of two chunk splits, at widths 1 and 4
+PERSISTENT_MESH_RUNS = ((0, 256), (16, 4), (5, 3))
+# launches timed of the main-path persistent launch (at the deep hit, and
+# without a hit in rate*)
+PERSISTENT_RATE_LAUNCHES = 5
 # mine_mesh, mesh_full_parity, rate_mesh, sched_mesh: shards of search_mesh
 MESH_SHARDS = 4
 # sched_mixed: md5 (the default) and the models it admits besides
@@ -302,6 +326,11 @@ GROUP_KEY = r"group_search_kernelI(?:N\w*?E)?Li(\d)EE"
 
 # A mesh kernel's key: (resident_)hash_mesh_kernel<Hash, MW, NB, POW2>
 MESH_KEY = r"_mesh_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
+
+# The persistent forms' keys: (resident_)hash_persistent_kernel and
+# (resident_)hash_mesh_persistent_kernel, <Hash, MW, NB, POW2>
+PERSISTENT_KEY = r"hash_persistent_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
+MESH_PERSISTENT_KEY = r"mesh_persistent_kernelI(?:N\w*?E)?Li(\d+)ELi(\d)ELb(\d)E"
 
 # md5's kernels are built per tail layout: the hash Md5<VW> (or a round
 # variant's Md5As<VW, ...>) carries the run's first message word, which
@@ -860,17 +889,18 @@ def main() -> int:
     from distpow_tpu_torch.ops.operands import make_operands, u32_value
     from distpow_tpu_torch.ops.packing import build_tail_spec
     from distpow_tpu_torch.ops.difficulty import nibble_masks
-    from distpow_tpu_torch.ops.hash_cuda import group_grid, hash_group_search
+    from distpow_tpu_torch.ops.hash_cuda import (group_grid, hash_group_search,
+                                                 hash_persistent_search, one_wave_for)
     from distpow_tpu_torch.ops.operands import group_operands
     from distpow_tpu_torch.ops.search_step import (
-        SENTINEL, MeshOrigin, mask_words_for, partition_index, plain_first_hits,
-        plain_group_search, plain_mesh_search, plain_search, step_operands)
+        SENTINEL, MeshOrigin, mask_words_for, partition_index, persistent_search_step,
+        plain_first_hits, plain_group_search, plain_mesh_search, plain_search, step_operands)
     from distpow_tpu_torch.parallel import mesh_search
     from distpow_tpu_torch.parallel.mesh_search import make_mesh
     from distpow_tpu_torch.runtime.metrics import Metrics
     from distpow_tpu_torch.sched import BatchingScheduler
     from distpow_tpu_torch.parallel.partition import thread_bytes, worker_bits
-    from distpow_tpu_torch.parallel.search import launch_steps_for
+    from distpow_tpu_torch.parallel.search import StopFlag, launch_steps_for
     from distpow_tpu_torch.runtime.metrics import REGISTRY
     from distpow_tpu_torch.backends import cuda_backend
     from distpow_tpu_torch.nodes import Worker
@@ -926,7 +956,7 @@ def main() -> int:
         build_log = collections.defaultdict(str)
         for lib, text in library_log.items():
             build_log[lib.partition(".vw")[0]] += text
-        ptxas, loop_counts, group_info, mesh_info = {}, {}, {}, {}
+        ptxas, loop_counts, group_info, mesh_info, persistent_info = {}, {}, {}, {}, {}
         # the listings parsed at once, one process a library
         libs = sorted(paths)
         with concurrent.futures.ProcessPoolExecutor(
@@ -1006,6 +1036,23 @@ def main() -> int:
                                                   for k, v in mspecs.items() if k in specs}),
                 "spill_bytes": max([v["spill_bytes"] for v in mspecs.values()], default=None),
                 "timed": {**mspecs.get(tk, {}), "loop_instructions": sum(mloops[tk].values())}}
+            # the persistent forms, one specialization per solo (mesh) one:
+            # the same loop with the checks of the cell and the flag
+            persistent_info[kernel] = {}
+            for form, key, base_specs in (("solo", PERSISTENT_KEY, specs),
+                                          ("mesh", MESH_PERSISTENT_KEY, mspecs)):
+                pspecs = parse_ptxas(build_log.get(kernel, ""), key)
+                ploops = by_spec(whole, key)
+                if (build_log and len(pspecs) != expect) or len(ploops) != expect:
+                    raise RuntimeError(f"{kernel}: ptxas reported {len(pspecs)} and the SASS "
+                                       f"{len(ploops)} of {expect} {form} persistent kernels")
+                persistent_info[kernel][form] = {
+                    "register_delta_to_serial": sorted({v["registers"] - base_specs[k]["registers"]
+                                                        for k, v in pspecs.items()
+                                                        if k in base_specs}),
+                    "spill_bytes": max([v["spill_bytes"] for v in pspecs.values()], default=None),
+                    "timed": {**pspecs.get(tk, {}),
+                              "loop_instructions": sum(ploops[tk].values())}}
         for lib in libs:
             name, _, vw = lib.partition(".vw")
             _build.load_library(name, int(vw) if vw else None)
@@ -1025,6 +1072,7 @@ def main() -> int:
                 "timed_loop_pipes": {k: pipe_split(issued[k][timed_key(MODEL_OF[k])])
                                      for k in issued},
                 "group_kernels": group_info, "mesh_kernels": mesh_info,
+                "persistent_kernels": persistent_info,
                 "group_loop_pipes": {k: pipe_split(group_issued[k][group_key(MODEL_OF[k], 1)])
                                      for k in group_issued},
                 "md5_specializations": {"solo": len(loops[KERNELS["md5"]]),
@@ -1180,43 +1228,258 @@ def main() -> int:
             raise AssertionError(f"no nonce of {FULL_PARITY_TRIES} has a deep first hit")
         cases, max_err = [], 0
         # difficulty 7: one deep first hit and few others; difficulty 6: hits
-        # in many blocks at once, whose atomicMin must keep the first
+        # in many blocks at once, whose atomicMin must keep the first.  The
+        # plain version judges the sub-batches up to the one holding the
+        # kernel's index: it is the first hit iff the plain version finds
+        # nothing before it and a hit at it
         for d in (7, 6):
             spec, ops = operands(nonce, d)
             got = kernel(spec, ops)
+            if got == SENTINEL:
+                raise AssertionError(f"full launch at difficulty {d}: the kernel found no hit")
+            judged = got // MAIN_BATCH + 1
             want = u32_value(plain_search(ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
-                                          MAIN_BATCH, steps, model=model))
+                                          MAIN_BATCH, judged, model=model))
             max_err = max(max_err, abs(got - want))
             cases.append({"difficulty": d, "kernel": got, "plain": want,
-                          "fraction_of_launch": got / n,
+                          "fraction_of_launch": got / n, "plain_sub_batches": judged,
                           "block": (got % stride) // BLOCK_THREADS})
-            if got != want or want == SENTINEL:
+            if got != want:
                 raise AssertionError(f"full launch at difficulty {d}: kernel {got}, plain {want}")
         return {"nonce": nonce.hex(), "candidates": n, "launch_steps": steps, "grid": grid,
                 "nonces_tried": i + 1, "cases": cases, "mismatches": 0, "max_abs_err": max_err,
                 "tolerance": "exact (integer first-hit index)"}
 
-    # 4. mine: the worker's path through get_backend("auto") -------------
+    # 3c. persistent_parity: the persistent form of the solo and mesh
+    # kernels against the plain persistent step ------------------------------
+    def persistent_words(model, cases):
+        """The plain persistent step's two words for each case ``(ops,
+        spec, chunk0, batch, segments)`` with no flag, from the plain
+        version's first hit over the whole launch (``judge_cases``) and the
+        segment it lies in: what ``persistent_search_step`` computes
+        segment by segment (held to it directly below)."""
+        firsts = judge_cases(model, [(ops, spec, c0, batch * segs)
+                                     for ops, spec, c0, batch, segs in cases])
+        return [[f, segs if f == SENTINEL else f // batch + 1]
+                for f, (*_, batch, segs) in zip(firsts, cases)]
+
+    def words_of(t):
+        return [u32_value(v) for v in t.reshape(-1)]
+
+    def persistent_parity(model, seed):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        one = torch.ones(1, dtype=torch.int32, device=dev)
+        cases, labels, raised = [], [], 0
+        for n_len in (4, model.block_bytes - 3):
+            nonce = rng.integers(0, 256, size=n_len, dtype=np.uint8).tobytes()
+            # width 0 has no persistent form: the kernel's wrapper and the
+            # plain step raise
+            spec = build_tail_spec(nonce, 0, model)
+            ops = step_operands(spec, 1, model, 0, 256, dev)
+            for fn in (lambda: hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs,
+                                                      0, 256, 1, zero, device=dev),
+                       lambda: persistent_search_step(ops, spec.tb_loc, spec.chunk_locs, 0, 256,
+                                                      1, zero, model=model)):
+                try:
+                    fn()
+                except ValueError:
+                    raised += 1
+                else:
+                    raise AssertionError("a width-0 persistent launch did not raise")
+            for width in range(1, 5):
+                spec = build_tail_spec(nonce, width, model)
+                for tb_lo, tbc, chunks in PERSISTENT_PARTITIONS:
+                    for segs in PERSISTENT_SEGMENTS:
+                        for d in PERSISTENT_DIFFICULTIES if segs > 1 else \
+                                PERSISTENT_DIFFICULTIES[1:2]:
+                            ops = step_operands(spec, d, model, tb_lo, tbc, dev)
+                            # a segment start, or a launch that runs past the
+                            # width's end (chunk bytes wrap as in the driver)
+                            chunk0 = 256 ** (width - 1) if len(cases) % 2 else \
+                                (256 ** width - 2 * chunks) & 0xFFFFFFFF
+                            cases.append((ops, spec, chunk0, chunks * tbc, segs))
+                            labels.append(f"n{n_len}_w{width}_tbc{tbc}_k{segs}_d{d}")
+        got = [hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs, c0, batch, segs,
+                                      zero, device=dev) for ops, spec, c0, batch, segs in cases]
+        # a flag set before the launch: (SENTINEL, 0), on every third case
+        stopped = [hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs, c0, batch,
+                                          segs, one, device=dev)
+                   for ops, spec, c0, batch, segs in cases[::3]]
+        torch.cuda.synchronize()
+        want = persistent_words(model, cases)
+        mismatches, kinds, tails, max_err = [], collections.Counter(), set(), 0
+        for label, g, w, case in zip(labels, got, want, cases):
+            g = words_of(g)
+            kinds["none" if w[0] == SENTINEL else "first" if w[1] == 1 else
+                  "last" if w[1] == case[4] else "middle"] += 1
+            tails.add(case[1].n_blocks)
+            max_err = max(max_err, *(abs(a - b) for a, b in zip(g, w)))
+            if g != w:
+                mismatches.append({"case": label, "kernel": g, "plain": w})
+        for label, g in zip(labels[::3], stopped):
+            if words_of(g) != [SENTINEL, 0]:
+                mismatches.append({"case": f"{label}_stopped", "kernel": words_of(g)})
+        # persistent_search_step itself: per width the case with the latest
+        # first hit, and with the flag set
+        direct = []
+        for width in range(1, 5):
+            i = max((j for j, c in enumerate(cases) if len(c[1].chunk_locs) == width),
+                    key=lambda j: (want[j][0] != SENTINEL, want[j][1]))
+            ops, spec, c0, batch, segs = cases[i]
+            v = words_of(persistent_search_step(ops, spec.tb_loc, spec.chunk_locs, c0, batch,
+                                                segs, zero, model=model))
+            v1 = words_of(persistent_search_step(ops, spec.tb_loc, spec.chunk_locs, c0, batch,
+                                                 segs, one, model=model))
+            direct.append({"case": labels[i], "plain_step": v, "judge": want[i]})
+            if v != want[i] or v1 != [SENTINEL, 0]:
+                mismatches.append({**direct[-1], "stopped": v1})
+        # the mesh form on 4 logical shards: a thread-byte split and two
+        # chunk splits, against the plain persistent step at the partition's
+        # segment
+        mesh = make_mesh(shard_devices(MESH_SHARDS))
+        mesh_cases = []
+        for tb_lo, tbc in PERSISTENT_MESH_RUNS:
+            for width in (1, 4):
+                for d in PERSISTENT_DIFFICULTIES:
+                    nonce = rng.integers(0, 256, size=(4, model.block_bytes - 3)[width == 4],
+                                         dtype=np.uint8).tobytes()
+                    spec = build_tail_spec(nonce, width, model)
+                    step, each, chunks = mesh_search.mesh_persistent_factory(
+                        nonce, d, tb_lo, tbc, model, mesh)(width, b"", max(1, 4096 // tbc), 4)
+                    chunk0 = 256 ** (width - 1)
+                    mesh_cases.append((
+                        f"mesh_tbc{tbc}_w{width}_d{d}", step(chunk0, StopFlag()),
+                        step(chunk0, StopFlag(set_=True)),
+                        (step_operands(spec, d, model, tb_lo, tbc, dev), spec, chunk0,
+                         each * tbc, chunks // each)))
+        torch.cuda.synchronize()
+        mesh_want = persistent_words(model, [c[3] for c in mesh_cases])
+        mesh_hits = 0
+        for (label, g, g1, _), w in zip(mesh_cases, mesh_want):
+            mesh_hits += w[0] != SENTINEL
+            max_err = max(max_err, *(abs(a - b) for a, b in zip(words_of(g), w)))
+            if words_of(g) != w or words_of(g1) != [SENTINEL, 0]:
+                mismatches.append({"case": label, "mesh": words_of(g), "stopped": words_of(g1),
+                                   "plain": w})
+        if mismatches:
+            raise AssertionError(f"{len(mismatches)} of {len(cases) + len(mesh_cases)} cases "
+                                 f"differ: {mismatches[:10]}")
+        if tails != {1, 2} or not all(kinds[k] for k in ("first", "middle", "none")) or \
+                raised != 4 or not 0 < mesh_hits < len(mesh_cases):
+            raise AssertionError(f"the grid missed a case: tails {tails}, {dict(kinds)}, "
+                                 f"{raised} width-0 refusals, {mesh_hits} mesh hits")
+        return {"cases": len(cases), "stopped_cases": len(stopped), "mesh_cases": len(mesh_cases),
+                "mismatches": 0, "segments_of_first_hit": dict(kinds), "tails": sorted(tails),
+                "width0_refused": raised, "plain_step": direct, "max_abs_err": max_err,
+                "tolerance": "exact (integer first-hit index and segment count)",
+                "main_path": persistent_main(model, mesh)}
+
+    def persistent_main(model, mesh):
+        """The main path's persistent launch at full_parity's deep
+        difficulty-7 hit, solo and on the mesh: both give (the solo kernel's
+        index, its segment + 1); timed beside the solo kernel on the same
+        launch (which runs on past its hit), and the plain persistent step's
+        time and words on it."""
+        fp = smoke.info[f"full_parity{suffix(model.name)}"]
+        nonce, steps, f = bytes.fromhex(fp["nonce"]), fp["launch_steps"], fp["cases"][0]["kernel"]
+        spec = build_tail_spec(nonce, 4, model)
+        ops = step_operands(spec, 7, model, 0, 256, dev)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        budget = CudaBackend(hash_model=model.name, device=dev).max_launch
+        mstep, each, chunks = mesh_search.mesh_persistent_factory(
+            nonce, 7, 0, 256, model, mesh, max_launch=budget)(4, b"", MAIN_BATCH // 256, steps)
+        if each * 256 != MAIN_BATCH or chunks * 256 != MAIN_BATCH * steps:
+            raise AssertionError(f"the mesh's segments: {each} chunks, {chunks} a launch")
+        # the persistent form on one resident wave and on the serial
+        # kernel's grid of several waves; "persistent" is the one the
+        # backends launch here (one_wave_for: one wave where the launch is
+        # expected to hold half a hit or more)
+        one_wave = one_wave_for(MAIN_BATCH * steps, 7)
+        forms = {"solo": lambda: hash_search(model, ops, spec.tb_loc, spec.chunk_locs,
+                                             MAIN_CHUNK0, MAIN_BATCH, steps, device=dev),
+                 "persistent_one_wave": lambda: hash_persistent_search(
+                     model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0, MAIN_BATCH, steps,
+                     zero, device=dev, one_wave=True),
+                 "persistent_waves": lambda: hash_persistent_search(
+                     model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0, MAIN_BATCH, steps,
+                     zero, device=dev, one_wave=False),
+                 "mesh_persistent": lambda: mstep(MAIN_CHUNK0, StopFlag())}
+        waves = default_grid(MAIN_BATCH * steps, smoke.info["device"]["sm_count"])
+        expect = [f, f // MAIN_BATCH + 1]
+        for name, fn in forms.items():
+            out = fn()
+            torch.cuda.synchronize()
+            got = words_of(out)
+            if got != (expect[:1] if name == "solo" else expect):
+                raise AssertionError(f"main path {name}: {got}, expected {expect}")
+        runs = collections.defaultdict(list)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for name in ("solo", "persistent_one_wave", "persistent_waves", "mesh_persistent",
+                     "mesh_persistent", "persistent_waves", "persistent_one_wave", "solo"):
+            start.record()
+            for _ in range(PERSISTENT_RATE_LAUNCHES):
+                forms[name]()
+            end.record()
+            end.synchronize()
+            runs[name].append(start.elapsed_time(end) / PERSISTENT_RATE_LAUNCHES)
+        runs["persistent"] = runs["persistent_one_wave" if one_wave else "persistent_waves"]
+        start.record()
+        plain = words_of(persistent_search_step(ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
+                                                MAIN_BATCH, steps, zero, model=model))
+        end.record()
+        end.synchronize()
+        if plain != expect:
+            raise AssertionError(f"main path: plain persistent step {plain}, kernel {expect}")
+        # the bound of this run's data: the candidates up to the end of the
+        # hit's segment, the plain step's work
+        mw = mask_words_for(7, model)
+        var_words = {model.words_per_block * b + w for b, w, _ in (spec.tb_loc, *spec.chunk_locs)}
+        needed = needed_ops(model.name, spec.n_blocks, mw, var_words)
+        dev_info = smoke.info["device"]
+        clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
+        candidates = expect[1] * MAIN_BATCH
+        return {"nonce": nonce.hex(), "difficulty": 7, "launch_steps": steps, "words": expect,
+                "fraction_of_launch": f / (MAIN_BATCH * steps),
+                "ms": {k: min(v) for k, v in runs.items()}, "ms_runs": dict(runs),
+                "persistent_over_solo": min(runs["persistent"]) / min(runs["solo"]),
+                "one_wave": one_wave, "waves_grid": waves,
+                "one_wave_over_waves": (min(runs["persistent_one_wave"]) /
+                                        min(runs["persistent_waves"])),
+                "plain_ms": start.elapsed_time(end), "plain_words": plain,
+                "bound_candidates": candidates, "needed_ops_per_hash": needed,
+                "bound_ms": candidates * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM *
+                                                   clocks_per_s) * 1e3,
+                "card": dev_info["nvidia_smi"]}
+
+    # 4. mine: the worker's path through get_backend("auto"), both loops ---
     def mine(model):
-        backend = get_backend("auto", hash_model=model.name)
-        if not isinstance(backend, CudaBackend) or backend.batch_size != 1 << 20 \
-                or backend.model is not model:
-            raise AssertionError(f"auto resolved to {backend!r}")
+        if get_backend("auto", hash_model=model.name).loop != "persistent":
+            raise AssertionError("the default search loop is not the persistent one")
+        backends = {loop: get_backend("auto", hash_model=model.name, loop=loop)
+                    for loop in ("persistent", "serial")}
+        for backend in backends.values():
+            if not isinstance(backend, CudaBackend) or backend.batch_size != 1 << 20 \
+                    or backend.model is not model:
+                raise AssertionError(f"auto resolved to {backend!r}")
+        backend = backends["persistent"]
         kernel = KERNELS[model.name]
+        persistent_kernel = f"{kernel}_persistent"
         nonce = bytes([1, 2, 3, 4])
         full = thread_bytes(0, worker_bits(1))
-        # every count to 0 just before the path runs
-        for counter in LAUNCHES.values():
-            counter.reset()
-        REGISTRY.reset()
-        requests = []
 
         def counts():
             return (REGISTRY.get("search.hashes"), REGISTRY.get("search.launches"),
-                    LAUNCHES[kernel].value)
+                    LAUNCHES[kernel].value, LAUNCHES[persistent_kernel].value,
+                    REGISTRY.get("search.blocking_syncs"),
+                    REGISTRY.get("search.persistent_steps"))
 
         def deltas(before):
-            return dict(zip(("hashes_dispatched", "search_launches", "kernel_launches"),
+            return dict(zip(("hashes_dispatched", "search_launches", "kernel_launches",
+                             "persistent_kernel_launches", "blocking_syncs",
+                             "persistent_steps"),
                             (b - a for a, b in zip(before, counts()))))
 
         def digest_hex(msg):
@@ -1224,32 +1487,10 @@ def main() -> int:
             h.update(msg)
             return h.hexdigest()
 
-        difficulties = MINE_DIFFICULTIES[model.name]
-        for d in difficulties:
-            before = counts()
-            t0 = time.monotonic()
-            secret = backend.search(nonce, d, full)
-            wall = time.monotonic() - t0
-            if secret is None or not puzzle.check_secret(nonce, secret, d, model.name):
-                raise AssertionError(f"difficulty {d}: {secret!r} does not solve")
-            digest = digest_hex(nonce + secret)
-            if not digest.endswith("0" * d):
-                raise AssertionError(f"difficulty {d}: {model.name} digest {digest}")
-            req = {"difficulty": d, "workers": 1, "secret": secret.hex(), model.name: digest,
-                   "wall_s": wall, **deltas(before)}
-            if req["kernel_launches"] <= 0:
-                raise AssertionError(f"difficulty {d}: {kernel} was not launched")
-            if d == difficulties[0]:
-                oracle = puzzle.python_search(nonce, d, full, algo=model.name)
-                req["python_search"] = oracle.hex()
-                if oracle != secret:
-                    raise AssertionError(f"difficulty {d}: kernel {secret.hex()} != "
-                                         f"python_search {oracle.hex()}")
-            requests.append(req)
-
-        if model.name == "md5":
-            # 4-way prefix split on the one card, each worker in its own
-            # thread and stream; the first result wins and cancels the others
+        def four_way():
+            """md5's 4-way prefix split on the one card, each worker in its
+            own thread and stream; the first result wins and cancels the
+            others."""
             nonce4, d4 = bytes([5, 6, 7, 8]), 8
             bits = worker_bits(4)
             done = threading.Event()
@@ -1288,33 +1529,102 @@ def main() -> int:
             digest = hashlib.md5(nonce4 + secret).hexdigest()
             if not digest.endswith("0" * d4) or secret[0] >> 6 != winner:
                 raise AssertionError(f"4-way: {secret.hex()} from worker {winner}, md5 {digest}")
-            requests.append({"difficulty": d4, "workers": 4, "winner": winner,
-                             "secret": secret.hex(), "md5": digest, "wall_s": t_win - t0,
-                             **deltas(before),
-                             "finished": sum(r is not None for r in results)})
-        # the counts just after
-        launches = {k: c.value for k, c in LAUNCHES.items()}
-        if launches[kernel] <= 0:
-            raise AssertionError(f"the main path launched {kernel} no time")
-        others = {k: v for k, v in launches.items() if k != kernel and v}
-        if others:
-            raise AssertionError(f"the {model.name} path launched other kernels: {others}")
-        return {"requests": requests, "kernel_launches": {kernel: launches[kernel]},
-                "search_launches": REGISTRY.get("search.launches"),
-                "blocking_syncs": REGISTRY.get("search.blocking_syncs")}
+            return {"difficulty": d4, "workers": 4, "winner": winner,
+                    "secret": secret.hex(), "md5": digest, "wall_s": t_win - t0,
+                    **deltas(before), "loop": "persistent",
+                    "finished": sum(r is not None for r in results)}
 
-    # 5. cancel (md5) ---------------------------------------------------
+        # each loop's run on its own: every count to 0 just before it, read
+        # just after.  The persistent loop (the default) is the main path:
+        # its counts go into the kernels line; the serial loop's are kept
+        # beside them.
+        difficulties = MINE_DIFFICULTIES[model.name]
+        runs, launches, totals, split = {}, {}, {}, None
+        for loop in ("persistent", "serial"):
+            for counter in LAUNCHES.values():
+                counter.reset()
+            REGISTRY.reset()
+            runs[loop] = {}
+            for d in difficulties:
+                before = counts()
+                t0 = time.monotonic()
+                secret = backends[loop].search(nonce, d, full)
+                runs[loop][d] = {"secret": secret, "wall_s": time.monotonic() - t0,
+                                 **deltas(before)}
+            if loop == "persistent" and model.name == "md5":
+                split = four_way()
+            launches[loop] = {k: c.value for k, c in LAUNCHES.items() if c.value}
+            totals[loop] = {k: REGISTRY.get(f"search.{k}") for k in
+                            ("launches", "blocking_syncs", "persistent_steps")}
+
+        requests = []
+        for d in difficulties:
+            p, sr = runs["persistent"][d], runs["serial"][d]
+            secret = p["secret"]
+            if secret is None or not puzzle.check_secret(nonce, secret, d, model.name):
+                raise AssertionError(f"difficulty {d}: {secret!r} does not solve")
+            if sr["secret"] != secret:
+                raise AssertionError(f"difficulty {d}: persistent {secret.hex()} != serial "
+                                     f"{sr['secret']!r}")
+            digest = digest_hex(nonce + secret)
+            if not digest.endswith("0" * d):
+                raise AssertionError(f"difficulty {d}: {model.name} digest {digest}")
+            if p["kernel_launches"] + p["persistent_kernel_launches"] <= 0 or \
+                    sr["kernel_launches"] <= 0:
+                raise AssertionError(f"difficulty {d}: {kernel} was not launched: {p}, {sr}")
+            if p["blocking_syncs"] != 0 or sr["persistent_kernel_launches"] != 0:
+                raise AssertionError(f"difficulty {d}: the persistent loop blocked or the "
+                                     f"serial one ran the persistent kernel: {p}, {sr}")
+            serial = {k: v for k, v in sr.items() if k != "secret"}
+            req = {"difficulty": d, "workers": 1, "secret": secret.hex(), model.name: digest,
+                   **{k: v for k, v in p.items() if k != "secret"}, "loop": "persistent",
+                   "serial": serial}
+            if d == difficulties[0]:
+                oracle = puzzle.python_search(nonce, d, full, algo=model.name)
+                req["python_search"] = oracle.hex()
+                if oracle != secret:
+                    raise AssertionError(f"difficulty {d}: kernel {secret.hex()} != "
+                                         f"python_search {oracle.hex()}")
+            requests.append(req)
+        if split is not None:
+            requests.append(split)
+        # the persistent loop ran the solo kernel (its width-0 probes) and
+        # its persistent form; the serial loop the solo kernel alone
+        path = {kernel: launches["persistent"].get(kernel, 0),
+                persistent_kernel: launches["persistent"].get(persistent_kernel, 0)}
+        serial_path = {kernel: launches["serial"].get(kernel, 0)}
+        if min(path.values()) <= 0 or min(serial_path.values()) <= 0:
+            raise AssertionError(f"a loop launched a kernel of its path no time: {path}, "
+                                 f"serial {serial_path}")
+        for loop, own in (("persistent", path), ("serial", serial_path)):
+            others = {k: v for k, v in launches[loop].items() if k not in own}
+            if others:
+                raise AssertionError(f"the {model.name} {loop} loop launched other kernels: "
+                                     f"{others}")
+        return {"requests": requests, "kernel_launches": path,
+                "search_launches": totals["persistent"]["launches"],
+                "blocking_syncs": totals["persistent"]["blocking_syncs"],
+                "persistent_steps": totals["persistent"]["persistent_steps"],
+                "serial": {"kernel_launches": serial_path,
+                           "search_launches": totals["serial"]["launches"],
+                           "blocking_syncs": totals["serial"]["blocking_syncs"]}}
+
+    # 5. cancel (md5), under both loops -----------------------------------
     def cancel():
-        backend = get_backend("auto")
-        t0 = time.monotonic()
-        res = backend.search(bytes([9, 9, 9, 9]), 16, thread_bytes(0, worker_bits(1)),
-                             lambda: time.monotonic() - t0 > 1.0)
-        t_ret = time.monotonic() - t0
-        torch.cuda.synchronize()
-        if res is not None:
-            raise AssertionError(f"cancelled search returned {res!r}")
-        return {"returned": None, "time_to_cancel_s": t_ret - 1.0, "return_s": t_ret,
-                "drained_s": time.monotonic() - t0}
+        out = {}
+        for loop in ("persistent", "serial"):
+            backend = get_backend("auto", loop=loop)
+            t0 = time.monotonic()
+            res = backend.search(bytes([9, 9, 9, 9]), 16, thread_bytes(0, worker_bits(1)),
+                                 lambda: time.monotonic() - t0 > 1.0)
+            t_ret = time.monotonic() - t0
+            torch.cuda.synchronize()
+            if res is not None:
+                raise AssertionError(f"cancelled {loop} search returned {res!r}")
+            # drained_s - return_s: the device's work left behind the return
+            out[loop] = {"returned": None, "time_to_cancel_s": t_ret - 1.0, "return_s": t_ret,
+                         "drained_s": time.monotonic() - t0}
+        return {**out["persistent"], "loop": "persistent", "serial": out["serial"]}
 
     # 6. rate -----------------------------------------------------------
     def rate(model):
@@ -1338,6 +1648,38 @@ def main() -> int:
             end.record()
             end.synchronize()
         ms = start.elapsed_time(end) / RATE_LAUNCHES
+
+        # the persistent form of the same launch, no hit and no flag: every
+        # segment runs; timed between two more readings of the solo launch,
+        # on the grid the backends give it (one_wave_for: not expected to
+        # hold a hit, so the serial kernel's) and on one resident wave
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        rule = one_wave_for(n, RATE_DIFFICULTY)
+
+        def persistent(one_wave=rule):
+            return hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0,
+                                          batch, steps, zero, device=dev, one_wave=one_wave)
+
+        def persistent_one_wave():
+            return persistent(True)
+
+        for words in (persistent(), persistent_one_wave()):
+            torch.cuda.synchronize()
+            if [u32_value(v) for v in words] != [first, steps if first == SENTINEL else
+                                                 first // batch + 1]:
+                raise AssertionError(f"persistent launch {words.tolist()}, solo {first}")
+        persistent_runs = {"solo": [], "persistent": [], "persistent_one_wave": []}
+        for form, fn in (("solo", launch), ("persistent", persistent),
+                         ("persistent_one_wave", persistent_one_wave),
+                         ("persistent_one_wave", persistent_one_wave), ("persistent", persistent),
+                         ("solo", launch)):
+            start.record()
+            for _ in range(PERSISTENT_RATE_LAUNCHES):
+                fn()
+            end.record()
+            end.synchronize()
+            persistent_runs[form].append(start.elapsed_time(end) / PERSISTENT_RATE_LAUNCHES)
+        persistent_ms = min(persistent_runs["persistent"])
 
         # the plain version on the same inputs: no yardstick of speed, it
         # repeats the kernel's arithmetic in 10^3-10^4 elementwise torch ops;
@@ -1378,6 +1720,10 @@ def main() -> int:
         return {"difficulty": RATE_DIFFICULTY, "mask_words": mw, "candidates_per_launch": n,
                 "launch_steps": steps, "grid": grid, "launches_timed": RATE_LAUNCHES,
                 "ms": ms, "ghs": n / ms / 1e6, "result": first,
+                "persistent_ms": persistent_ms, "persistent_runs": persistent_runs,
+                "persistent_over_solo": persistent_ms / min(persistent_runs["solo"]),
+                "persistent_one_wave": rule,
+                "persistent_one_wave_ms": min(persistent_runs["persistent_one_wave"]),
                 "sm_clock_mhz_timed": clock.mhz,
                 "plain_ms_full_launch": plain_ms,
                 "plain_ms_2p16_no_yardstick": plain_small_ms,
@@ -1995,9 +2341,6 @@ def main() -> int:
     def mine_mesh():
         mesh4 = make_mesh(shard_devices(MESH_SHARDS))
         nonce, full = bytes([1, 2, 3, 4]), thread_bytes(0, worker_bits(1))
-        for counter in LAUNCHES.values():
-            counter.reset()
-        REGISTRY.reset()
         runs = []  # (how, model, nonce, d, thread bytes, secret, wall)
 
         def run(how, model_name, nonce, d, tbs, fn):
@@ -2005,13 +2348,36 @@ def main() -> int:
             secret = fn()
             runs.append((how, model_name, nonce, d, tbs, secret, time.monotonic() - t0))
 
-        # the worker's backend over every visible GPU
+        def reset():
+            for counter in LAUNCHES.values():
+                counter.reset()
+            REGISTRY.reset()
+
+        def counted():
+            return ({k: c.value for k, c in LAUNCHES.items() if c.value},
+                    {k: REGISTRY.get(f"search.{k}") for k in
+                     ("launches", "blocking_syncs", "persistent_steps")})
+
+        # the main path, every count to 0 just before it and read just
+        # after: the mesh backend's persistent loop (its default), through
+        # the worker's backend over every visible GPU and on the 4 shards
+        reset()
         backend = get_backend("pallas-mesh", hash_model="md5")
         if not isinstance(backend, CudaMeshBackend) or \
-                backend.mesh.size != torch.cuda.device_count():
+                backend.mesh.size != torch.cuda.device_count() or backend.loop != "persistent":
             raise AssertionError(f"pallas-mesh resolved to {backend!r} over {backend.mesh}")
-        run("get_backend('pallas-mesh')", "md5", nonce, 6, full,
+        run("get_backend('pallas-mesh'), persistent", "md5", nonce, 6, full,
             lambda: backend.search(nonce, 6, full))
+        for model_name in MODELS:
+            be = CudaMeshBackend(hash_model=model_name, devices=mesh4.devices, device=dev)
+            if be.loop != "persistent":
+                raise AssertionError(f"CudaMeshBackend's loop is {be.loop}")
+            run("CudaMeshBackend, persistent", model_name, nonce, 6, full,
+                lambda: be.search(nonce, 6, full))
+        launches, totals = counted()
+        # the serial driver's mesh search (search_mesh) on its own, its
+        # counts likewise
+        reset()
         md5 = get_hash_model("md5")
         for d in (6, 8):
             run("search_mesh", "md5", nonce, d, full,
@@ -2053,12 +2419,22 @@ def main() -> int:
         t_win, winner, secret4 = found[0]
         runs.append((f"search_mesh, 4-way split, worker {winner}", "md5", nonce4, d4,
                      thread_bytes(winner, bits), secret4, t_win - t0))
-        # the counts just after
-        launches = {k: c.value for k, c in LAUNCHES.items() if c.value}
+        serial_launches, serial_totals = counted()
+        # the main path ran each mesh kernel (its width-0 probes) and its
+        # persistent form; search_mesh the mesh kernels alone
         mesh_launches = {k: launches.get(f"{k}_mesh", 0) for k in KERNELS.values()}
-        if min(mesh_launches.values()) <= 0:
-            raise AssertionError(f"a mesh kernel of the path was launched no time: {mesh_launches}")
-        others = {k: v for k, v in launches.items() if not k.endswith("_mesh")}
+        persistent_launches = {k: launches.get(f"{k}_mesh_persistent", 0)
+                               for k in KERNELS.values()}
+        serial_mesh_launches = {k: serial_launches.get(f"{k}_mesh", 0) for k in KERNELS.values()}
+        if min(mesh_launches.values()) <= 0 or min(persistent_launches.values()) <= 0 or \
+                min(serial_mesh_launches.values()) <= 0:
+            raise AssertionError(f"a mesh kernel of the path was launched no time: "
+                                 f"{mesh_launches}, {persistent_launches}, search_mesh "
+                                 f"{serial_mesh_launches}")
+        others = {k: v for k, v in launches.items()
+                  if not k.endswith("_mesh") and not k.endswith("_mesh_persistent")}
+        others.update({f"search_mesh {k}": v for k, v in serial_launches.items()
+                       if not k.endswith("_mesh")})
         if others:
             raise AssertionError(f"the mesh path launched other kernels: {others}")
         out = []
@@ -2075,8 +2451,13 @@ def main() -> int:
             out.append({"how": how, "model": model_name, "difficulty": d, "secret": secret.hex(),
                         model_name: digest, "solo_secret": solo.hex(), "wall_s": wall})
         return {"requests": out, "mesh_kernel_launches": mesh_launches,
-                "search_launches": REGISTRY.get("search.launches"),
-                "blocking_syncs": REGISTRY.get("search.blocking_syncs"),
+                "mesh_persistent_kernel_launches": persistent_launches,
+                "search_launches": totals["launches"],
+                "blocking_syncs": totals["blocking_syncs"],
+                "persistent_steps": totals["persistent_steps"],
+                "search_mesh": {"mesh_kernel_launches": serial_mesh_launches,
+                                "search_launches": serial_totals["launches"],
+                                "blocking_syncs": serial_totals["blocking_syncs"]},
                 "shards": MESH_SHARDS, "shard_devices": [str(x) for x in mesh4.devices],
                 "gpus_visible": torch.cuda.device_count(),
                 "pallas_mesh_devices": [str(x) for x in backend.mesh.devices]}
@@ -2195,41 +2576,53 @@ def main() -> int:
             self.server.shutdown()
 
     class LaunchTimer:
-        """Wraps the CUDA backend's call of the kernel wrapper
-        (``cuda_backend.hash_search``): a CUDA event pair around each launch,
-        on the stream it launches on, kept per worker (the span node the
-        miner thread is bound to).  The wrapper itself still counts the
-        launch."""
+        """Wraps the CUDA backend's calls of the kernel wrappers
+        (``cuda_backend.hash_search`` and ``hash_persistent_search``): a
+        CUDA event pair around each launch, on the stream it launches on,
+        and its result cell, kept per worker (the span node the miner thread
+        is bound to).  The wrappers themselves still count the launch."""
+
+        NAMES = ("hash_search", "hash_persistent_search")
 
         def __init__(self):
             self.pairs = collections.defaultdict(list)
             self.lock = threading.Lock()
-            self.orig = orig = cuda_backend.hash_search
+            self.orig = {name: getattr(cuda_backend, name) for name in self.NAMES}
 
-            def timed(model, ops, *args, **kwargs):
-                stream = torch.cuda.current_stream(ops.device)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record(stream)
-                out = orig(model, ops, *args, **kwargs)
-                end.record(stream)
-                with self.lock:
-                    self.pairs[SPANS.current_node()].append((start, end))
-                return out
+            def timed(orig):
+                def launch(model, ops, *args, **kwargs):
+                    stream = torch.cuda.current_stream(ops.device)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record(stream)
+                    out = orig(model, ops, *args, **kwargs)
+                    end.record(stream)
+                    with self.lock:
+                        self.pairs[SPANS.current_node()].append((start, end, out))
+                    return out
 
-            cuda_backend.hash_search = timed
+                return launch
+
+            for name, orig in self.orig.items():
+                setattr(cuda_backend, name, timed(orig))
 
         def take(self, node):
             """The device ms of each of ``node``'s launches since the last
             take, in launch order."""
+            return [ms for ms, _ in self.take_results(node)]
+
+        def take_results(self, node):
+            """``(device ms, first word of the result)`` of each of
+            ``node``'s launches since the last take, in launch order."""
             with self.lock:
                 pairs = self.pairs.pop(node, [])
-            for _, end in pairs:
+            for _, end, _ in pairs:
                 end.synchronize()
-            return [a.elapsed_time(b) for a, b in pairs]
+            return [(a.elapsed_time(b), u32_value(out.reshape(-1)[0])) for a, b, out in pairs]
 
         def close(self):
-            cuda_backend.hash_search = self.orig
+            for name, orig in self.orig.items():
+                setattr(cuda_backend, name, orig)
 
     def start_worker(coord, **config):
         sink = tracing.MemorySink()
@@ -2260,8 +2653,10 @@ def main() -> int:
     def mine_once(coord, w, addr, sink, timer, nonce, d):
         """One Mine to one worker: the result, Found, the nil ACK."""
         kernel = KERNELS["md5"]
-        launches0 = LAUNCHES[kernel].value
+        forms = (kernel, f"{kernel}_persistent")
+        launches0 = sum(LAUNCHES[k].value for k in forms)
         syncs0 = REGISTRY.get("search.blocking_syncs")
+        steps0 = REGISTRY.get("search.persistent_steps")
         t0 = time.monotonic()
         trace = coord.mine(addr, nonce, d)
         t_res, res = coord.take()
@@ -2277,26 +2672,101 @@ def main() -> int:
                 not all(n.startswith("Cache") for n in names[3:-1]):
             raise AssertionError(f"worker actions {names}")
         # read before the direct backend's check launches the kernel again
-        kernel_launches = LAUNCHES[kernel].value - launches0
+        kernel_launches = sum(LAUNCHES[k].value for k in forms) - launches0
         syncs = REGISTRY.get("search.blocking_syncs") - syncs0
-        times = timer.take(w.config.WorkerID)
-        if kernel_launches <= 0 or len(times) != kernel_launches:
-            raise AssertionError(f"{kernel}: {kernel_launches} launches, {len(times)} timed")
+        steps = REGISTRY.get("search.persistent_steps") - steps0
+        results = timer.take_results(w.config.WorkerID)
+        if kernel_launches <= 0 or len(results) != kernel_launches:
+            raise AssertionError(f"{kernel}: {kernel_launches} launches, {len(results)} timed")
+        times = [ms for ms, _ in results]
         wall_ms = (t_res - t0) * 1e3
-        # the search driver reads each launch's result with one blocking sync, in
-        # launch order, and keeps the next launch in flight: the launches
-        # after the last one read ran past the hit, after the result left
-        read_ms = sum(times[:syncs])
+        # the driver reads the launches in launch order up to the first that
+        # holds a hit, and keeps the next in flight: the launches behind the
+        # hit's ran after the result had left
+        hit = next((i for i, (_, f) in enumerate(results) if f != SENTINEL), None)
+        if hit is None:
+            raise AssertionError(f"{nonce.hex()} d{d}: no launch holds the hit")
+        read_ms = sum(times[:hit + 1])
         return {"nonce": nonce.hex(), "difficulty": d, "secret": secret.hex(),
                 "md5": check_secret("md5", nonce, d, secret, list(range(256))),
                 "direct_backend_equal": True, "actions": names,
-                "kernel_launches": kernel_launches, "blocking_syncs": syncs,
-                "wall_ms": wall_ms, "device_ms_read": read_ms,
-                "device_ms_past_hit": sum(times[syncs:]), "host_share": 1 - read_ms / wall_ms}
+                "loop": w.handler.backend.loop, "kernel_launches": kernel_launches,
+                "launches_behind_hit": kernel_launches - hit - 1, "blocking_syncs": syncs,
+                "persistent_steps": steps, "wall_ms": wall_ms, "device_ms_read": read_ms,
+                "device_ms_past_hit": sum(times[hit + 1:]), "host_share": 1 - read_ms / wall_ms}
+
+    def profile_mines(coord, w, addr, sink, timer):
+        """Two difficulty-5 Mines at new nonces under ``torch.profiler``
+        (CPU and CUDA), with a ``record_function`` range around each stage
+        of the worker's path, wrapped here from outside the package: where
+        a Mine's host time goes.  The trace goes to ``chiprun_out/``."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from distpow_tpu_torch.nodes import worker as worker_mod
+        from distpow_tpu_torch.parallel import search as search_mod
+        from distpow_tpu_torch.runtime import rpc as rpc_mod
+
+        stages = [(worker_mod.WorkerRPCHandler, "Mine"), (cuda_backend.CudaBackend, "search"),
+                  (cuda_backend, "persistent_search"), (cuda_backend, "build_tail_spec"),
+                  (cuda_backend, "step_operands"), (cuda_backend, "hash_search"),
+                  (cuda_backend, "hash_persistent_search"), (search_mod, "_enqueue_fetch"),
+                  (search_mod.puzzle, "check_secret"), (search_mod.StopFlag, "operand"),
+                  (search_mod.StopFlag, "set"), (rpc_mod.RPCClient, "call")]
+        saved, labels = [], set()
+
+        def ranged(label, fn):
+            def call(*a, **k):
+                with record_function(label):
+                    return fn(*a, **k)
+
+            return call
+
+        def device_ms(e):
+            return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+
+        for owner, name in stages:
+            # a class's method may be its base's: restored by deleting ours
+            own = not isinstance(owner, type) or name in owner.__dict__
+            fn = getattr(owner, name)
+            saved.append((owner, name, fn, own))
+            label = ".".join(f"{owner.__name__}.{name}".split(".")[-2:])
+            labels.add(label)
+            setattr(owner, name, ranged(label, fn))
+        out = []
+        try:
+            for nonce in (bytes([0x0a, 0x0b, 0x0c, 0x0d]), bytes([0x0e, 0x0f, 0x10, 0x11])):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    req = mine_once(coord, w, addr, sink, timer, nonce, 5)
+                    torch.cuda.synchronize()
+                path = os.path.join(OUT_DIR, f"worker_profile_{nonce.hex()}.json")
+                prof.export_chrome_trace(path)
+                rows = {}
+                for e in prof.key_averages():
+                    if e.key in labels or device_ms(e) > 0:
+                        rows[e.key] = {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3,
+                                       "device_ms": device_ms(e)}
+                top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
+                out.append({"nonce": nonce.hex(), "wall_ms": req["wall_ms"],
+                            "device_ms_read": req["device_ms_read"],
+                            "kernel_launches": req["kernel_launches"], "stages": rows,
+                            "top_self_cpu": [{"op": e.key, "count": e.count,
+                                              "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                                             for e in top],
+                            "trace": os.path.relpath(path, HERE)})
+        finally:
+            for owner, name, fn, own in reversed(saved):
+                if own:
+                    setattr(owner, name, fn)
+                else:
+                    delattr(owner, name)
+        return out
 
     def worker_mine():
+        """The reference's worker defaults (the persistent loop): the demo's
+        Mines, then one Mine at the first demo request's nonce through a
+        second worker whose SearchLoop is serial, then two profiled ones."""
         coord, timer = StandIn(), None
-        w = None
+        w = w_serial = None
         try:
             t0 = time.monotonic()
             w, addr, sink = start_worker(coord)
@@ -2304,8 +2774,10 @@ def main() -> int:
             if not w.warmed.wait(600) or w.warmup_error is not None:
                 raise AssertionError(f"warm-up failed: {w.warmup_error!r}")
             warm_wall = time.monotonic() - t0
-            if not isinstance(w.handler.backend, CudaBackend):
-                raise AssertionError(f"Backend auto gave {w.handler.backend!r}")
+            if not isinstance(w.handler.backend, CudaBackend) or \
+                    w.handler.backend.loop != "persistent":
+                raise AssertionError(f"Backend auto gave {w.handler.backend!r}, loop "
+                                     f"{getattr(w.handler.backend, 'loop', None)}")
             # nothing may be built once warm-up has finished
             builds, orig_build = [], _build.build
             _build.build = lambda names=None: builds.append(names) or orig_build(names)
@@ -2316,16 +2788,28 @@ def main() -> int:
             try:
                 requests = [mine_once(coord, w, addr, sink, timer, nonce, d)
                             for nonce, d in WORKER_DEMO]
+                w_serial, addr_s, sink_s = start_worker(coord, WorkerID="worker2",
+                                                        SearchLoop="serial",
+                                                        WarmupNonceLens=[], WarmupWidths=[])
+                w_serial.start_forwarder()
+                serial = mine_once(coord, w_serial, addr_s, sink_s, timer, *WORKER_DEMO[0])
             finally:
                 _build.build = orig_build
             if builds:
                 raise AssertionError(f"libraries built after warm-up: {builds}")
+            if serial["secret"] != requests[0]["secret"] or serial["loop"] != "serial" or \
+                    any(r["blocking_syncs"] for r in requests):
+                raise AssertionError(f"serial {serial['secret']} ({serial['loop']}) against "
+                                     f"persistent {requests[0]['secret']}; blocking syncs "
+                                     f"{[r['blocking_syncs'] for r in requests]}")
+            profiled = profile_mines(coord, w, addr, sink, timer)
             stats = coord.call(addr, "WorkerRPCHandler.Stats", {})
             if stats["role"] != "worker" or stats["watchdog_armed"] is not True:
                 raise AssertionError(f"Stats: role {stats['role']}, watchdog "
                                      f"{stats['watchdog_armed']}")
-            return {"requests": requests, "warmup_s": w.warmup_s,
-                    "boot_to_warm_s": warm_wall, "builds_after_warmup": 0,
+            return {"requests": requests, "serial": serial, "profiled": profiled,
+                    "warmup_s": w.warmup_s, "boot_to_warm_s": warm_wall,
+                    "builds_after_warmup": 0,
                     "stats_role": stats["role"], "stats_backend": stats["backend"],
                     "stats_device": stats["device"], "watchdog_armed": True,
                     "solve_s": REGISTRY.get_observed("worker.solve_s"),
@@ -2333,6 +2817,63 @@ def main() -> int:
         finally:
             if timer is not None:
                 timer.close()
+            for worker in (w, w_serial):
+                if worker is not None:
+                    worker.shutdown()
+            coord.close()
+
+    def worker_mesh():
+        """One Mine through a worker whose backend is the mesh kernels' on 4
+        logical shards of the card (``Backend: "pallas-mesh"``,
+        ``MeshDevices: 4``, as ``tests/test_torch_worker.py`` builds one on
+        the CPU; the shards named for the worker's ``get_backend``, since
+        the card is one): the persistent loop's mesh form."""
+        from distpow_tpu_torch.nodes import worker as worker_mod
+
+        coord, w = StandIn(), None
+        orig = worker_mod.get_backend
+
+        def on_shards(name, **kwargs):
+            return orig(name, devices=shard_devices(MESH_SHARDS), **kwargs)
+
+        worker_mod.get_backend = on_shards
+        try:
+            w, addr, sink = start_worker(coord, Backend="pallas-mesh", MeshDevices=MESH_SHARDS,
+                                         WarmupNonceLens=[4], WarmupWidths=[0, 1, 2, 3, 4])
+        finally:
+            worker_mod.get_backend = orig
+        try:
+            w.start_forwarder()
+            backend = w.handler.backend
+            if not isinstance(backend, CudaMeshBackend) or backend.mesh.size != MESH_SHARDS \
+                    or backend.loop != "persistent":
+                raise AssertionError(f"the worker's backend is {backend!r}")
+            if not w.warmed.wait(600) or w.warmup_error is not None:
+                raise AssertionError(f"warm-up failed: {w.warmup_error!r}")
+            kernel = KERNELS["md5"]
+            forms = (f"{kernel}_mesh", f"{kernel}_mesh_persistent")
+            for counter in LAUNCHES.values():
+                counter.reset()
+            REGISTRY.reset()
+            nonce, d = WORKER_DEMO[0]
+            t0 = time.monotonic()
+            trace = coord.mine(addr, nonce, d)
+            t_res, res = coord.take()
+            secret = bytes(res["secret"] or b"")
+            coord.found(addr, nonce, d, 0, secret, trace)
+            _, ack = coord.take(30)
+            launches = {k: LAUNCHES[k].value for k in forms}
+            names = worker_actions(sink, trace)
+            if min(launches.values()) <= 0 or ack["secret"] is not None:
+                raise AssertionError(f"mesh launches {launches}, ack {ack}")
+            return {"nonce": nonce.hex(), "difficulty": d, "secret": secret.hex(),
+                    "md5": check_secret("md5", nonce, d, secret, list(range(256))),
+                    "direct_backend_equal": True, "actions": names, "kernel_launches": launches,
+                    "shards": [str(x) for x in backend.mesh.devices], "wall_ms":
+                    (t_res - t0) * 1e3, "blocking_syncs": REGISTRY.get("search.blocking_syncs"),
+                    "persistent_steps": REGISTRY.get("search.persistent_steps"),
+                    "card": smoke.info["device"]["nvidia_smi"]}
+        finally:
             if w is not None:
                 w.shutdown()
             coord.close()
@@ -2546,6 +3087,8 @@ def main() -> int:
         smoke.phase(f"kernel_parity{sfx}", lambda: kernel_parity(model, *grid_args),
                     needs=("build",))
         smoke.phase(f"full_parity{sfx}", lambda: full_parity(model), needs=("build", "device"))
+        smoke.phase(f"persistent_parity{sfx}", lambda: persistent_parity(model, 20261019 + i),
+                    needs=("build", "device", f"full_parity{sfx}"))
         smoke.phase(f"mine{sfx}", lambda: mine(model), needs=(f"kernel_parity{sfx}",))
         if model_name == "md5":
             smoke.phase("cancel", cancel, needs=("build",))
@@ -2580,6 +3123,7 @@ def main() -> int:
     smoke.phase("sched_mesh", sched_mesh, needs=("group_parity", "mesh_parity"))
     smoke.phase("worker_mine", worker_mine, needs=("build", "mine"))
     smoke.phase("worker_fanout", worker_fanout, needs=("build", "mine"))
+    smoke.phase("worker_mesh", worker_mesh, needs=("build", "mesh_parity", "persistent_parity"))
     # the Mines run under sync debug mode "error", as in sched_*
     smoke.phase("worker_sched", worker_sched,
                 needs=tuple(f"group_parity{suffix(m)}" for m in WORKER_SCHED_MODELS))
@@ -2629,6 +3173,27 @@ def main() -> int:
             "max_abs_err": max(smoke.info[p]["max_abs_err"] for p in phases[:2]),
             "ms": r["ms"], "plain_ms": full["plain"]["ms"],
             "bound_ms": r["bound_ms"], "bound_by": "operations", "library_ms": None})
+    for model_name in MODELS:
+        sfx = suffix(model_name)
+        phases = [f"persistent_parity{sfx}", f"mine{sfx}", "mine_mesh"]
+        if not all(p in smoke.info for p in phases):
+            continue
+        kernel, pp = KERNELS[model_name], smoke.info[f"persistent_parity{sfx}"]
+        main = pp["main_path"]
+        # both forms at the main path's launch with the deep hit, each
+        # against the plain persistent step on it (the mesh's segments are
+        # the solo launch's, so its plain version is the same step)
+        for form, launches in (
+                ("persistent", smoke.info[f"mine{sfx}"]["kernel_launches"][f"{kernel}_persistent"]),
+                ("mesh_persistent",
+                 smoke.info["mine_mesh"]["mesh_persistent_kernel_launches"][kernel])):
+            kernels.append({
+                "name": f"{kernel}_{form}", "route": "cuda",
+                "source": f"distpow_tpu_torch/csrc/{kernel}.cu",
+                "replaces": REPLACES[model_name] if form == "persistent" else REPLACES_MESH,
+                "launches": launches, "max_abs_err": pp["max_abs_err"],
+                "ms": main["ms"][form], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": "operations", "library_ms": None})
     if kernels:
         emit({"kernels": kernels})
     if "device" in smoke.info:

@@ -33,7 +33,7 @@ import torch
 
 from ..models import puzzle
 from ..models.registry import get_hash_model
-from ..parallel.search import default_step_factory
+from ..parallel.search import default_persistent_factory, default_step_factory
 from ..runtime.metrics import REGISTRY, Metrics
 from .cuda_backend import CudaBackend, CudaMeshBackend, DeviceBackend
 
@@ -69,6 +69,10 @@ class TorchBackend(DeviceBackend):
 
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         return default_step_factory(nonce, difficulty, tb_lo, tbc, self.model, self.device)
+
+    def _persistent_factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        return default_persistent_factory(nonce, difficulty, tb_lo, tbc, self.model,
+                                          self.device)
 
 
 CUDA_NAMES = ("auto", "cuda", "pallas", "jax")

@@ -10,7 +10,13 @@ so there is no fallback path.
 ``DeviceBackend`` is what the ``cuda`` backend shares with the ``torch``
 one (the plain step behind the same driver, ``backends/__init__.py``): the
 device rule, the keyword arguments the reference worker passes
-(``mesh_devices``, ``interpret``, ``loop``) and the boot ``warmup``.
+(``mesh_devices``, ``interpret``, ``loop``), the boot ``warmup`` and the
+choice of driver: ``loop="persistent"`` (the reference's default) drives
+``parallel.search.persistent_search`` over the backend's persistent step
+(the kernels' persistent form; the plain persistent step for ``torch``),
+``loop="serial"`` the serial ``search``.  Every backend name follows
+``loop``: the port's kernels all have a persistent form, where the
+reference's Pallas backends drove the serial loop whatever it said.
 
 ``CudaMeshBackend`` spreads each launch over a mesh of devices
 (``parallel/mesh_search.py``, the mesh kernels): the counterpart of the
@@ -20,30 +26,29 @@ only its step factory and the partitions it warms differ.
 
 from __future__ import annotations
 
-import logging
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..models.registry import get_hash_model
-from ..ops.hash_cuda import hash_search, kernel_name, load_kernels
+from ..ops.hash_cuda import (hash_persistent_search, hash_search, kernel_name, load_kernels,
+                             one_wave_for)
 from ..ops.operands import Device, u32_value
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
-from ..parallel.mesh_search import _cuda_mesh_step_factory, gpu_devices, make_mesh
+from ..parallel.mesh_search import (_cuda_mesh_step_factory, gpu_devices, make_mesh,
+                                    mesh_persistent_factory)
 from ..parallel.partition import contiguous_bounds
-from ..parallel.search import (effective_batch, launch_steps_for, scaled_launch_candidates,
-                               search)
+from ..parallel.search import (StopFlag, effective_batch, launch_steps_for,
+                               persistent_search, scaled_launch_candidates, search)
 from ..runtime.metrics import REGISTRY, Metrics
 from ..runtime.watchdog import FIRST_COMPILE_GRACE_S, WATCHDOG
-
-log = logging.getLogger("distpow.backends")
+from ..sched.lanes import lane_name
 
 # The search loops a reference worker may ask for (WorkerConfig.SearchLoop)
 SEARCH_LOOPS = ("persistent", "serial")
 # The difficulty of a warm-up launch: one mask word, and a hit at once
 WARMUP_DIFFICULTY = 1
-_noted_persistent = False
 
 
 def plan_launch_geometry(target_chunks: int, tbc: int, launch_steps: int,
@@ -80,11 +85,8 @@ def check_options(mesh_devices: Optional[int], interpret: bool, loop: Optional[s
       routes it there).
     * ``interpret=True`` raises: CUDA has no interpret mode, and a caller
       that wants the CPU passes ``device="cpu"``.
-    * ``loop`` is ``"persistent"`` (the reference's default) or
-      ``"serial"``; both are served by the serial driver until the
-      persistent loop is ported (ROADMAP Queue 1 item 2), which is logged
-      once."""
-    global _noted_persistent
+    * ``loop`` is ``"persistent"`` (the reference's default:
+      ``persistent_search``) or ``"serial"`` (``search``)."""
     if mesh_devices is not None and int(mesh_devices) < 0:
         raise ValueError(f"mesh_devices={mesh_devices}: expected 0 (every visible GPU) or a "
                          f"device count")
@@ -94,10 +96,6 @@ def check_options(mesh_devices: Optional[int], interpret: bool, loop: Optional[s
     loop = (loop or "persistent").lower()
     if loop not in SEARCH_LOOPS:
         raise ValueError(f"unknown search loop {loop!r}: expected one of {SEARCH_LOOPS}")
-    if loop == "persistent" and not _noted_persistent:
-        _noted_persistent = True
-        log.info("search loop 'persistent' is served by the serial driver until the "
-                 "persistent loop is ported (ROADMAP Queue 1 item 2)")
     return loop
 
 
@@ -105,10 +103,12 @@ class DeviceBackend:
     """A step factory behind the pipelined driver, on an explicit device.
 
     Subclasses give ``_factory(nonce, difficulty, tb_lo, tbc)`` (a
-    ``parallel.search.StepFactory``) and ``_load(nonce_lens, widths)``
-    (what must be built and loaded before the first launch at those
-    layouts).  ``mesh_devices``, ``interpret`` and ``loop``
-    are the reference worker's keywords (``check_options``)."""
+    ``parallel.search.StepFactory``), ``_persistent_factory`` (a
+    ``PersistentFactory`` with the same arguments), and may give
+    ``_load(nonce_lens, widths)`` (what must be built and loaded before the
+    first launch at those layouts) and ``_step_builder`` (the persistent
+    loop's lane hook).  ``mesh_devices``, ``interpret`` and ``loop`` are the
+    reference worker's keywords (``check_options``)."""
 
     name = "device"
     # the devices one search spreads over at most (None: a mesh, any count)
@@ -133,6 +133,12 @@ class DeviceBackend:
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         raise NotImplementedError
 
+    def _persistent_factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        raise NotImplementedError
+
+    def _step_builder(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        return None
+
     def _load(self, nonce_lens: Sequence[int], widths: Sequence[int]) -> None:
         pass
 
@@ -146,32 +152,48 @@ class DeviceBackend:
         ``_warm_factory``): for each nonce length, width and ``_warm_runs``
         count, the step the driver builds for the partition ``[0, tbc)``
         (at the driver's batch and launch multiplier) at difficulty 1, and
-        read its result.  The libraries those layouts launch are built first,
-        all at once (md5's, one per tail layout, only those), then every
-        layout is touched; under the watchdog, one beat and one
-        first-compile grace per launch."""
+        read its result.  Under the persistent loop every width but 0 takes
+        the persistent step, launched with a set stop flag, so that it
+        stops before its first candidate (the reference's
+        ``_persistent_warm_factory``).  The libraries those layouts launch
+        are built first, all at once (md5's, one per tail layout, only
+        those), then every layout is touched; under the watchdog, one beat
+        and one first-compile grace per launch."""
         with WATCHDOG.active():
             with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
                 self._load(nonce_lens, widths)
             for tbc in self._warm_runs():
                 target = max(1, effective_batch(self.batch_size) // tbc)
                 for n_len in nonce_lens:
-                    factory = self._factory(bytes(int(n_len)), WARMUP_DIFFICULTY, 0, tbc)
+                    nonce = bytes(int(n_len))
+                    factory = self._factory(nonce, WARMUP_DIFFICULTY, 0, tbc)
+                    persistent = (self._persistent_factory(nonce, WARMUP_DIFFICULTY, 0, tbc)
+                                  if self.loop == "persistent" else None)
                     for vw in widths:
                         vw = int(vw)
                         WATCHDOG.beat()
                         k = launch_steps_for(vw, target, tbc, self.max_launch)
                         with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
-                            step, _ = factory(vw, b"", target, k)
-                            res = step(256 ** (vw - 1) if vw else 0)
+                            if vw and persistent is not None:
+                                step = persistent(vw, b"", target, k)[0]
+                                res = step(256 ** (vw - 1), StopFlag(set_=True))
+                            else:
+                                step, _ = factory(vw, b"", target, k)
+                                res = step(256 ** (vw - 1) if vw else 0)
                             if res.device.type == "cuda":
                                 torch.cuda.synchronize(res.device)
-                            u32_value(res)
+                            u32_value(res.reshape(-1)[0])
 
     def search(self, nonce, difficulty, thread_bytes, cancel_check=None) -> Optional[bytes]:
         nonce = bytes(nonce)
         tb_lo, tbc = contiguous_bounds(thread_bytes)
-        res = search(
+        kwargs = {}
+        drive = search
+        if self.loop == "persistent":
+            drive = persistent_search
+            kwargs = {"persistent_factory": self._persistent_factory(nonce, difficulty, tb_lo, tbc),
+                      "step_builder": self._step_builder(nonce, difficulty, tb_lo, tbc)}
+        res = drive(
             nonce, difficulty, thread_bytes,
             model=self.model,
             batch_size=self.batch_size,
@@ -180,16 +202,24 @@ class DeviceBackend:
             launch_candidates=self.max_launch,
             device=self.device,
             metrics=self.metrics,
+            **kwargs,
         )
         return None if res is None else res.secret
 
 
 class CudaBackend(DeviceBackend):
+    """The solo kernels.  ``lane`` is the persistent loop's lane override
+    (``sched/lanes.py persistent_step_builder``): ``auto`` (a mesh on a
+    host of several GPUs where ``device`` names no card) or ``mesh`` spread
+    a search over the mesh; a scheduler that pins another lane passes it to
+    its solo searches, which then stay on the one device."""
+
     name = "cuda"
 
-    def __init__(self, hash_model: str = "md5", **kwargs):
+    def __init__(self, hash_model: str = "md5", lane: str = "auto", **kwargs):
         kernel_name(get_hash_model(hash_model))  # raises for a model without a kernel
         super().__init__(hash_model, **kwargs)
+        self.lane = lane_name(lane)
 
     def _load(self, nonce_lens: Sequence[int], widths: Sequence[int]) -> None:
         if self.device.type == "cuda":
@@ -216,6 +246,32 @@ class CudaBackend(DeviceBackend):
             return step, chunks * k
 
         return factory
+
+    def _persistent_factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        def factory(vw: int, extra: bytes, target_chunks: int, segments: int):
+            spec = build_tail_spec(nonce, vw, self.model, extra)
+            ops = step_operands(spec, difficulty, self.model, tb_lo, tbc, self.device)
+            chunks, k = plan_launch_geometry(target_chunks, tbc, segments, self.max_launch)
+            one_wave = one_wave_for(chunks * tbc * k, difficulty)
+
+            def step(chunk0: int, stop: StopFlag) -> torch.Tensor:
+                return hash_persistent_search(self.model, ops, spec.tb_loc, spec.chunk_locs,
+                                              chunk0, chunks * tbc, k, stop.operand(ops.device),
+                                              device=self.device, one_wave=one_wave)
+
+            return step, chunks, chunks * k
+
+        return factory
+
+    def _step_builder(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        """The mesh's persistent step on a host of several GPUs where the
+        backend's device names no card and its lane allows it
+        (``sched/lanes.py`` ``persistent_step_builder``), else None."""
+        from ..sched.lanes import persistent_step_builder
+
+        return persistent_step_builder(nonce, difficulty, tb_lo, tbc, self.model,
+                                       override=self.lane, device=self.device,
+                                       max_launch=self.max_launch)
 
 
 class CudaMeshBackend(CudaBackend):
@@ -244,6 +300,13 @@ class CudaMeshBackend(CudaBackend):
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         return _cuda_mesh_step_factory(nonce, difficulty, tb_lo, tbc, self.model, self.mesh,
                                        max_launch=self.max_launch)
+
+    def _persistent_factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        return mesh_persistent_factory(nonce, difficulty, tb_lo, tbc, self.model, self.mesh,
+                                       max_launch=self.max_launch)
+
+    def _step_builder(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
+        return None  # already the mesh
 
     def _warm_runs(self) -> Tuple[int, ...]:
         """The full partition, and ``n_dev // 2`` thread bytes, which a mesh

@@ -123,6 +123,11 @@ struct MeshOrigin {
   uint32_t tbc;
 };
 
+// Candidate (tb, chunk) of the partition o as the partition's flat index.
+DISTPOW_HD uint32_t origin_index(const MeshOrigin& o, uint32_t tb, uint32_t chunk) {
+  return (chunk - o.chunk0) * o.tbc + (tb - o.tb_lo);
+}
+
 // A shard's local flat index f (or SENTINEL) as the partition's flat
 // index: chunk-major over the whole run, (chunk - chunk0) * tbc + (tb -
 // tb_lo), the same expression for a thread-byte slice and a chunk span, a
@@ -135,7 +140,59 @@ DISTPOW_HD uint32_t mesh_global_index(const Layout& L, const MeshOrigin& o, uint
   if (f == SENTINEL) return SENTINEL;
   uint32_t tb, chunk;
   decode<POW2>(L, f, tb, chunk);
-  return (chunk - o.chunk0) * o.tbc + (tb - o.tb_lo);
+  return origin_index(o, tb, chunk);
+}
+
+// The persistent form of the solo and mesh kernels, the device side of the
+// persistent search loop (parallel/search.py persistent_search; it replaces
+// the XLA while_loop of distpow_tpu/ops/search_step.py
+// persistent_search_step and parallel/mesh_search.py mesh_persistent_step).
+// A launch covers whole segments of P.seg reported indices (a solo launch's
+// flat indices, a mesh shard's partition indices) and leaves two words:
+// out[0], the least hit or SENTINEL, and out[1], the segments executed: the
+// hit's segment + 1; where a thread saw the search's stop flag, at most the
+// segment it was about to start (0 when the flag was set before the
+// launch); else the launch's segment count, which the wrapper wrote there.
+// A null stop is the serial form, in which none of it runs.
+struct Persist {
+  const uint32_t* stop;  // the search's stop flag, a device word, or null
+  uint32_t seg;          // reported indices per segment
+  uint32_t batch;        // flat indices per segment of this launch
+  uint32_t period_mask;  // 2^k - 1, 2^k >= the grid's threads (persistent_due)
+};
+
+// The check period's mask for a launch of `threads` threads whose segment
+// holds `batch` flat indices: 2^k - 1 for the least 2^k at or above both,
+// so a thread checks at least once a segment of its own loop.
+DISTPOW_HD uint32_t persistent_period_mask(uint32_t batch, uint32_t threads) {
+  uint32_t m = (batch > threads ? batch : threads) - 1;
+  m |= m >> 1;
+  m |= m >> 2;
+  m |= m >> 4;
+  m |= m >> 8;
+  m |= m >> 16;
+  return m;
+}
+
+// Is a persistent thread's check due before flat index f?  Where f's low k
+// bits (period_mask = 2^k - 1) are below the grid's stride: once each 2^k
+// flat indices of the thread's loop, since the loop steps by the stride,
+// at most 2^k, and at its first index, which is below the stride.  The
+// test needs no state carried through the loop.
+DISTPOW_HD bool persistent_due(uint32_t f, uint32_t period_mask, uint32_t stride) {
+  return (f & period_mask) < stride;
+}
+
+// What a persistent thread does before the candidate it reports as index g,
+// from the launch's cell (out[0]) and the search's flag as it read them:
+// test it (kTest); stop, because the cell holds a hit below g (kBelowHit); or
+// stop on the flag (kStopped).  The cell only decreases, the reported index
+// grows along a thread's loop, and every index a thread skips lies above a
+// hit already published, so the least index is the serial kernel's.
+enum PersistentStep : int { kTest = 0, kBelowHit = 1, kStopped = 2 };
+
+DISTPOW_HD int persistent_step(uint32_t cell, uint32_t stop, uint32_t g) {
+  return cell < g ? kBelowHit : stop != 0 ? kStopped : kTest;
 }
 
 // The hashes of 64-byte blocks and 16-word rows.
@@ -462,14 +519,71 @@ int launch_group(int n_blocks, int n_slots, uint32_t batch, int grid_x, Launch l
 // * The min across the grid: per thread, per warp (__reduce_min_sync), then
 //   one atomicMin per block into a cell the wrapper set to SENTINEL on the
 //   same stream.
+// * The persistent form (hash_persistent_kernel, Persist) is the same body
+//   with a stop flag, a kernel of its own so that the serial loop stays as
+//   it was (one check inside it cost md5's serial launch 7 %): a hit goes
+//   into the cell at once, and each thread stops once a segment's check
+//   finds a hit below its next index or the search's flag set, so a launch
+//   ends about one segment after its first hit, and a launch still queued
+//   when the driver sets the flag within one segment.  A launch expected
+//   to hold a hit runs on one resident wave (resident_grid), so that the
+//   threads reach the hit in index order.  The check costs md5's loop, the
+//   shortest, about 6 % and the others about 2 %.
 // What bounds it is instruction issue: a candidate reads no device memory.
 constexpr int HASH_BLOCK_THREADS = 256;
 
+// A word that other threads, launches or the host's copy engine change
+// while the kernel runs: a relaxed load at GPU scope (from L2, never from
+// L1), which the compiler neither hoists out of the loop nor merges.
+__device__ __forceinline__ uint32_t live_word(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// A persistent thread's check before the candidate it reports as g, on the
+// cell and flag as it read them: true if it stops (persistent_step).  The
+// loads stall the warp for their latency once a segment; loads issued a
+// check ahead, a countdown of iterations, a check after the hash test or
+// in the same branch measured no faster (md5, sha1; PERF.md §6).
+__device__ __forceinline__ bool persistent_stops(const Persist& P, uint32_t* out, uint32_t cell,
+                                                 uint32_t stop, uint32_t g) {
+  const int step = persistent_step(cell, stop, g);
+  if (step == kStopped) atomicMin(out + 1, g / P.seg);
+  return step != kTest;
+}
+
+// A persistent thread's hit, published at once, so that the others stop at
+// their next check.
+__device__ __forceinline__ void persistent_hit(const Persist& P, uint32_t* out, uint32_t g) {
+  atomicMin(out, g);
+  atomicMin(out + 1, g / P.seg + 1);
+}
+
+// The index a thread reports for candidate f = (tb, chunk): the flat index
+// itself (solo), or the partition's (a mesh shard).
+struct FlatIndex {
+  DISTPOW_HD uint32_t operator()(uint32_t f, uint32_t, uint32_t) const { return f; }
+};
+struct PartitionIndex {
+  MeshOrigin o;
+  DISTPOW_HD uint32_t operator()(uint32_t, uint32_t tb, uint32_t chunk) const {
+    return origin_index(o, tb, chunk);
+  }
+};
+
 // The thread's first hitting flat index in its grid-stride loop, or SENTINEL.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+// In the persistent form (PERSISTENT) the thread checks the cell and the
+// flag where persistent_due says, about once a segment of its own loop, and
+// publishes a hit into out at once (report gives the index out holds).  A
+// check keeps no state in the loop, so md5's per-thread table keeps its
+// registers.  The serial form compiles none of it, so its loop is the one
+// it was before the persistent form.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT, class Report>
 __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const uint32_t* base,
                                                      const uint32_t* masks, const Layout& L,
-                                                     uint32_t n) {
+                                                     uint32_t n, const Persist& P,
+                                                     uint32_t* out, Report report) {
   const uint32_t stride = gridDim.x * blockDim.x;
   // one hash per iteration, so the loop body in the SASS is one candidate's
   // work: chip_smoke.py counts it beside the bound
@@ -480,7 +594,15 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
     for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
       uint32_t tb, chunk;
       decode<POW2>(L, f, tb, chunk);
-      if (keyed_candidate_hits<H, MASK_WORDS, N_BLOCKS>(tail, masks, L, tb, chunk)) return f;
+      if constexpr (PERSISTENT) {
+        if (persistent_due(f, P.period_mask, stride) &&
+            persistent_stops(P, out, live_word(out), live_word(P.stop), report(f, tb, chunk)))
+          return SENTINEL;
+      }
+      if (keyed_candidate_hits<H, MASK_WORDS, N_BLOCKS>(tail, masks, L, tb, chunk)) {
+        if constexpr (PERSISTENT) persistent_hit(P, out, report(f, tb, chunk));
+        return f;
+      }
     }
     return SENTINEL;
   } else {
@@ -488,8 +610,15 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
     for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
       uint32_t tb, chunk;
       decode<POW2>(L, f, tb, chunk);
-      if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk))
+      if constexpr (PERSISTENT) {
+        if (persistent_due(f, P.period_mask, stride) &&
+            persistent_stops(P, out, live_word(out), live_word(P.stop), report(f, tb, chunk)))
+          return SENTINEL;
+      }
+      if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk)) {
+        if constexpr (PERSISTENT) persistent_hit(P, out, report(f, tb, chunk));
         return f;
+      }
     }
     return SENTINEL;
   }
@@ -497,11 +626,15 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
 
 // A thread's first hit in one block's search, the launch's operands loaded
 // into shared memory first: the body of the solo, group and mesh kernels.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false,
+          class Report = FlatIndex>
 __device__ __forceinline__ uint32_t hash_block_first_hit(const uint32_t* __restrict__ init_g,
                                                          const uint32_t* __restrict__ base_g,
                                                          const uint32_t* __restrict__ masks_g,
-                                                         const Layout& L, uint32_t n) {
+                                                         const Layout& L, uint32_t n,
+                                                         const Persist& P = Persist{},
+                                                         uint32_t* out = nullptr,
+                                                         Report report = Report{}) {
   constexpr int BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
   uint32_t masks[MASK_WORDS];
 #pragma unroll
@@ -511,18 +644,22 @@ __device__ __forceinline__ uint32_t hash_block_first_hit(const uint32_t* __restr
   for (int i = threadIdx.x; i < H::STATE_WORDS; i += blockDim.x) init[i] = init_g[i];
   for (int i = threadIdx.x; i < BASE_WORDS; i += blockDim.x) base[i] = base_g[i];
   __syncthreads();
-  return thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init, base, masks, L, n);
+  return thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PERSISTENT>(init, base, masks, L, n, P,
+                                                                     out, report);
 }
 
-// The kernels' body, one block's search.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+// The kernels' body, one block's search, serial or persistent.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false>
 __device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ init_g,
                                                   const uint32_t* __restrict__ base_g,
                                                   const uint32_t* __restrict__ masks_g,
                                                   const Layout& L, uint32_t n,
-                                                  uint32_t* __restrict__ out) {
+                                                  uint32_t* __restrict__ out,
+                                                  const Persist& P = Persist{}) {
   block_min_to<HASH_BLOCK_THREADS>(
-      hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n), out);
+      hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PERSISTENT>(init_g, base_g, masks_g, L,
+                                                                      n, P, out),
+      out);
 }
 
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
@@ -543,11 +680,71 @@ resident_hash_search_kernel(const uint32_t* __restrict__ init_g,
   hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out);
 }
 
+// The persistent form of the solo kernel (Persist), and its resident twin.
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
+hash_persistent_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
+                       const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
+                       uint32_t* __restrict__ out, Persist P) {
+  hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, n, out, P);
+}
+
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS, H::MIN_BLOCKS_PER_SM)
+resident_hash_persistent_kernel(const uint32_t* __restrict__ init_g,
+                                const uint32_t* __restrict__ base_g,
+                                const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
+                                uint32_t* __restrict__ out, Persist P) {
+  hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, n, out, P);
+}
+
+// One resident wave of kernel: the blocks of HASH_BLOCK_THREADS that the
+// current device's SMs hold at once, and no more than n flat indices fill.
+// In one wave a thread's grid-stride loop walks the launch in index order
+// beside every other thread's, so a published hit stops the whole launch
+// near the hit's position; with several waves the blocks of a later wave
+// start only once an earlier wave has swept the launch.  0 where the
+// device cannot be asked (the launch then fails).
+template <class Kernel>
+int resident_grid(Kernel kernel, uint32_t n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, HASH_BLOCK_THREADS, 0) !=
+          cudaSuccess)
+    return 0;
+  const long long blocks =
+      (static_cast<long long>(n) + HASH_BLOCK_THREADS - 1) / HASH_BLOCK_THREADS;
+  const long long wave = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  return static_cast<int>(blocks < wave ? blocks : wave);
+}
+
+// A persistent kernel's launch over n flat indices: grid blocks, or where
+// grid <= 0 one resident wave (resident_grid); P's check period is set for
+// the grid it runs on.  args are the kernel's arguments before P.
+template <class Kernel, class... Args>
+void launch_persistent(Kernel kernel, uint32_t n, int grid, cudaStream_t stream, Persist P,
+                       Args... args) {
+  if (grid <= 0) grid = resident_grid(kernel, n);
+  P.period_mask =
+      persistent_period_mask(P.batch, static_cast<uint32_t>(grid) * HASH_BLOCK_THREADS);
+  kernel<<<grid, HASH_BLOCK_THREADS, 0, stream>>>(args..., P);
+}
+
+// The solo kernel's launch, serial or (PERSISTENT) persistent: two
+// kernels, so that the serial one compiles to the loop it had before the
+// persistent form.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false>
 void launch_search_kernel(const uint32_t* init, const uint32_t* base, const uint32_t* masks,
                           const Layout& L, uint32_t n, uint32_t* out, int grid,
-                          cudaStream_t stream) {
-  if constexpr (AsksResidentBlocks<H>::value) {
+                          cudaStream_t stream, const Persist& P = Persist{}) {
+  if constexpr (PERSISTENT && AsksResidentBlocks<H>::value) {
+    launch_persistent(resident_hash_persistent_kernel<H, MASK_WORDS, N_BLOCKS, POW2>, n, grid,
+                      stream, P, init, base, masks, L, n, out);
+  } else if constexpr (PERSISTENT) {
+    launch_persistent(hash_persistent_kernel<H, MASK_WORDS, N_BLOCKS, POW2>, n, grid, stream, P,
+                      init, base, masks, L, n, out);
+  } else if constexpr (AsksResidentBlocks<H>::value) {
     resident_hash_search_kernel<H, MASK_WORDS, N_BLOCKS, POW2>
         <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(init, base, masks, L, n, out);
   } else {
@@ -639,16 +836,21 @@ int launch_hash_group_search(const void* init, const void* base, const void* mas
 // hit becomes the partition's flat index (mesh_global_index)
 // before the block min, so the least value across the shards' cells is
 // the partition's first hit.  The loop is the solo kernel's: the remap
-// runs once per thread, after it.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+// runs once per thread, after it.  In the persistent form each shard's
+// threads check and publish against the shard's own cell in partition
+// indices, which grow with the flat index within a shard, so the rule of
+// persistent_step keeps each shard's least index.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false>
 __device__ __forceinline__ void hash_mesh_block(const uint32_t* __restrict__ init_g,
                                                 const uint32_t* __restrict__ base_g,
                                                 const uint32_t* __restrict__ masks_g,
                                                 const Layout& L, const MeshOrigin& o, uint32_t n,
-                                                uint32_t* __restrict__ out) {
+                                                uint32_t* __restrict__ out,
+                                                const Persist& P = Persist{}) {
   block_min_to<HASH_BLOCK_THREADS>(
-      mesh_global_index<POW2>(
-          L, o, hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n)),
+      mesh_global_index<POW2>(L, o,
+                              hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PERSISTENT>(
+                                  init_g, base_g, masks_g, L, n, P, out, PartitionIndex{o})),
       out);
 }
 
@@ -670,25 +872,53 @@ resident_hash_mesh_kernel(const uint32_t* __restrict__ init_g,
   hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, o, n, out);
 }
 
+// The persistent form of the mesh kernel (Persist), and its resident twin.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS)
+hash_mesh_persistent_kernel(const uint32_t* __restrict__ init_g,
+                            const uint32_t* __restrict__ base_g,
+                            const uint32_t* __restrict__ masks_g, Layout L, MeshOrigin o,
+                            uint32_t n, uint32_t* __restrict__ out, Persist P) {
+  hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, o, n, out, P);
+}
+
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
+__global__ void __launch_bounds__(HASH_BLOCK_THREADS, H::MIN_BLOCKS_PER_SM)
+resident_hash_mesh_persistent_kernel(const uint32_t* __restrict__ init_g,
+                                     const uint32_t* __restrict__ base_g,
+                                     const uint32_t* __restrict__ masks_g, Layout L,
+                                     MeshOrigin o, uint32_t n, uint32_t* __restrict__ out,
+                                     Persist P) {
+  hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, o, n, out, P);
+}
+
 // The body of each kernel's extern "C" launcher (the *_search.cu files).
 // init[STATE_WORDS], base[ROW_WORDS * n_blocks] and masks[mask_words] are
 // device arrays; out is the device result cell, already holding SENTINEL.
 // var_word counts message words only (var_words above).
 // n_blocks is 1 or 2, mask_words 1-4 or DIGEST_WORDS, log_tbc = log2(tbc)
 // or -1 when tbc is not a power of two.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a configuration no kernel was built for.
+// cudaErrorInvalidValue for a configuration no kernel was built for.  P is
+// the persistent form's (DISTPOW_PERSISTENT_FUNCTIONS); the default is the
+// serial one.
 template <class H>
 int launch_hash_search(const void* init, const void* base, const void* masks, int n_blocks,
                        int mask_words, uint32_t chunk0, uint32_t tb_lo, uint32_t tbc,
                        int log_tbc, int var_word, int var_shift, uint32_t chunk_mask,
-                       uint32_t n, void* out, int grid, void* stream) {
+                       uint32_t n, void* out, int grid, void* stream,
+                       const Persist& P = Persist{}) {
   const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
   return launch_keyed<H>(mask_words, n_blocks, log_tbc >= 0, n,
                          [&](auto mw, auto nb, auto pow2) {
-    launch_search_kernel<H, decltype(mw)::value, decltype(nb)::value, decltype(pow2)::value>(
-        u(init), u(base), u(masks), L, n, static_cast<uint32_t*>(out), grid,
-        static_cast<cudaStream_t>(stream));
+    constexpr int MW = decltype(mw)::value, NB = decltype(nb)::value;
+    constexpr bool P2 = decltype(pow2)::value;
+    auto cell = static_cast<uint32_t*>(out);
+    auto s = static_cast<cudaStream_t>(stream);
+    if (P.stop != nullptr)
+      launch_search_kernel<H, MW, NB, P2, true>(u(init), u(base), u(masks), L, n, cell, grid, s, P);
+    else
+      launch_search_kernel<H, MW, NB, P2>(u(init), u(base), u(masks), L, n, cell, grid, s);
   });
 }
 
@@ -704,7 +934,7 @@ int launch_hash_mesh_search(const void* init, const void* base, const void* mask
                             uint32_t tbc, int log_tbc, int var_word, int var_shift,
                             uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0,
                             uint32_t origin_tb_lo, uint32_t origin_tbc, void* out, int grid,
-                            void* stream) {
+                            void* stream, const Persist& P = Persist{}) {
   const Layout L{chunk0, tb_lo, tbc, log_tbc, var_word, var_shift, chunk_mask};
   const MeshOrigin o{origin_chunk0, origin_tb_lo, origin_tbc};
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
@@ -714,7 +944,15 @@ int launch_hash_mesh_search(const void* init, const void* base, const void* mask
                          [&](auto mw, auto nb, auto pow2) {
     constexpr int MW = decltype(mw)::value, NB = decltype(nb)::value;
     constexpr bool P2 = decltype(pow2)::value;
-    if constexpr (AsksResidentBlocks<H>::value) {
+    constexpr bool RESIDENT = AsksResidentBlocks<H>::value;
+    if (P.stop != nullptr) {
+      if constexpr (RESIDENT)
+        launch_persistent(resident_hash_mesh_persistent_kernel<H, MW, NB, P2>, n, grid, s, P,
+                          u(init), u(base), u(masks), L, o, n, cell);
+      else
+        launch_persistent(hash_mesh_persistent_kernel<H, MW, NB, P2>, n, grid, s, P, u(init),
+                          u(base), u(masks), L, o, n, cell);
+    } else if constexpr (RESIDENT) {
       resident_hash_mesh_kernel<H, MW, NB, P2>
           <<<grid, HASH_BLOCK_THREADS, 0, s>>>(u(init), u(base), u(masks), L, o, n, cell);
     } else {
@@ -723,6 +961,50 @@ int launch_hash_mesh_search(const void* init, const void* base, const void* mask
     }
   });
 }
+
+// The persistent form's Persist from the C functions' arguments: the
+// search's stop flag, the segment in reported indices and in the launch's
+// flat indices (the check period follows at the launch, from the grid).
+// An invalid one (no flag, a zero segment) is reported as a null stop,
+// which DISTPOW_PERSISTENT_FUNCTIONS refuses.
+inline Persist persistent_form(const void* stop, uint32_t seg, uint32_t batch) {
+  if (stop == nullptr || seg == 0 || batch == 0) return Persist{};
+  return Persist{static_cast<const uint32_t*>(stop), seg, batch, 0};
+}
+
+// The bodies of each kernel's fourth and fifth extern "C" functions, the
+// persistent solo launch and the persistent launch of one mesh shard: the
+// arguments of launch_hash_search and launch_hash_mesh_search, then the
+// search's stop flag (a device word), the segment's size in reported
+// indices (seg) and in the launch's flat indices (batch), and the two-word
+// out, which the wrapper set to (SENTINEL, the segment count).  A grid <= 0
+// launches one resident wave (resident_grid).
+#define DISTPOW_PERSISTENT_FUNCTIONS(NAME, H, LAYOUT_OK)                                      \
+  extern "C" int distpow_##NAME##_persistent_search(                                          \
+      const void* init, const void* base, const void* masks, int n_blocks, int mask_words,    \
+      uint32_t chunk0, uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word,               \
+      int var_shift, uint32_t chunk_mask, uint32_t n, const void* stop, uint32_t seg,         \
+      uint32_t batch, void* out, int grid, void* stream) {                                    \
+    const distpow::Persist P = distpow::persistent_form(stop, seg, batch);                    \
+    if (!(LAYOUT_OK) || P.stop == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \
+    return distpow::launch_hash_search<H>(init, base, masks, n_blocks, mask_words, chunk0,    \
+                                          tb_lo, tbc, log_tbc, var_word, var_shift,           \
+                                          chunk_mask, n, out, grid, stream, P);               \
+  }                                                                                           \
+  extern "C" int distpow_##NAME##_mesh_persistent_search(                                     \
+      const void* init, const void* base, const void* masks, int n_blocks, int mask_words,    \
+      uint32_t chunk0, uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word,               \
+      int var_shift, uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0,                 \
+      uint32_t origin_tb_lo, uint32_t origin_tbc, const void* stop, uint32_t seg,             \
+      uint32_t batch, void* out, int grid, void* stream) {                                    \
+    const distpow::Persist P = distpow::persistent_form(stop, seg, batch);                    \
+    if (!(LAYOUT_OK) || P.stop == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \
+    return distpow::launch_hash_mesh_search<H>(init, base, masks, n_blocks, mask_words,       \
+                                               chunk0, tb_lo, tbc, log_tbc, var_word,         \
+                                               var_shift, chunk_mask, n, origin_chunk0,       \
+                                               origin_tb_lo, origin_tbc, out, grid, stream,   \
+                                               P);                                            \
+  }
 
 }  // namespace distpow
 #endif  // __CUDACC__

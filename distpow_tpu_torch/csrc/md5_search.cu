@@ -10,11 +10,12 @@
 // message word (one- and two-block tails, or two-block ones only for words
 // 14 and 15).
 //
-// Interface: three plain C functions, launched on the caller's stream;
+// Interface: five plain C functions, launched on the caller's stream;
 // they do not synchronise and allocate nothing.  The search of one request
 // (arguments as in distpow::launch_hash_search), the scheduler's search of
 // a group of slots (distpow::launch_hash_group_search) and one shard's
-// launch of a mesh search (distpow::launch_hash_mesh_search).  Each returns
+// launch of a mesh search (distpow::launch_hash_mesh_search); and the
+// persistent forms of the first and the third (DISTPOW_PERSISTENT_FUNCTIONS).  Each returns
 // cudaErrorInvalidValue for a var_word other than the library's.
 #include "md5.cuh"
 
@@ -58,3 +59,5 @@ extern "C" int distpow_md5_mesh_search(
                                              n, origin_chunk0, origin_tb_lo, origin_tbc, out,
                                              grid, stream);
 }
+
+DISTPOW_PERSISTENT_FUNCTIONS(md5, H, var_word == DISTPOW_VAR_WORD)

@@ -4,11 +4,12 @@
 // (the scaffold) around _sha256d_tile (the rounds).  The kernel, its design and
 // what bounds it are in hash_search.cuh; the rounds in sha256.cuh.
 //
-// Interface: three plain C functions, launched on the caller's stream;
+// Interface: five plain C functions, launched on the caller's stream;
 // they do not synchronise and allocate nothing.  The search of one request
 // (arguments as in distpow::launch_hash_search), the scheduler's search of
 // a group of slots (distpow::launch_hash_group_search) and one shard's
-// launch of a mesh search (distpow::launch_hash_mesh_search).
+// launch of a mesh search (distpow::launch_hash_mesh_search); and the
+// persistent forms of the first and the third (DISTPOW_PERSISTENT_FUNCTIONS).
 #include "sha256.cuh"
 
 extern "C" int distpow_sha256d_search(const void* init, const void* base, const void* masks,
@@ -39,3 +40,5 @@ extern "C" int distpow_sha256d_mesh_search(
       init, base, masks, n_blocks, mask_words, chunk0, tb_lo, tbc, log_tbc, var_word, var_shift,
       chunk_mask, n, origin_chunk0, origin_tb_lo, origin_tbc, out, grid, stream);
 }
+
+DISTPOW_PERSISTENT_FUNCTIONS(sha256d, distpow::Sha256d, true)

@@ -18,12 +18,16 @@ variable bytes starts at message word ``w`` (``VAR_WORDS``), and its
 library, ``md5_search.vw<w>`` here, is built at the first launch at that
 layout, the way the reference's Pallas step compiled per ``TailSpec``.
 
-Each library ``<model>_search`` exports three C functions:
+Each library ``<model>_search`` exports five C functions:
 ``distpow_<model>_search``, the search of one request,
 ``distpow_<model>_group_search``, the scheduler's search of a group of
 slots (``hash_cuda.hash_group_search``), and
 ``distpow_<model>_mesh_search``, one shard's launch of a search spread
-over a mesh of devices (``hash_cuda.hash_mesh_search``).
+over a mesh of devices (``hash_cuda.hash_mesh_search``); and the
+persistent forms of the first and the third,
+``distpow_<model>_persistent_search`` and
+``distpow_<model>_mesh_persistent_search``
+(``hash_cuda.hash_persistent_search``, ``hash_mesh_persistent_search``).
 """
 
 from __future__ import annotations
@@ -178,8 +182,20 @@ def mesh_function(name: str) -> str:
     return f"distpow_{name[:-len('_search')]}_mesh_search"
 
 
+def persistent_function(name: str) -> str:
+    """The persistent solo search's C function in library ``name``
+    (``md5_search``: ``distpow_md5_persistent_search``)."""
+    return f"distpow_{name[:-len('_search')]}_persistent_search"
+
+
+def mesh_persistent_function(name: str) -> str:
+    """The persistent mesh shard's C function in library ``name``
+    (``md5_search``: ``distpow_md5_mesh_persistent_search``)."""
+    return f"distpow_{name[:-len('_search')]}_mesh_persistent_search"
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    """Set the argument and result types of the three C functions of each
+    """Set the argument and result types of the five C functions of each
     library; every search kernel has the same interface."""
     vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
     fn = getattr(lib, f"distpow_{name}")
@@ -207,6 +223,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         vp, i32, vp,         # out, grid, stream
     ]
     mesh.restype = i32
+    persist = [vp, u32, u32]  # stop, seg, batch
+    solo_p = getattr(lib, persistent_function(name))
+    solo_p.argtypes = fn.argtypes[:13] + persist + fn.argtypes[13:]
+    solo_p.restype = i32
+    mesh_p = getattr(lib, mesh_persistent_function(name))
+    mesh_p.argtypes = mesh.argtypes[:16] + persist + mesh.argtypes[16:]
+    mesh_p.restype = i32
 
 
 def load_library(name: str, var_word: Optional[int] = None) -> ctypes.CDLL:

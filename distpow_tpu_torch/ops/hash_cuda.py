@@ -32,6 +32,20 @@ each hit reported as the partition's flat index; it counts under
 ``LAUNCHES["<kernel>_mesh"]``, and its plain version is
 ``search_step.plain_shard_search``.  ``parallel/mesh_search.py`` launches
 the shards and takes the least index across them.
+
+And the persistent forms of the solo and mesh launches, the device side of
+the persistent search loop (``parallel/search.py persistent_search``; the
+reference's XLA ``persistent_search_step`` and ``mesh_persistent_step``):
+``hash_persistent_search`` and ``hash_mesh_persistent_search`` launch the
+kernels' persistent form (the same body, which also reads the search's
+stop flag, a device word) and return a two-word cell, (first hit, segments
+executed), without synchronising.  A launch stops about one segment after
+its own first hit, or after the driver sets the flag; one expected to hold
+a hit runs on one resident wave of blocks (``one_wave_for``), so that it
+stops near its hit.  They count under ``LAUNCHES["<kernel>_persistent"]``
+and ``LAUNCHES["<kernel>_mesh_persistent"]``; their plain versions are
+``search_step.persistent_search_step`` and
+``plain_shard_persistent_search``.
 """
 
 from __future__ import annotations
@@ -44,8 +58,9 @@ import torch.nn.functional as F
 
 from ..models.registry import HashModel
 from .operands import MASK32, Device, GroupOperands, StepOperands
-from .search_step import (MeshOrigin, _check_launch, plain_group_search, plain_search,
-                          plain_shard_search)
+from .search_step import (MeshOrigin, _check_launch, _check_persistent, plain_group_search,
+                          plain_search, plain_shard_persistent_search, plain_shard_search,
+                          persistent_search_step)
 
 # Blocks per SM of a launch's grid: a few waves of 256-thread blocks, so
 # blocks that finish early (a thread stops at its first hit) leave no SM idle.
@@ -100,10 +115,11 @@ class LaunchCounter:
             self._n = 0
 
 
-# one counter per kernel, group kernel ("<kernel>_group") and mesh kernel
-# ("<kernel>_mesh")
-LAUNCHES = {name: LaunchCounter() for kernel in KERNELS.values()
-            for name in (kernel, f"{kernel}_group", f"{kernel}_mesh")}
+# one counter per kernel, group kernel ("<kernel>_group"), mesh kernel
+# ("<kernel>_mesh") and persistent form of the solo and mesh kernels
+LAUNCH_FORMS = ("", "_group", "_mesh", "_persistent", "_mesh_persistent")
+LAUNCHES = {f"{kernel}{form}": LaunchCounter() for kernel in KERNELS.values()
+            for form in LAUNCH_FORMS}
 
 
 def kernel_name(model: HashModel) -> str:
@@ -200,6 +216,21 @@ def load_kernels(model: HashModel, tails) -> None:
         load_library(name, w)
 
 
+# A persistent launch expected to hold at least this many hits runs on one
+# resident wave, where its threads reach the first hit in index order and
+# the launch ends near it; one expected to hold fewer runs on the serial
+# kernel's grid of several waves, which sweeps a launch without a hit up to
+# 8 % faster (md5; PERF.md section 6).
+ONE_WAVE_EXPECTED_HITS = 0.5
+
+
+def one_wave_for(n: int, difficulty: int) -> bool:
+    """Whether a persistent launch over ``n`` candidates at ``difficulty``
+    (each candidate hits with probability 16^-difficulty) runs on one
+    resident wave (``ONE_WAVE_EXPECTED_HITS``)."""
+    return n >= ONE_WAVE_EXPECTED_HITS * 16 ** difficulty
+
+
 def default_grid(n: int, sm_count: int) -> int:
     """Blocks for a launch over ``n`` indices: a few waves per SM, and no
     more blocks than there are indices for."""
@@ -245,10 +276,16 @@ def _check_search(name: str, model: HashModel, ops: StepOperands, chunk0: int, b
 
 def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands, tb_loc,
                    chunk_locs, chunk0: int, n: int, grid: Optional[int],
-                   origin: Tuple[int, ...] = ()) -> torch.Tensor:
+                   origin: Tuple[int, ...] = (), persist=None) -> torch.Tensor:
     """Launch ``csrc/<name>.cu``'s ``function`` (the solo search, or with
     the three ``origin`` words the mesh shard's) over ``n`` flat indices on
-    the current stream of the operands' device; return its result cell."""
+    the current stream of the operands' device; return its result cell.
+    ``persist`` is the persistent form's ``(stop, seg, segments, batch,
+    one_wave)``: the flag word, the segment in reported indices, the
+    segments word's initial value, the launch's own segment in flat indices
+    and whether a ``grid`` of None is one resident wave (the launcher asks
+    the device how many blocks that is) or ``default_grid``; the cell is
+    then two words."""
     var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
     check_tail(model, ops.n_blocks, var_word, tb_loc)
     lib = _library(name, model, var_word)
@@ -258,15 +295,25 @@ def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands
     log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
     dev = ops.device
     with torch.cuda.device(dev):
+        extra, one_wave = (), persist is not None and persist[4]
         if grid is None:
-            grid = default_grid(n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        out = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
+            # 0: one resident wave, sized by the launcher
+            grid = 0 if one_wave else default_grid(
+                n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        if persist is None:
+            out = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
+        else:
+            stop, seg, segments, batch, _ = persist
+            out = torch.full((2,), -1, dtype=torch.int32, device=dev)
+            out[1].fill_(segments)
+            extra = (stop.data_ptr(), seg, batch)
         rc = getattr(lib, function)(
             ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
             ops.n_blocks, mw,
             chunk0, ops.tb_lo, tbc, log_tbc,
             var_word, var_shift, chunk_mask,
-            n, *origin, out.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream,
+            n, *origin, *extra, out.data_ptr(), grid,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"{function} kernel launch failed: CUDA error {rc}")
@@ -294,6 +341,22 @@ def hash_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0:
     return out
 
 
+def _check_origin(ops: StepOperands, chunk0: int, n: int, origin) -> MeshOrigin:
+    """The partition ``origin`` of a shard of ``n`` flat indices from
+    ``chunk0``, checked: it holds the shard's run, and every partition
+    index of the shard lies below 2^31."""
+    origin = MeshOrigin(*(int(v) for v in origin))
+    if not (0 <= origin.chunk0 <= MASK32 and origin.tb_lo <= ops.tb_lo
+            and ops.tb_lo + ops.tb_count <= origin.tb_lo + origin.tbc):
+        raise ValueError(f"shard run ({ops.tb_lo}, {ops.tb_count}) at {chunk0} is not inside "
+                         f"the partition {origin}")
+    chunks = ((chunk0 - origin.chunk0) & MASK32) + -(-n // ops.tb_count)
+    if chunks * origin.tbc > 1 << 31:
+        raise ValueError(f"shard at chunk {chunk0} reaches partition index {chunks * origin.tbc}; "
+                         f"partition indices require < 2^31")
+    return origin
+
+
 def hash_mesh_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0: int,
                      batch: int, launch_steps: int, origin: MeshOrigin, *, device: Device,
                      grid: Optional[int] = None) -> torch.Tensor:
@@ -312,16 +375,8 @@ def hash_mesh_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, ch
     name = kernel_name(model)
     device = torch.device(device)
     _check_search("hash_mesh_search", model, ops, chunk0, batch, launch_steps, device)
-    origin = MeshOrigin(*(int(v) for v in origin))
-    if not (0 <= origin.chunk0 <= MASK32 and origin.tb_lo <= ops.tb_lo
-            and ops.tb_lo + ops.tb_count <= origin.tb_lo + origin.tbc):
-        raise ValueError(f"shard run ({ops.tb_lo}, {ops.tb_count}) at {chunk0} is not inside "
-                         f"the partition {origin}")
     n = batch * launch_steps
-    chunks = ((chunk0 - origin.chunk0) & MASK32) + -(-n // ops.tb_count)
-    if chunks * origin.tbc > 1 << 31:
-        raise ValueError(f"shard at chunk {chunk0} reaches partition index {chunks * origin.tbc}; "
-                         f"partition indices require < 2^31")
+    origin = _check_origin(ops, chunk0, n, origin)
     if device.type == "cpu":
         return plain_shard_search(ops, tb_loc, chunk_locs, chunk0, batch, launch_steps, origin,
                                   model=model)
@@ -330,6 +385,88 @@ def hash_mesh_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, ch
     out = _launch_search(name, mesh_function(name), model, ops, tb_loc, chunk_locs, chunk0, n,
                          grid, origin)
     LAUNCHES[f"{name}_mesh"].add()
+    return out
+
+
+def _check_stop(stop: torch.Tensor, ops: StepOperands) -> None:
+    if not isinstance(stop, torch.Tensor) or stop.numel() != 1:
+        raise ValueError("the stop flag must be a one-word tensor")
+    if stop.device != ops.device:
+        raise ValueError(f"the stop flag is on {stop.device}, the operands on {ops.device}")
+    if stop.dtype != torch.int32:
+        raise ValueError(f"the stop flag must be an int32 word, got {stop.dtype}")
+
+
+def hash_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs,
+                           chunk0: int, batch: int, segments: int, stop: torch.Tensor, *,
+                           device: Device, one_wave: bool = True,
+                           grid: Optional[int] = None) -> torch.Tensor:
+    """The persistent form of ``hash_search``: up to ``segments`` segments of
+    ``batch`` candidates from cursor ``chunk0``, stopping about one segment
+    after the first hit or after the 0-d ``stop`` flag (on the launch's
+    device) turns nonzero.  Returns the two words (first hit's flat index or
+    SENTINEL, segments executed); a width-0 layout raises.
+
+    On a CUDA device: launches ``model``'s kernel in its persistent form and
+    returns its ``int32[2]`` cell (uint32 bit patterns) without
+    synchronising.  With ``one_wave`` (``one_wave_for``) the grid is one
+    resident wave, so the threads walk the launch in index order; else the
+    serial kernel's (``default_grid``); ``grid`` names the blocks instead.
+    On the CPU: the plain version, ``int64[2]``
+    (``persistent_search_step``)."""
+    name = kernel_name(model)
+    device = torch.device(device)
+    _check_search("hash_persistent_search", model, ops, chunk0, batch, segments, device)
+    _check_persistent(tb_loc, chunk_locs, batch, segments)
+    _check_stop(stop, ops)
+    if device.type == "cpu":
+        return persistent_search_step(ops, tb_loc, chunk_locs, chunk0, batch, segments, stop,
+                                      model=model)
+    from ._build import persistent_function
+
+    out = _launch_search(name, persistent_function(name), model, ops, tb_loc, chunk_locs,
+                         chunk0, batch * segments, grid,
+                         persist=(stop, batch, segments, batch, one_wave))
+    LAUNCHES[f"{name}_persistent"].add()
+    return out
+
+
+def hash_mesh_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs,
+                                chunk0: int, batch: int, segments: int, origin: MeshOrigin,
+                                seg: int, total: int, stop: torch.Tensor, *, device: Device,
+                                one_wave: bool = True,
+                                grid: Optional[int] = None) -> torch.Tensor:
+    """The persistent form of ``hash_mesh_search``, one shard of a
+    persistent mesh launch: up to ``segments`` segments of ``batch``
+    candidates of the shard's run from ``chunk0``, stopping about one
+    segment after the shard's own first hit or after ``stop`` turns
+    nonzero.  Returns the first hit as the partition's flat index (or
+    SENTINEL) and the segments executed, counted in the partition's
+    segments of ``seg`` indices (``total`` where the shard found nothing and
+    saw no flag): the least of each word across the shards is the mesh
+    launch's result.
+
+    On a CUDA device: the mesh kernel's persistent form, on the grid that
+    ``one_wave`` and ``grid`` choose as in ``hash_persistent_search``, its
+    ``int32[2]`` cell without synchronising.  On the CPU: the plain version,
+    ``int64[2]`` (``plain_shard_persistent_search``)."""
+    name = kernel_name(model)
+    device = torch.device(device)
+    _check_search("hash_mesh_persistent_search", model, ops, chunk0, batch, segments, device)
+    _check_persistent(tb_loc, chunk_locs, batch, segments)
+    _check_stop(stop, ops)
+    origin = _check_origin(ops, chunk0, batch * segments, origin)
+    if seg < 1 or total < 1:
+        raise ValueError(f"bad partition segments: {total} of {seg} indices")
+    if device.type == "cpu":
+        return plain_shard_persistent_search(ops, tb_loc, chunk_locs, chunk0, batch, segments,
+                                             origin, seg, total, stop, model=model)
+    from ._build import mesh_persistent_function
+
+    out = _launch_search(name, mesh_persistent_function(name), model, ops, tb_loc, chunk_locs,
+                         chunk0, batch * segments, grid, origin,
+                         persist=(stop, seg, total, batch, one_wave))
+    LAUNCHES[f"{name}_mesh_persistent"].add()
     return out
 
 

@@ -15,6 +15,15 @@ masked to 32 bits (see ``ops/__init__.py``).  Every step returns a 0-d
 tensor on the operands' device, not an int: reading it is the caller's
 synchronisation point.
 
+The persistent loop's steps (``persistent_search_step``,
+``cached_persistent_step``, the counterparts of the reference's) run up to
+``segments`` segments of ``plain_search`` in order and stop after the first
+that holds a hit or before one that finds the search's stop word set,
+returning two words: the first hit and the segments executed; the plain
+versions of the kernels' persistent form (``hash_cuda
+hash_persistent_search``), as ``plain_shard_persistent_search`` is of one
+mesh shard's.
+
 A mesh launch spreads one search over shards (``plain_mesh_search``, the
 plain version of the mesh kernels, ``hash_cuda.hash_mesh_search``): each
 shard searches a slice of the partition and reports its first hit as the
@@ -43,7 +52,7 @@ import torch
 from ..models.registry import HashModel, get_hash_model
 from .difficulty import nibble_masks
 from .operands import (MASK32, Device, GroupOperands, StepOperands, group_operands,
-                       make_operands, widen)
+                       make_operands, u32_value, widen)
 from .packing import TailSpec, build_tail_spec
 
 SENTINEL = 0xFFFFFFFF
@@ -215,6 +224,74 @@ def plain_mesh_search(ops: StepOperands, tb_loc, chunk_locs, shards: Sequence[Me
     return torch.stack(hits).amin()
 
 
+def _stopped(stop) -> bool:
+    """Is the search's stop flag (a 0-d tensor on any device, or None) set?"""
+    return stop is not None and int(stop) != 0
+
+
+def _check_persistent(tb_loc, chunk_locs, batch: int, segments: int) -> None:
+    if not chunk_locs:
+        raise ValueError("width 0 has no persistent form; serve it with the serial step")
+    _check_launch(batch, segments)
+
+
+def persistent_search_step(ops: StepOperands, tb_loc, chunk_locs, chunk0: int, batch: int,
+                           segments: int, stop=None, *, model: HashModel) -> torch.Tensor:
+    """The plain version of the persistent kernel (``hash_cuda.hash_persistent_search``;
+    the counterpart of the reference's ``persistent_search_step``): up to
+    ``segments`` segments of ``batch`` candidates from cursor ``chunk0``, each
+    ``plain_search``, in order, stopping after the first segment that holds a
+    hit or before one that finds the 0-d tensor ``stop`` nonzero.  Returns
+    ``int64[2]`` on the operands' device: the first hit's flat index over the
+    whole span (or SENTINEL) and the segments executed.  Width 0 raises, as
+    in the reference: the driver serves it with the serial step."""
+    _check_persistent(tb_loc, chunk_locs, batch, segments)
+    chunks = batch // ops.tb_count
+    if chunks * ops.tb_count != batch:
+        raise ValueError(f"a segment of {batch} candidates is not whole chunks of "
+                         f"{ops.tb_count} thread bytes")
+    for seg in range(segments):
+        if _stopped(stop):
+            return _pair(SENTINEL, seg, ops.device)
+        hit = u32_value(plain_search(ops, tb_loc, chunk_locs, (chunk0 + seg * chunks) & MASK32,
+                                     batch, model=model))
+        if hit != SENTINEL:
+            return _pair(seg * batch + hit, seg + 1, ops.device)
+    return _pair(SENTINEL, segments, ops.device)
+
+
+def plain_shard_persistent_search(ops: StepOperands, tb_loc, chunk_locs, chunk0: int,
+                                  batch: int, segments: int, origin: MeshOrigin, seg: int,
+                                  total: int, stop=None, *, model: HashModel) -> torch.Tensor:
+    """The plain version of one shard's persistent mesh launch
+    (``hash_cuda.hash_mesh_persistent_search``): up to ``segments`` local
+    segments of ``batch`` candidates of the shard's run from ``chunk0``, each
+    ``plain_shard_search``, stopping at the first that holds a hit or before
+    one that finds ``stop`` set.  Returns ``int64[2]``: the first hit as the
+    partition's flat index (or SENTINEL), and the segments executed in the
+    partition's segments of ``seg`` indices: the hit's + 1, where the flag
+    stopped it the partition segment the shard was about to start, else
+    ``total``.  The least of each word across the shards is the mesh
+    launch's result."""
+    _check_persistent(tb_loc, chunk_locs, batch, segments)
+    tbc = ops.tb_count
+    chunks = batch // tbc
+    for s in range(segments):
+        start = (chunk0 + s * chunks) & MASK32
+        if _stopped(stop):
+            return _pair(SENTINEL, partition_index(0, ops.tb_lo, tbc, start, origin) // seg,
+                         ops.device)
+        g = u32_value(plain_shard_search(ops, tb_loc, chunk_locs, start, batch, 1, origin,
+                                         model=model))
+        if g != SENTINEL:
+            return _pair(g, g // seg + 1, ops.device)
+    return _pair(SENTINEL, total, ops.device)
+
+
+def _pair(first: int, segments: int, device) -> torch.Tensor:
+    return torch.tensor([first, segments], dtype=torch.int64, device=device)
+
+
 def plain_search_w0(ops: StepOperands, tb_loc, chunk_locs=(), *,
                     model: HashModel) -> torch.Tensor:
     """Width-0 probe: scan all 256 thread bytes and mask those outside the
@@ -260,6 +337,39 @@ def cached_search_step(
     def bound(chunk0: int) -> torch.Tensor:
         return plain_search(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
                             launch_steps, model=model)
+
+    return bound
+
+
+@functools.lru_cache(maxsize=512)
+def cached_persistent_step(
+    nonce: bytes,
+    width: int,
+    difficulty: int,
+    tb_lo: int,
+    tb_count: int,
+    chunks_per_step: int,
+    model_name: str,
+    extra_const_chunk: bytes = b"",
+    segments: int = 1,
+    device: str = "cuda",
+) -> Callable[[int, Optional[torch.Tensor]], torch.Tensor]:
+    """Serving-path plain persistent step, the counterpart of the
+    reference's ``cached_persistent_step``: ``bound(chunk0, stop)`` covers up
+    to ``segments`` segments of ``chunks_per_step * tb_count`` candidates
+    (``persistent_search_step``) and returns ``int64[2]``.  Width 0 raises:
+    the driver serves it with ``cached_search_step``."""
+    if width == 0:
+        raise ValueError("width 0 has no persistent form; use cached_search_step")
+    model = get_hash_model(model_name)
+    spec = build_tail_spec(bytes(nonce), width, model, extra_const_chunk)
+    ops = step_operands(spec, difficulty, model, tb_lo, tb_count, device)
+    batch = chunks_per_step * tb_count
+    _check_launch(batch, segments)
+
+    def bound(chunk0: int, stop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return persistent_search_step(ops, spec.tb_loc, spec.chunk_locs, chunk0, batch,
+                                      segments, stop, model=model)
 
     return bound
 

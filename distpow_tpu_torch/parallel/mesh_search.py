@@ -36,6 +36,18 @@ of its device, the caller's stream waits on each shard's, the cells come
 to the first shard's device (``non_blocking``) and the least uint32 is
 taken there (``Mesh.run``).  Nothing waits on the host, so the driver's one
 pinned fetch stays the only host wait per launch.
+
+The persistent loop's mesh step (``mesh_persistent_factory``, the
+counterpart of the reference's ``mesh_persistent_factory`` and
+``mesh_persistent_step``) is the same launch with each shard's kernel in
+its persistent form (``hash_mesh_persistent_search``): a shard stops about
+one segment after its own first hit or after the search's stop flag, and
+reports its segments in the partition's; the least of each of the two
+words across the shards (``Mesh.run``) is the launch's result.  The
+partition's segment is a shard segment's chunks over the whole run, so the
+launch's first hit and segment count are those of the solo persistent step
+at that segment.  Shards do not share a cell: a shard runs on after
+another shard's hit until its own hit, its end or the flag.
 """
 
 from __future__ import annotations
@@ -48,13 +60,15 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..models.registry import HashModel, get_hash_model
-from ..ops.hash_cuda import BLOCK_THREADS, hash_group_search, hash_mesh_search, kernel_name
+from ..ops.hash_cuda import (BLOCK_THREADS, hash_group_search, hash_mesh_persistent_search,
+                              hash_mesh_search, kernel_name, one_wave_for)
 from ..ops.operands import MASK32, Device, GroupOperands, u32_bits, u32_min, widen
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import MeshOrigin, MeshShard, _check_launch, step_operands
 from ..runtime.metrics import REGISTRY
 from .partition import contiguous_bounds
-from .search import SearchResult, StepFactory, scaled_launch_candidates, search
+from .search import (PersistentFactory, SearchResult, StepFactory, scaled_launch_candidates,
+                     search)
 
 AXIS = "workers"
 
@@ -212,13 +226,26 @@ def _global_chunks(chunks_local: int, tbc: int, n_dev: int, launch_steps: int) -
     return span * launch_steps
 
 
-def _cuda_mesh_step_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
-                            model: HashModel, mesh: Mesh,
-                            max_launch: Optional[int] = None) -> StepFactory:
-    """Step factory over the mesh kernels (``hash_mesh_search``, one launch
-    per shard on its device and stream, the least index across them by
-    ``Mesh.run``): the counterpart of the reference's
-    ``_pallas_mesh_step_factory``.  The per-shard batch is rounded up to a
+def _shard_persistent(model: HashModel, ops, tb_loc, chunk_locs, shard: MeshShard,
+                      origin: MeshOrigin, seg: int, total: int, stop, one_wave: bool,
+                      dev: torch.device):
+    """One shard's persistent launch, on the current stream of its device
+    (the shard's, under ``Mesh.run``), which also reads the flag's word."""
+    word = stop.operand(dev)
+    if dev.type == "cuda":
+        word.record_stream(torch.cuda.current_stream(dev))
+    return hash_mesh_persistent_search(model, ops, tb_loc, chunk_locs, shard.chunk0, shard.batch,
+                                       shard.launch_steps, origin, seg, total, word, device=dev,
+                                       one_wave=one_wave)
+
+
+def _mesh_binding(nonce: bytes, difficulty: int, tb_lo: int, tbc: int, model: HashModel,
+                  mesh: Mesh, max_launch: Optional[int]):
+    """What both mesh step factories share: ``place(target_chunks,
+    launch_steps) -> (chunks_local, k, chunks)``, one launch's per-shard
+    chunks, sub-batches and global chunks (the driver's cursor advance),
+    and ``bind(vw, extra, chunks_local, k) -> (spec, ops)``, the tail and
+    each shard's operands (cached).  The per-shard batch is rounded up to a
     whole number of the kernel's blocks (256 candidates), and the launch
     multiplier is clamped again to the rounded global batch, so a launch
     stays within ``max_launch`` and every partition index below 2^31."""
@@ -232,20 +259,10 @@ def _cuda_mesh_step_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
         spec = build_tail_spec(bytes(nonce), vw, model, extra)
         runs = (mesh_shards(tb_lo, tbc, 0, n_dev, chunks_local, launch_steps)
                 if vw else _width0_probe(tb_lo, tbc))
-        ops = [step_operands(spec, difficulty, model, s.tb_lo, s.tb_count, dev)
-               for s, dev in zip(runs, mesh.devices)]
+        return spec, [step_operands(spec, difficulty, model, s.tb_lo, s.tb_count, dev)
+                      for s, dev in zip(runs, mesh.devices)]
 
-        def step(chunk0: int) -> torch.Tensor:
-            shards = (mesh_shards(tb_lo, tbc, chunk0, n_dev, chunks_local, launch_steps)
-                      if vw else runs)
-            return mesh_launch(mesh, model, ops, spec.tb_loc, spec.chunk_locs, shards,
-                               MeshOrigin(chunk0, tb_lo, tbc))
-
-        return step
-
-    def factory(vw: int, extra: bytes, target_chunks: int, launch_steps: int = 1):
-        if vw == 0:
-            return bind(0, bytes(extra), 1, 1), 1
+    def place(target_chunks: int, launch_steps: int):
         chunks_local = _chunks_local(target_chunks, tbc, n_dev)
         # a whole number of 256-candidate blocks per shard
         whole = BLOCK_THREADS // math.gcd(BLOCK_THREADS, tbl)
@@ -253,8 +270,66 @@ def _cuda_mesh_step_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
         batch_global = chunks_local * tbl * n_dev
         k = max(1, min(launch_steps, budget // batch_global))
         _check_launch(batch_global, k)
-        return bind(vw, bytes(extra), chunks_local, k), _global_chunks(chunks_local, tbc,
-                                                                        n_dev, k)
+        return chunks_local, k, _global_chunks(chunks_local, tbc, n_dev, k)
+
+    return bind, place
+
+
+def _cuda_mesh_step_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
+                            model: HashModel, mesh: Mesh,
+                            max_launch: Optional[int] = None) -> StepFactory:
+    """Step factory over the mesh kernels (``hash_mesh_search``, one launch
+    per shard on its device and stream, the least index across them by
+    ``Mesh.run``): the counterpart of the reference's
+    ``_pallas_mesh_step_factory``, with the shards of ``_mesh_binding``."""
+    bind, place = _mesh_binding(nonce, difficulty, tb_lo, tbc, model, mesh, max_launch)
+
+    def factory(vw: int, extra: bytes, target_chunks: int, launch_steps: int = 1):
+        chunks_local, k, chunks = place(target_chunks, launch_steps) if vw else (1, 1, 1)
+        spec, ops = bind(vw, bytes(extra), chunks_local, k)
+
+        def step(chunk0: int) -> torch.Tensor:
+            shards = (mesh_shards(tb_lo, tbc, chunk0, mesh.size, chunks_local, k)
+                      if vw else _width0_probe(tb_lo, tbc))
+            return mesh_launch(mesh, model, ops, spec.tb_loc, spec.chunk_locs, shards,
+                               MeshOrigin(chunk0, tb_lo, tbc))
+
+        return step, chunks
+
+    return factory
+
+
+def mesh_persistent_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
+                            model: HashModel, mesh: Mesh,
+                            max_launch: Optional[int] = None) -> PersistentFactory:
+    """The persistent loop's step over the mesh (the reference's
+    ``mesh_persistent_factory``): ``factory(vw, extra, target_chunks,
+    segments) -> (step(chunk0, stop), chunks_each, chunks_per_step)``, one
+    persistent shard launch per shard (``hash_mesh_persistent_search``) on
+    the shards of ``_mesh_binding`` and the least of each word across them.
+    Each launch's ``k`` sub-batches are its segments, the partition's
+    segment one shard segment's chunks over the whole run; width 0
+    raises."""
+    bind, place = _mesh_binding(nonce, difficulty, tb_lo, tbc, model, mesh, max_launch)
+
+    def factory(vw: int, extra: bytes, target_chunks: int, segments: int):
+        if vw == 0:
+            raise ValueError("width 0 has no persistent form; serve it with the serial step")
+        chunks_local, k, chunks = place(target_chunks, segments)
+        spec, ops = bind(vw, bytes(extra), chunks_local, k)
+        seg, total = chunks_local * tbc, chunks // chunks_local
+        # a shard's launch holds its share of the launch's candidates
+        one_wave = one_wave_for(chunks * tbc // mesh.size, difficulty)
+
+        def step(chunk0: int, stop) -> torch.Tensor:
+            shards = mesh_shards(tb_lo, tbc, chunk0, mesh.size, chunks_local, k)
+            origin = MeshOrigin(chunk0, tb_lo, tbc)
+            return mesh.run([functools.partial(_shard_persistent, model, o, spec.tb_loc,
+                                               spec.chunk_locs, s, origin, seg, total, stop,
+                                               one_wave, dev)
+                             for s, o, dev in zip(shards, ops, mesh.devices)])
+
+        return step, chunks_local, chunks
 
     return factory
 

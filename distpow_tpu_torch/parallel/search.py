@@ -32,6 +32,16 @@ watchdog: the whole search is an active section, with a beat between
 launches and before each blocking fetch, and the first launch of each
 width segment, which may build the kernels, runs under the first-compile
 grace.
+
+``persistent_search`` is the persistent loop, the counterpart of the
+reference's (``distpow_tpu/parallel/search.py persistent_search``): the
+same contract and first hits, but each dispatch (beyond the width-0
+probe, which goes through the serial step) covers up to ``k`` segments and
+stops about one segment after its own first hit, the drain polls the
+head's event instead of blocking on it (``search.blocking_syncs`` stays
+flat; the wait is ``search.poll_s`` and a ``search.poll`` span), and the
+search's ``StopFlag`` is set on every exit, so that the dispatches still
+in flight behind a hit or a cancel stop within a segment.
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ import torch
 from ..models import puzzle
 from ..models.registry import HashModel, get_hash_model
 from ..ops.operands import Device, u32_value
-from ..ops.search_step import SENTINEL, cached_search_step
+from ..ops.search_step import SENTINEL, cached_persistent_step, cached_search_step
 from ..runtime.metrics import REGISTRY, Metrics
 from ..runtime.spans import SPANS
 from ..runtime.watchdog import FIRST_COMPILE_GRACE_S, WATCHDOG
@@ -55,6 +65,12 @@ from .partition import contiguous_bounds
 
 DEFAULT_BATCH = 1 << 20
 DEFAULT_PIPELINE_DEPTH = 2
+# The persistent drain's longest sleep between two polls of the head's
+# event (the reference's DEFAULT_POLL_INTERVAL_S); the first sleep of a
+# wait is POLL_FIRST_FRACTION of it, doubling up to it, so that a launch
+# of microseconds is not read a whole interval late.
+DEFAULT_POLL_INTERVAL_S = 0.001
+POLL_FIRST_FRACTION = 1 / 16
 # Candidates one dispatch should cover: enough device work to amortize
 # the host round trip of fetching its result, few enough to keep
 # cancellation and solve-time granularity short.
@@ -99,6 +115,14 @@ def effective_batch(batch_size: int) -> int:
 # tensor holding the first hit's flat index (chunk-major,
 # thread-byte-minor) or SENTINEL.
 StepFactory = Callable[[int, bytes, int, int], Tuple[Callable, int]]
+
+# A persistent step factory maps (variable_width >= 1, extra_const_chunk,
+# target_chunks, segments) to (step_fn, chunks_each, chunks_per_step):
+# step_fn(chunk0, stop) runs up to ``segments`` segments of ``chunks_each *
+# tb_count`` candidates from chunk0 (``chunks_per_step`` chunks in all),
+# reads the StopFlag ``stop``, and returns a two-word tensor: the first
+# hit's flat index (or SENTINEL) and the segments executed.
+PersistentFactory = Callable[[int, bytes, int, int], Tuple[Callable, int, int]]
 
 
 @dataclass
@@ -218,6 +242,81 @@ def default_step_factory(
     return factory
 
 
+def default_persistent_factory(
+    nonce: bytes,
+    difficulty: int,
+    tb_lo: int,
+    tb_count: int,
+    model: HashModel,
+    device: Device = "cuda",
+) -> PersistentFactory:
+    """Persistent factory over the plain persistent step on ``device``."""
+    dev = torch.device(device)
+
+    def factory(vw: int, extra: bytes, target_chunks: int, segments: int):
+        chunks = max(1, target_chunks)
+        bound = cached_persistent_step(bytes(nonce), vw, difficulty, tb_lo, tb_count, chunks,
+                                       model.name, extra, segments, str(dev))
+        return (lambda chunk0, stop: bound(chunk0, stop.operand(dev))), chunks, chunks * segments
+
+    return factory
+
+
+class StopFlag:
+    """The persistent loop's stop flag (the reference's ``StopFlag``): one
+    int32 word per device, which every persistent launch of the search on
+    that device reads once a segment; ``set()`` writes 1 into each.
+
+    A word is made at its first ``operand(device)``, holding 0 (1 once
+    set), on the current stream, before the launches that read it.  On a
+    card ``set()`` copies a pinned 1 into it on a side stream of its device
+    (the copy engine, no SM), after the word's own fill and without waiting
+    for the launches, so a launch in flight stops within a segment; the
+    reference's flag reached only later dispatches, its buffers being
+    immutable.  Each search takes its own flag, so a set flag is never
+    reset under launches that still read it."""
+
+    def __init__(self, set_: bool = False) -> None:
+        self._lock = threading.Lock()
+        self._set = set_
+        # device -> (word, the event after its fill, on a card)
+        self._words: dict = {}
+
+    def is_set(self) -> bool:
+        return self._set
+
+    def operand(self, device: Device) -> torch.Tensor:
+        """The flag's word on ``device`` (an explicit device)."""
+        dev = torch.device(device)
+        with self._lock:
+            entry = self._words.get(dev)
+            if entry is None:
+                word = torch.full((1,), int(self._set), dtype=torch.int32, device=dev)
+                filled = None
+                if dev.type == "cuda":
+                    filled = torch.cuda.Event()
+                    filled.record(torch.cuda.current_stream(dev))
+                entry = self._words[dev] = (word, filled)
+            return entry[0]
+
+    def set(self) -> None:
+        with self._lock:
+            if self._set:
+                return
+            self._set = True
+            for word, filled in self._words.values():
+                if filled is None:
+                    word.fill_(1)
+                    continue
+                one = torch.ones(1, dtype=torch.int32, pin_memory=True)
+                with torch.cuda.device(word.device):
+                    side = torch.cuda.Stream(word.device)
+                    side.wait_event(filled)
+                    with torch.cuda.stream(side):
+                        word.copy_(one, non_blocking=True)
+                    word.record_stream(side)
+
+
 def _enqueue_fetch(res: torch.Tensor):
     """Start moving a launch's result to the host without waiting.
 
@@ -230,6 +329,132 @@ def _enqueue_fetch(res: torch.Tensor):
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(res.device))
     return host, event
+
+
+# One width segment's dispatch plan for ``_drive``: (launch(chunk0) ->
+# result tensor, chunks_each, chunks_per_step, pair); ``pair`` results are
+# the persistent step's two words (first hit, segments executed).
+Plan = Tuple[Callable[[int], torch.Tensor], int, int, bool]
+
+
+def _drive(nonce: bytes, difficulty: int, model: HashModel, tb_lo: int, tbc: int,
+           batch_size: int, pipeline_depth: int, cancel_check, max_hashes, max_width: int,
+           launch_candidates: int, metrics: Metrics,
+           plan: Callable[[int, bytes, int, int], Plan],
+           wait: Callable[[Optional[torch.cuda.Event], int], bool]) -> Optional[SearchResult]:
+    """The loop both drivers share: per chunk width and segment, dispatch
+    ``plan(vw, extra, target_chunks, k)``'s launches with ``pipeline_depth``
+    of them in flight, drained FIFO (``wait(event, n_cand)`` until the
+    head's result is on the host: True if the search was cancelled while
+    waiting); ``cancel_check`` and ``max_hashes`` between dispatches; the
+    first dispatch of each width segment under the first-compile grace;
+    ``search.hashes`` counted on every exit path."""
+    target_chunks = max(1, effective_batch(batch_size) // tbc)
+    hashes = 0
+    # FIFO of in-flight dispatches: (host_result, event, chunk0, vw, extra,
+    # seg_chunks, chunks_each, pair); seg_chunks is the dispatch's chunks
+    # within the segment (a dispatch may overshoot the segment end; the
+    # overshot chunk ints alias already-covered candidates and are not
+    # counted)
+    inflight: deque = deque()
+
+    def count(n_cand: int) -> None:
+        nonlocal hashes
+        hashes += n_cand
+        metrics.inc("search.hashes", n_cand)
+
+    def drain_one() -> Tuple[Optional[SearchResult], bool]:
+        """Wait for the head, then read it: ``(found, cancelled)``."""
+        host, event, chunk0, vw, extra, seg_chunks, chunks_each, pair = inflight.popleft()
+        if wait(event, seg_chunks * tbc):
+            count(seg_chunks * tbc)
+            return None, True
+        if pair:
+            f, segs = u32_value(host[0]), u32_value(host[1])
+            metrics.inc("search.persistent_steps", segs)
+            n_cand = min(segs * chunks_each, seg_chunks) * tbc
+        else:
+            f, n_cand = u32_value(host), seg_chunks * tbc
+        count(n_cand)
+        _RATE_METER.note(n_cand, metrics)
+        if f == SENTINEL:
+            return None, False
+        secret, tb = assemble_secret(chunk0, f, vw, extra, tb_lo, tbc)
+        if not puzzle.check_secret(nonce, secret, difficulty, model.name):
+            raise RuntimeError(
+                f"kernel returned non-solving candidate tb={tb} "
+                f"chunk={secret[1:].hex()} (kernel/oracle divergence)"
+            )
+        return SearchResult(secret=secret, thread_byte=tb, chunk=secret[1:],
+                            hashes_tried=hashes), False
+
+    def drain_all() -> Tuple[Optional[SearchResult], bool]:
+        while inflight:
+            found, cancelled = drain_one()
+            if found is not None or cancelled:
+                return found, cancelled
+        return None, False
+
+    def finish(found: Optional[SearchResult], cancelled: bool) -> Optional[SearchResult]:
+        """Count the dispatches still in flight without waiting (one that
+        a stop flag cut short counts whole: an upper bound), so that
+        search.hashes equals dispatched work on every exit path, while
+        hashes_tried stays the drained count."""
+        while inflight:
+            count(inflight.popleft()[5] * tbc)
+        if cancelled:
+            metrics.inc("search.cancelled")
+            return None
+        if found is not None:
+            metrics.inc("search.found")
+        return found
+
+    _RATE_METER.enter()
+    try:
+        with WATCHDOG.active():
+            for width in range(0, max_width + 1):
+                for vw, lo, hi, extra in width_segments(width):
+                    WATCHDOG.beat()  # the step's build may run nvcc below
+                    k = launch_steps_for(vw, target_chunks, tbc, launch_candidates)
+                    launch, chunks_each, chunks_per_step, pair = plan(vw, extra, target_chunks, k)
+                    chunk0 = lo
+                    while chunk0 < hi:
+                        seg_chunks = min(chunks_per_step, hi - chunk0)
+                        WATCHDOG.beat()
+                        if cancel_check is not None and cancel_check():
+                            return finish(None, True)
+                        if max_hashes is not None and hashes >= max_hashes:
+                            return finish(*drain_all())
+                        if chunk0 == lo:
+                            # a segment's first launch may build the kernels
+                            # (nvcc at the first load of a library): one
+                            # uninterruptible gap, under the compile grace
+                            with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
+                                res = launch(chunk0 & 0xFFFFFFFF)
+                        else:
+                            res = launch(chunk0 & 0xFFFFFFFF)
+                        metrics.inc("search.launches")
+                        inflight.append((*_enqueue_fetch(res), chunk0, vw, extra, seg_chunks,
+                                         chunks_each, pair))
+                        chunk0 += chunks_per_step
+                        if len(inflight) >= pipeline_depth:
+                            found, cancelled = drain_one()
+                            if found is not None or cancelled:
+                                return finish(found, cancelled)
+                    found, cancelled = drain_all()
+                    if found is not None or cancelled:
+                        return finish(found, cancelled)
+        return None
+    finally:
+        _RATE_METER.exit(metrics)
+
+
+def _serial_plan(factory: StepFactory) -> Callable[[int, bytes, int, int], Plan]:
+    def plan(vw: int, extra: bytes, target_chunks: int, k: int) -> Plan:
+        step, chunks_per_step = factory(vw, extra, target_chunks, k)
+        return step, chunks_per_step, chunks_per_step, False
+
+    return plan
 
 
 def search(
@@ -253,7 +478,10 @@ def search(
     Returns None if cancelled or ``max_hashes`` is exhausted.
     ``step_factory`` overrides the launch builder (the CUDA backend plugs
     its kernel in here); the default is the plain step on ``device``.
-    ``launch_candidates`` defaults to the model's cost-scaled budget.
+    ``launch_candidates`` defaults to the model's cost-scaled budget.  The
+    drain blocks on the head's event, the one place the host waits on the
+    device (``search.blocking_syncs``, ``search.launch_s`` and a
+    ``search.launch`` span).
     """
     model = model or get_hash_model("md5")
     if launch_candidates is None:
@@ -265,105 +493,103 @@ def search(
     factory = step_factory or default_step_factory(
         nonce, difficulty, tb_lo, tbc, model, device
     )
-    target_chunks = max(1, effective_batch(batch_size) // tbc)
 
-    hashes = 0
-    # FIFO of in-flight launches: (host_result, event, chunk0, vw, extra, n_cand)
-    inflight: deque = deque()
-
-    def drain_one() -> Optional[SearchResult]:
-        nonlocal hashes
+    def block(event, n_cand: int) -> bool:
         WATCHDOG.beat()  # about to block on a launch's result
-        host, event, chunk0, vw, extra, n_cand = inflight.popleft()
-        hashes += n_cand
-        metrics.inc("search.hashes", n_cand)
-        # the one place the host waits on the device
         metrics.inc("search.blocking_syncs")
         fetch_ts = time.time()
         t0 = time.monotonic()
         if event is not None:
             event.synchronize()
-        f = u32_value(host)
         fetch_s = time.monotonic() - t0
         metrics.observe("search.launch_s", fetch_s)
         if SPANS.enabled:
             SPANS.record("search.launch", fetch_ts, fetch_s, n_cand=n_cand)
-        _RATE_METER.note(n_cand, metrics)
-        if f == SENTINEL:
-            return None
-        secret, tb = assemble_secret(chunk0, f, vw, extra, tb_lo, tbc)
-        if not puzzle.check_secret(nonce, secret, difficulty, model.name):
-            raise RuntimeError(
-                f"kernel returned non-solving candidate tb={tb} "
-                f"chunk={secret[1:].hex()} (kernel/oracle divergence)"
-            )
-        return SearchResult(secret=secret, thread_byte=tb, chunk=secret[1:],
-                            hashes_tried=hashes)
+        return False
 
-    def drain_all() -> Optional[SearchResult]:
-        while inflight:
-            found = drain_one()
-            if found is not None:
-                return found
-        return None
+    return _drive(nonce, difficulty, model, tb_lo, tbc, batch_size, pipeline_depth, cancel_check,
+                  max_hashes, max_width, launch_candidates, metrics, _serial_plan(factory),
+                  block)
 
-    def flush_inflight_counts() -> None:
-        """Count launches still in flight at an early exit without waiting
-        for them: search.hashes equals dispatched work on every exit path,
-        while hashes_tried stays the drained count."""
-        nonlocal hashes
-        while inflight:
-            *_, n = inflight.popleft()
-            hashes += n
-            metrics.inc("search.hashes", n)
 
-    _RATE_METER.enter()
+def persistent_search(
+    nonce: bytes,
+    difficulty: int,
+    thread_bytes: Sequence[int],
+    *,
+    model: Optional[HashModel] = None,
+    batch_size: int = DEFAULT_BATCH,
+    pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
+    cancel_check: Optional[Callable[[], bool]] = None,
+    max_hashes: Optional[int] = None,
+    max_width: int = 8,
+    step_factory: Optional[StepFactory] = None,
+    persistent_factory: Optional[PersistentFactory] = None,
+    step_builder: Optional[Callable] = None,
+    launch_candidates: Optional[int] = None,
+    poll_interval_s: float = DEFAULT_POLL_INTERVAL_S,
+    device: Device = "cuda",
+    metrics: Metrics = REGISTRY,
+) -> Optional[SearchResult]:
+    """The persistent loop: ``search``'s contract and first hit, in the
+    reference's control flow (``distpow_tpu/parallel/search.py
+    persistent_search``).
+
+    * The width-0 probe goes through ``step_factory`` (the serial step);
+      every other dispatch through ``step_builder(vw, extra, target_chunks,
+      k)`` (the launch-lane hook, ``sched/lanes.py
+      persistent_step_builder``) where it returns a plan, else through
+      ``persistent_factory`` (the plain persistent step on ``device`` by
+      default; the CUDA backends plug in the kernels' persistent form).
+    * The drain polls the head's event (``torch.cuda.Event.query`` behind the
+      pinned copy), sleeping up to ``poll_interval_s`` between polls, and
+      never blocks; ``search.poll_s`` and a ``search.poll`` span record a
+      wait, ``search.persistent_steps`` the segments each dispatch ran.
+      No watchdog beat while waiting: a hung device leaves the event
+      unready, and that staleness is what the watchdog must see.
+    * A cancel seen while polling or between dispatches returns at once;
+      every exit sets the search's ``StopFlag``.
+    """
+    model = model or get_hash_model("md5")
+    if launch_candidates is None:
+        launch_candidates = scaled_launch_candidates(model.cost_ops)
+    nonce = bytes(nonce)
+    tb_lo, tbc = contiguous_bounds(thread_bytes)
+    if difficulty > model.max_difficulty:
+        return _unsatisfiable_wait(model, difficulty, cancel_check, max_hashes)
+    serial = _serial_plan(step_factory or default_step_factory(nonce, difficulty, tb_lo, tbc,
+                                                               model, device))
+    persistent = persistent_factory or default_persistent_factory(
+        nonce, difficulty, tb_lo, tbc, model, device)
+    stop = StopFlag()
+
+    def plan(vw: int, extra: bytes, target_chunks: int, k: int) -> Plan:
+        if vw == 0:
+            return serial(0, extra, target_chunks, 1)
+        built = step_builder(vw, extra, target_chunks, k) if step_builder is not None else None
+        step, chunks_each, chunks_per_step = \
+            built if built is not None else persistent(vw, extra, target_chunks, k)
+        return (lambda chunk0: step(chunk0, stop)), chunks_each, chunks_per_step, True
+
+    def poll(event, n_cand: int) -> bool:
+        poll_ts, poll_t0 = time.time(), time.monotonic()
+        waited, delay = False, poll_interval_s * POLL_FIRST_FRACTION
+        while event is not None and not event.query():
+            waited = True
+            if cancel_check is not None and cancel_check():
+                return True
+            time.sleep(delay)
+            delay = min(poll_interval_s, 2 * delay)
+        if waited:
+            poll_s = time.monotonic() - poll_t0
+            metrics.observe("search.poll_s", poll_s)
+            if SPANS.enabled:
+                SPANS.record("search.poll", poll_ts, poll_s)
+        return False
+
     try:
-        with WATCHDOG.active():
-            for width in range(0, max_width + 1):
-                for vw, lo, hi, extra in width_segments(width):
-                    WATCHDOG.beat()
-                    k = launch_steps_for(vw, target_chunks, tbc, launch_candidates)
-                    step, chunks_per_step = factory(vw, extra, target_chunks, k)
-                    chunk0 = lo
-                    while chunk0 < hi:
-                        # a launch may overshoot the segment end; overshot
-                        # chunk ints alias already-covered candidates and
-                        # are not counted
-                        n_cand = min(chunks_per_step, hi - chunk0) * tbc
-                        WATCHDOG.beat()
-                        if cancel_check is not None and cancel_check():
-                            flush_inflight_counts()
-                            metrics.inc("search.cancelled")
-                            return None
-                        if max_hashes is not None and hashes >= max_hashes:
-                            found = drain_all()
-                            flush_inflight_counts()
-                            if found is not None:
-                                metrics.inc("search.found")
-                            return found
-                        if chunk0 == lo:
-                            # a segment's first launch may build the kernels
-                            # (nvcc at the first load of a library): one
-                            # uninterruptible gap, under the compile grace
-                            with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
-                                res = step(chunk0 & 0xFFFFFFFF)
-                        else:
-                            res = step(chunk0 & 0xFFFFFFFF)
-                        metrics.inc("search.launches")
-                        inflight.append((*_enqueue_fetch(res), chunk0, vw, extra, n_cand))
-                        chunk0 += chunks_per_step
-                        if len(inflight) >= pipeline_depth:
-                            found = drain_one()
-                            if found is not None:
-                                flush_inflight_counts()
-                                metrics.inc("search.found")
-                                return found
-                    found = drain_all()
-                    if found is not None:
-                        flush_inflight_counts()
-                        metrics.inc("search.found")
-                        return found
-        return None
+        return _drive(nonce, difficulty, model, tb_lo, tbc, batch_size, pipeline_depth,
+                      cancel_check, max_hashes, max_width, launch_candidates, metrics, plan,
+                      poll)
     finally:
-        _RATE_METER.exit(metrics)
+        stop.set()

@@ -255,13 +255,17 @@ class BatchingScheduler:
 
     def _solo_backend(self, model):
         """The port backend that serves ``model``'s solo searches: the
-        kernel (``cuda``), or the plain step where the lane is ``torch``."""
+        kernel (``cuda``), with the scheduler's lane as its persistent
+        loop's override (the reference's ``persistent_step_builder(...,
+        override=self.lane)``), or the plain step where the lane is
+        ``torch``."""
         backend = self._solo_backends.get(model.name)
         if backend is None:
-            cls = TorchBackend if self.planner.default_lane == "torch" else CudaBackend
-            backend = self._solo_backends[model.name] = cls(
-                hash_model=model.name, batch_size=self.batch, device=self.device,
-                metrics=self.metrics)
+            kwargs = dict(hash_model=model.name, batch_size=self.batch, device=self.device,
+                          metrics=self.metrics)
+            backend = self._solo_backends[model.name] = (
+                TorchBackend(**kwargs) if self.planner.default_lane == "torch"
+                else CudaBackend(lane=self.lane, **kwargs))
         return backend
 
     def _solo(self, nonce: bytes, difficulty: int, thread_bytes,
@@ -270,10 +274,11 @@ class BatchingScheduler:
         """Route one search outside the packed step.
 
         Default-model shapes go to the wrapped fallback backend (it was built
-        for that model).  Off-default models run the port's serial search
-        with the requested model (``_solo_backend``), except the models the
-        reference never admits, which are refused as the reference refuses
-        them."""
+        for that model).  Off-default models run the persistent loop
+        (``persistent_search``, the backend's default ``loop``) with the
+        requested model (``_solo_backend``), as the reference's do, except
+        the models the reference never admits, which are refused as the
+        reference refuses them."""
         if hash_model is None or hash_model == self.model.name:
             if self.fallback is None:
                 raise ValueError(

@@ -27,6 +27,12 @@ on ``xla``, here the error raises: the engine's loop-death path finishes
 the slots with it (``sched.loop_failures``), so no failure hides the kernel
 behind the plain step.  The engine counts ``sched.lane_launches.<lane>``
 per group served.
+
+``persistent_step_builder`` is the lane plan of one solo search in the
+persistent loop (the reference's, ``distpow_tpu/sched/lanes.py:354``): the
+mesh's persistent step where the lane caps see more than one GPU and the
+caller names no card, else the single-device step.  As everywhere in the
+port, a failure raises instead of demoting the request.
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ from ..models.registry import get_hash_model
 from ..ops.hash_cuda import hash_group_search, kernel_layout, kernel_name
 from ..ops.operands import Device, GroupOperands
 from ..ops.search_step import _check_launch
+from ..models.registry import HashModel
 from ..parallel.mesh_search import (Mesh, explicit_device, gpu_devices, make_mesh,
-                                    mesh_group_search)
+                                    mesh_group_search, mesh_persistent_factory)
 
 # the names a caller may give (WorkerConfig.SchedLane), the reference's included
 LANE_NAMES = {"auto": "auto", "cuda": "cuda", "pallas": "cuda", "mesh": "mesh",
@@ -179,3 +186,25 @@ class LanePlanner:
             return mesh_group_search(self.mesh, model, ops, tb_loc, chunk_locs,
                                      batch * mesh_span())
         return hash_group_search(model, ops, tb_loc, chunk_locs, batch, device=self.device)
+
+
+def persistent_step_builder(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
+                            model: HashModel, caps: Optional[LaneCaps] = None,
+                            override: str = "auto", device: Device = "cuda",
+                            mesh: Optional[Mesh] = None, max_launch: Optional[int] = None):
+    """The ``step_builder`` hook of ``parallel.search.persistent_search`` for
+    one solo search: ``None`` where the single-device persistent step is the
+    plan (one GPU, a card named by ``device``, or an ``override`` other than
+    ``auto`` and ``mesh``), else the mesh's persistent factory
+    (``mesh_persistent_factory``) over ``mesh`` (default: every GPU the caps
+    count, from ``device`` on).  Nothing is probed and nothing demotes: a
+    bind or launch failure raises in the search."""
+    dev = torch.device(device)
+    caps = caps or detect_caps(dev, mesh)
+    if lane_name(override) not in ("auto", "mesh") or caps.n_devices <= 1 \
+            or dev.index is not None:
+        return None
+    if mesh is None:
+        mesh = make_mesh(gpu_devices(dev, caps.n_devices))
+    return mesh_persistent_factory(bytes(nonce), difficulty, tb_lo, tbc, model, mesh,
+                                   max_launch)

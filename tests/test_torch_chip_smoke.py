@@ -360,3 +360,41 @@ def test_compare_builds_times_the_main_path_key_on_either_side():
                                   "other": 1}
     assert timed_row(new, cs)["key"] == "mw2_nb1_pow2_vw1"
     assert timed_row(new, cs)["registers"] == 70
+
+
+PERSISTENT_PTXAS = """
+ptxas info    : Compiling entry function '_ZN7distpow22hash_persistent_kernelINS_3Md5ILi1EEELi2ELi1ELb1EEEvPKjS4_S4_NS_6LayoutEjPjNS_7PersistE' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow22hash_persistent_kernelINS_3Md5ILi1EEELi2ELi1ELb1EEEvPKjS4_S4_NS_6LayoutEjPjNS_7PersistE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 112 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow31resident_hash_persistent_kernelINS_7Sha256dELi8ELi1ELb0EEEvPKjS3_S3_NS_6LayoutEjPjNS_7PersistE' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow31resident_hash_persistent_kernelINS_7Sha256dELi8ELi1ELb0EEEvPKjS3_S3_NS_6LayoutEjPjNS_7PersistE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 96 bytes smem
+ptxas info    : Compiling entry function '_ZN7distpow27hash_mesh_persistent_kernelINS_6Sha512ELi2ELi2ELb1EEEvPKjS3_S3_NS_6LayoutENS_10MeshOriginEjPjNS_7PersistE' for 'sm_90a'
+ptxas info    : Function properties for _ZN7distpow27hash_mesh_persistent_kernelINS_6Sha512ELi2ELi2ELb1EEEvPKjS3_S3_NS_6LayoutENS_10MeshOriginEjPjNS_7PersistE
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 74 registers, used 1 barriers, 272 bytes smem
+"""
+
+
+def test_persistent_kernel_parsers_keep_apart_from_the_serial_ones():
+    """The persistent forms of the solo and mesh kernels carry the same keys
+    under their own names: PERSISTENT_KEY and MESH_PERSISTENT_KEY read them
+    (md5's var_word and the resident form too), and the serial parsers,
+    which count the serial kernels, skip them."""
+    cs = _load()
+    assert cs.parse_ptxas(PERSISTENT_PTXAS, cs.PERSISTENT_KEY) == {
+        (2, 1, True, 1): {"registers": 80, "spill_bytes": 0},
+        (8, 1, False): {"registers": 48, "spill_bytes": 0}}
+    assert cs.parse_ptxas(PERSISTENT_PTXAS, cs.MESH_PERSISTENT_KEY) == {
+        (2, 2, True): {"registers": 74, "spill_bytes": 16}}
+    for key in (cs.KERNEL_KEY, cs.MESH_KEY):
+        assert cs.parse_ptxas(PERSISTENT_PTXAS, key) == {}
+    for key in (cs.PERSISTENT_KEY, cs.MESH_PERSISTENT_KEY):
+        assert cs.parse_ptxas(PTXAS + MESH_PTXAS, key) == {}
+    sass = SASS.replace("18hash_search_kernelINS_7Sha256dELi8ELi1ELb1EEEv",
+                        "22hash_persistent_kernelINS_7Sha256dELi8ELi1ELb1EEEv")
+    assert cs.spec_sass_loops(sass, key=cs.PERSISTENT_KEY) == {
+        (8, 1, True): {"IADD3": 1, "LOP3.LUT": 1, "BRA": 1}}
+    assert cs.spec_sass_loops(sass) == {} and cs.spec_sass_loops(sass, key=cs.MESH_KEY) == {}

@@ -141,9 +141,12 @@ def test_backends_take_the_reference_workers_keywords(cls):
         cls(device="cpu", interpret=True)
     with pytest.raises(ValueError, match="unknown search loop"):
         cls(device="cpu", loop="spin")
-    # the persistent loop is served by the serial driver
-    be = cls(device="cpu", batch_size=1 << 10, max_launch=1 << 12, loop="persistent")
-    assert be.search(NONCE, 2, FULL) is not None
+    # the persistent loop is the persistent driver: it counts the segments
+    # it ran and never blocks on a result
+    m = Metrics()
+    be = cls(device="cpu", batch_size=1 << 10, max_launch=1 << 12, loop="persistent", metrics=m)
+    assert be.search(NONCE, DIFFICULTY, FULL) is not None
+    assert m.get("search.persistent_steps") > 0 and m.get("search.blocking_syncs") == 0
 
 
 def test_get_backend_maps_the_reference_names():
@@ -174,22 +177,27 @@ def test_warmup_launches_each_layout_once(monkeypatch, cls):
     monkeypatch.setattr(_build, "load_library", no_build)
     monkeypatch.setattr(_build, "build", no_build)
     seen = []
+    # the serial and the persistent launch (the backend's default loop, which
+    # warms every width but 0 through its persistent step)
     if cls is CudaBackend:
-        real = cuda_backend.hash_search
+        for name in ("hash_search", "hash_persistent_search"):
+            real = getattr(cuda_backend, name)
 
-        def counted(model, ops, tb_loc, chunk_locs, *a, **k):
-            seen.append((ops.n_blocks, tb_loc, chunk_locs, ops.tb_lo, ops.tb_count))
-            return real(model, ops, tb_loc, chunk_locs, *a, **k)
+            def counted(model, ops, tb_loc, chunk_locs, *a, _real=real, **k):
+                seen.append((ops.n_blocks, tb_loc, chunk_locs, ops.tb_lo, ops.tb_count))
+                return _real(model, ops, tb_loc, chunk_locs, *a, **k)
 
-        monkeypatch.setattr(cuda_backend, "hash_search", counted)
+            monkeypatch.setattr(cuda_backend, name, counted)
     else:
-        real = search_step.plain_search
+        for name in ("plain_search", "persistent_search_step"):
+            real = getattr(search_step, name)
 
-        def counted(ops, tb_loc, chunk_locs, *a, **k):
-            seen.append((ops.n_blocks, tb_loc, chunk_locs, ops.tb_lo, ops.tb_count))
-            return real(ops, tb_loc, chunk_locs, *a, **k)
+            # (a persistent step launched with a set flag runs no plain_search)
+            def counted(ops, tb_loc, chunk_locs, *a, _real=real, **k):
+                seen.append((ops.n_blocks, tb_loc, chunk_locs, ops.tb_lo, ops.tb_count))
+                return _real(ops, tb_loc, chunk_locs, *a, **k)
 
-        monkeypatch.setattr(search_step, "plain_search", counted)
+            monkeypatch.setattr(search_step, name, counted)
         real_w0 = search_step.plain_search_w0
 
         def counted_w0(ops, tb_loc, chunk_locs=(), **k):
@@ -198,6 +206,7 @@ def test_warmup_launches_each_layout_once(monkeypatch, cls):
 
         monkeypatch.setattr(search_step, "plain_search_w0", counted_w0)
     be = cls(hash_model="sha256", batch_size=1 << 10, max_launch=1 << 12, device="cpu")
+    assert be.loop == "persistent"
     be.warmup([4, 60], [0, 1, 2, 3])
     assert len(seen) == 8 and len(set(seen)) == 8
     assert {s[3:] for s in seen} == {(0, 256)}

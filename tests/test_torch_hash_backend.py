@@ -116,10 +116,12 @@ def test_kernels_cover_the_registry_and_nothing_else():
     for name in MODELS + ("md5",):
         assert kernel_name(get_hash_model(name)) == f"{name}_search"
     assert len(KERNELS) == 9
-    # one launch counter per kernel, its group form (the scheduler's) and its
-    # mesh form (one shard's launch)
+    # one launch counter per kernel, its group form (the scheduler's), its
+    # mesh form (one shard's launch) and the persistent forms of the solo
+    # and mesh launches
     assert set(LAUNCHES) == {n for k in KERNELS.values()
-                             for n in (k, f"{k}_group", f"{k}_mesh")}
+                             for n in (k, f"{k}_group", f"{k}_mesh", f"{k}_persistent",
+                                       f"{k}_mesh_persistent")}
     with pytest.raises(ValueError, match="no CUDA kernel"):
         kernel_name(dataclasses.replace(get_hash_model("sha512"), name="whirlpool"))
     # mask words: 1-4 run as they are, wider counts on the full digest

@@ -18,7 +18,10 @@ the full digest and a power-of-two run) for all nine hashes, md5's over
 ``md5.cuh``'s ``Md5<VW>`` at the launch's var_word, against the port's
 plain group step; and one shard of the mesh kernel (the solo search over the shard's slice, its first hit remapped to
 the partition's flat index by ``mesh_global_index``) for all nine, the
-least across a mesh's shards held to the port's plain mesh step.
+least across a mesh's shards held to the port's plain mesh step.  And the
+persistent form's per-thread exit rule (``persistent_step``) over a
+simulated grid, solo and on a mesh shard, with the launch's cell pre-set:
+the least index and the segment word are the serial kernel's.
 """
 
 import ctypes
@@ -783,3 +786,190 @@ def test_mesh_shard_twin_matches_plain_mesh_step(twins, md5_group_twin, name, n_
         assert got == want, d
         found.append(want)
     assert found[-1] == SENTINEL and found[0] != SENTINEL
+
+
+# The persistent form's per-thread exit rule (hash_search.cuh
+# persistent_step) over a simulated grid: the threads of a grid-stride loop
+# advance one candidate at a time in a seeded order, check the launch's
+# cell and the search's flag where persistent_due says (before their first
+# candidate, then once each period_mask + 1 indices, the mask the launcher
+# sets from the segment's flat indices and the grid's threads), and publish
+# a hit into the cell at once, as thread_first_hit does; the block's min of
+# the threads' results follows.
+PERSISTENT_SOURCE = r"""
+#include <vector>
+#include "hash_search.cuh"
+using namespace distpow;
+
+template <class Report>
+static void grid(const uint8_t* hit, uint32_t n, uint32_t n_threads, uint32_t batch,
+                 uint32_t seg, const uint32_t* order, uint32_t n_order, uint32_t stop,
+                 uint32_t* out, uint32_t* tested, Report report) {
+  const uint32_t period_mask = persistent_period_mask(batch, n_threads);
+  std::vector<uint32_t> f(n_threads), best(n_threads, SENTINEL);
+  std::vector<char> done(n_threads, 0);
+  for (uint32_t t = 0; t < n_threads; ++t) f[t] = t;
+  *tested = 0;
+  uint32_t left = n_threads;
+  auto advance = [&](uint32_t t) {
+    if (done[t]) return;
+    if (f[t] >= n) { done[t] = 1; --left; return; }
+    const uint32_t g = report(f[t]);
+    if (persistent_due(f[t], period_mask, n_threads)) {
+      const int step = persistent_step(out[0], stop, g);
+      if (step == kStopped && g / seg < out[1]) out[1] = g / seg;
+      if (step != kTest) { done[t] = 1; --left; return; }
+    }
+    ++*tested;
+    if (hit[f[t]]) {
+      if (g < out[0]) out[0] = g;
+      if (g / seg + 1 < out[1]) out[1] = g / seg + 1;
+      best[t] = g;
+      done[t] = 1;
+      --left;
+      return;
+    }
+    f[t] += n_threads;
+  };
+  for (uint32_t i = 0; i < n_order && left; ++i) advance(order[i]);
+  while (left)
+    for (uint32_t t = 0; t < n_threads; ++t) advance(t);
+  for (uint32_t t = 0; t < n_threads; ++t)
+    if (best[t] < out[0]) out[0] = best[t];  // block_min_to
+}
+
+extern "C" uint32_t host_period_mask(uint32_t batch, uint32_t threads) {
+  return persistent_period_mask(batch, threads);
+}
+
+extern "C" void host_persistent_grid(const uint8_t* hit, uint32_t n, uint32_t n_threads,
+                                     uint32_t batch, uint32_t seg, const uint32_t* order,
+                                     uint32_t n_order, uint32_t stop, uint32_t* out,
+                                     uint32_t* tested) {
+  grid(hit, n, n_threads, batch, seg, order, n_order, stop, out, tested,
+       [](uint32_t f) { return f; });
+}
+
+// one shard of a mesh launch: the shard's run tb_lo .. tb_lo + tbc - 1 from
+// chunk0, reporting the partition's index (origin_index)
+extern "C" void host_persistent_shard_grid(const uint8_t* hit, uint32_t n, uint32_t n_threads,
+                                           uint32_t batch, uint32_t seg,
+                                           const uint32_t* order,
+                                           uint32_t n_order, uint32_t stop, uint32_t* out,
+                                           uint32_t* tested, uint32_t chunk0, uint32_t tb_lo,
+                                           uint32_t tbc, uint32_t o_chunk0, uint32_t o_tb_lo,
+                                           uint32_t o_tbc) {
+  const Layout L{chunk0, tb_lo, tbc, -1, 0, 0, 0};
+  const MeshOrigin o{o_chunk0, o_tb_lo, o_tbc};
+  grid(hit, n, n_threads, batch, seg, order, n_order, stop, out, tested,
+       [&](uint32_t f) {
+    uint32_t tb, chunk;
+    decode<false>(L, f, tb, chunk);
+    return origin_index(o, tb, chunk);
+  });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def persistent_twin(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host twins cannot be built")
+    d = tmp_path_factory.mktemp("persistent_twin")
+    src, lib = d / "persistent.cpp", d / "libpersistent.so"
+    src.write_text(PERSISTENT_SOURCE)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-o",
+                           str(lib), str(src)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    dll = ctypes.CDLL(str(lib))
+    u32, u8p = ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint8)
+    grid_args = [u8p, u32, u32, u32, u32, U32P, u32, u32, U32P, U32P]
+    dll.host_persistent_grid.argtypes = grid_args
+    dll.host_persistent_grid.restype = None
+    dll.host_persistent_shard_grid.argtypes = grid_args + [u32] * 6
+    dll.host_persistent_shard_grid.restype = None
+    dll.host_period_mask.argtypes = [u32, u32]
+    dll.host_period_mask.restype = u32
+    return dll
+
+
+def _run_grid(twin, hit, n_threads, seg, cell, segments, stop, rng, shard=(), batch=None):
+    hits = np.ascontiguousarray(hit.astype(np.uint8))
+    order, order_p = _arr(rng.integers(0, n_threads, size=20 * len(hit)))
+    out, out_p = _arr([cell, segments])
+    tested, tested_p = _arr([0])
+    fn = twin.host_persistent_shard_grid if shard else twin.host_persistent_grid
+    # batch: the segment in the launch's flat indices (a solo launch's seg)
+    fn(hits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(hit), n_threads,
+       seg if batch is None else batch, seg, order_p, order.size, stop, out_p, tested_p, *shard)
+    return out.tolist(), int(tested[0])
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_persistent_exit_rule_keeps_the_least_index(persistent_twin, seed):
+    """With the cell pre-set to SENTINEL or to a hit above the least (one a
+    block published already), under random thread orders, grids, segments
+    and hits sparse or dense: the launch's words are the least hit and its
+    segment + 1, as the serial kernel's least index, and the threads test
+    no more candidates than the serial kernel's."""
+    rng = np.random.default_rng(seed)
+    n, seg = int(rng.integers(500, 4000)), int(rng.integers(16, 300))
+    segments = -(-n // seg)
+    n = segments * seg
+    hit = rng.random(n) < float(rng.choice([0.0005, 0.003, 0.05]))
+    hit[int(rng.integers(n // 2, n))] = True  # at least one hit
+    least = int(np.flatnonzero(hit)[0])
+    later = np.flatnonzero(hit)[-1]
+    n_threads = int(rng.choice([7, 32, 96, 256]))
+    for cell in (SENTINEL, int(later)):
+        words, tested = _run_grid(persistent_twin, hit, n_threads, seg, cell, segments, 0, rng)
+        assert words == [least, least // seg + 1], (cell, n_threads, seg, n)
+        # the serial kernel's threads test every index up to their own hit
+        serial = sum(min(len(range(t, n, n_threads)),
+                         next((i for i, f in enumerate(range(t, n, n_threads)) if hit[f]),
+                              n) + 1) for t in range(n_threads))
+        assert tested <= serial
+    # no hit: every segment runs
+    words, _ = _run_grid(persistent_twin, np.zeros(n, bool), n_threads, seg, SENTINEL,
+                         segments, 0, rng)
+    assert words == [SENTINEL, segments]
+    # a flag set before the launch: nothing tested, (SENTINEL, 0)
+    words, tested = _run_grid(persistent_twin, hit, n_threads, seg, SENTINEL, segments, 1, rng)
+    assert words == [SENTINEL, 0] and tested == 0
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_persistent_exit_rule_on_a_mesh_shard(persistent_twin, seed):
+    """One shard of a mesh launch (a run of 3 thread bytes inside the
+    partition's run of 12, its cursor two chunks on), the cell in partition
+    indices: the shard's least hit as the partition's index, whatever the
+    cell held above it."""
+    rng = np.random.default_rng(100 + seed)
+    tb_lo, tbc, chunk0 = 6, 3, 1000 + 2
+    origin = (1000, 0, 12)
+    n = 3 * int(rng.integers(100, 400))
+    hit = rng.random(n) < 0.01
+    hit[n - 1] = True
+    g = [((chunk0 + f // tbc) - origin[0]) * origin[2] + tb_lo + f % tbc - origin[1]
+         for f in range(n)]
+    least = g[int(np.flatnonzero(hit)[0])]
+    seg = 12 * 8  # the partition's segment: 8 chunks over the whole run
+    segments = -(-g[-1] // seg) + 1
+    for cell in (SENTINEL, g[-1]):
+        words, _ = _run_grid(persistent_twin, hit, 32, seg, cell, segments, 0, rng,
+                             shard=(chunk0, tb_lo, tbc, *origin), batch=8 * tbc)
+        assert words == [least, least // seg + 1]
+
+
+@pytest.mark.parametrize("threads", [1, 7, 256, 96 * 256, 132 * 8 * 256, 132 * 16 * 256])
+def test_persistent_period_covers_a_segment_and_the_grid(persistent_twin, threads):
+    """The launcher's check period (hash_search.cuh persistent_period_mask,
+    set from the grid it launches): the least power of two at or above
+    both the segment's flat indices and the grid's threads, so that a
+    thread checks at least once a segment of its own loop and at its first
+    index."""
+    for batch in (1, 2, 3, 255, 256, 4096, (1 << 20) - 1, 1 << 20, 3 << 19, 1 << 31):
+        period = persistent_twin.host_period_mask(batch, threads) + 1
+        assert period & (period - 1) == 0
+        assert period == 1 << max(batch - 1, threads - 1).bit_length(), (batch, threads)

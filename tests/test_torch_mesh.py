@@ -247,7 +247,8 @@ def test_mesh_backend_search_and_warmup(monkeypatch, n_dev):
     """The backend's secret is the oracle's.  ``warmup`` builds nothing on
     the CPU and launches each layout once on every shard, at the full run
     (4 shards: the thread-byte split; 3: the chunk split) and at n_dev // 2
-    thread bytes (the chunk split); width 0 runs on the first shard."""
+    thread bytes (the chunk split); width 0 runs on the first shard, the
+    other widths in the persistent form (the backend's default loop)."""
     def no_build(*a, **k):
         raise AssertionError("warmup on the CPU built a library")
 
@@ -265,6 +266,16 @@ def test_mesh_backend_search_and_warmup(monkeypatch, n_dev):
         return real(model, ops, tb_loc, chunk_locs, chunk0, batch, steps, origin, **k)
 
     monkeypatch.setattr(mesh_search, "hash_mesh_search", counted)
+    real_persistent = mesh_search.hash_mesh_persistent_search
+
+    def counted_persistent(model, ops, tb_loc, chunk_locs, chunk0, batch, steps, origin, *a,
+                           **k):
+        seen.append((origin.tbc, len(chunk_locs), ops.tb_lo, ops.tb_count, str(ops.device)))
+        return real_persistent(model, ops, tb_loc, chunk_locs, chunk0, batch, steps, origin,
+                               *a, **k)
+
+    monkeypatch.setattr(mesh_search, "hash_mesh_persistent_search", counted_persistent)
+    assert be.loop == "persistent"
     be.warmup([4, 60], [0, 1, 2])
     split = 256 % n_dev == 0
     want = []
