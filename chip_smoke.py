@@ -75,7 +75,16 @@ the CUDA backend's, and times md5 on the host's cores beside the card.
 card, the demo client, then the client again and four requests one at a
 time): the secrets checked with hashlib, ``trace_check`` on the logs, the
 workers' ``Stats`` (the card, the kernels' launches), and the card's CUDA
-contexts (the workers' and no other process's).  The
+contexts (the workers' and no other process's); after its sequential
+requests the observability and load CLIs run against the stack, each a
+fresh process that must not map libcuda (``observe_stack``: ``stats`` of
+each node and the cluster's OpenMetrics, parsed; ``slo`` green;
+``forensics`` of the slowest trace, with spans of the coordinator and a
+worker; ``soak --addr`` the coordinator, green).  ``load`` boots the load
+harness's ``InProcCluster`` of four workers on the card in this process,
+runs ``run_load_slo`` and a compressed ``run_soak`` on it (every secret
+checked with hashlib, no errors, both verdicts green, md5's solo and
+persistent kernels launched), then ``demo``'s requests.  The
 persistent loop (the reference worker's default ``SearchLoop``):
 ``persistent_parity`` holds each model's persistent kernel, solo and on 4
 logical shards, against the plain persistent step on both of its words
@@ -318,6 +327,177 @@ finally:
     print({DEMO_CLIENT_DONE!r}, flush=True)
     sys.stdin.read()
 """
+
+# demo's observability leg: after the sequential requests, the device-less
+# CLIs of the observability and load planes run against the demo's
+# coordinator and workers, each a fresh process running its CLI's main in
+# DEMO_CLI_SHIM (the module and its arguments), which prints DEMO_CLI_DONE
+# with the exit code and stays up until its standard input closes, so that
+# its maps are read while it lives.  The soak at its stock mix and shape,
+# DEMO_SOAK_MINUTES of wall clock, attached to the coordinator.
+DEMO_CLI_DONE = "demo cli done"
+DEMO_CLI_SHIM = f"""
+import importlib, sys
+rc = importlib.import_module(sys.argv[1]).main(sys.argv[2:])
+print({DEMO_CLI_DONE!r}, rc or 0, flush=True)
+sys.stdin.read()
+"""
+DEMO_SOAK_MINUTES = 0.25
+SLO_CONFIG = os.path.join(HERE, "config", "slo.json")
+# load: the harness's in-process cluster (four workers on the card in this
+# process, the harness's own config) under run_load_slo at LOAD_MIX, then a
+# compressed run_soak of LOAD_SOAK_MINUTES on the same cluster (the soak
+# CLI's stock shape, LOAD_MIX's keys and difficulties, its own seed)
+LOAD_WORKERS = 4
+LOAD_MIX = {"rate_hz": 10.0, "duration_s": 20.0, "n_keys": 64, "zipf_s": 1.1, "nonce_len": 4,
+            "difficulties": ((5, 0.5), (7, 0.5))}
+LOAD_SOAK_MINUTES, LOAD_SOAK_SEED = 0.25, 1805
+
+
+def maps_libcuda(pid):
+    """Whether process ``pid`` has the CUDA driver library mapped (None when
+    its maps cannot be read)."""
+    try:
+        with open(f"/proc/{pid}/maps") as fh:
+            return "libcuda.so" in fh.read()
+    except OSError:
+        return None
+
+
+def run_cli(module, args, cwd, env, log_path, timeout):
+    """``module``'s main with ``args`` in a fresh process (DEMO_CLI_SHIM):
+    its exit code, its standard output before the done line, and whether it
+    mapped libcuda, read while it waits on its standard input."""
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", DEMO_CLI_SHIM, module, *args], cwd=cwd,
+                                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=log, text=True)
+    lines, done = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(DEMO_CLI_DONE):
+                done.set()
+        done.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        finished = done.wait(timeout)
+        mapped = maps_libcuda(proc.pid)
+        proc.stdin.close()
+        proc.wait(timeout=60)
+        reader.join(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if not finished or not lines or not lines[-1].startswith(DEMO_CLI_DONE):
+        with open(log_path) as fh:
+            raise AssertionError(f"{module} {args}: no done line (exit {proc.returncode}): "
+                                 f"{''.join(lines)[-2000:]} {fh.read()[-2000:]}")
+    return int(lines[-1].split()[-1]), "".join(lines[:-1]), mapped
+
+
+PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)'
+                         r'( # \{trace_id="\d+"\} \S+ \S+)?$')
+
+
+def check_prometheus(text, openmetrics=True):
+    """Parse a Prometheus (or, with ``openmetrics``, an OpenMetrics) text
+    exposition: every sample line well formed with a number, each histogram's
+    buckets cumulative and its ``+Inf`` bucket equal to its ``_count``, the
+    OpenMetrics form ending in ``# EOF``.  Returns the families by type."""
+    lines = text.rstrip("\n").split("\n")
+    if openmetrics and lines[-1] != "# EOF":
+        raise AssertionError(f"no # EOF: {lines[-3:]}")
+    types, samples = {}, {}
+    for line in lines:
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            types[name] = kind
+        elif line.startswith("#"):
+            continue
+        else:
+            m = PROM_SAMPLE.match(line)
+            if m is None:
+                raise AssertionError(f"malformed sample line {line!r}")
+            float(m[3])
+            samples.setdefault(m[1], []).append((m[2] or "", float(m[3])))
+    for name, kind in types.items():
+        if kind != "histogram":
+            continue
+        buckets = samples[f"{name}_bucket"]
+        counts = [v for _, v in buckets]
+        if counts != sorted(counts) or buckets[-1][0] != '{le="+Inf"}' or \
+                buckets[-1][1] != samples[f"{name}_count"][0][1]:
+            raise AssertionError(f"{name}: buckets {buckets}, count {samples[f'{name}_count']}")
+    return {k: sorted(n for n, t in types.items() if t == k) for k in set(types.values())}
+
+
+def observe_stack(coord_addr, worker_addrs, out_dir, env, device="cuda", launched=True,
+                  soak_minutes=DEMO_SOAK_MINUTES, timeout=DEMO_TIMEOUT_S):
+    """The observability and load CLIs against a running stack: ``cli.stats``
+    of each node (each worker's on ``device``, counting kernel launches where
+    ``launched``), ``cli.stats --cluster --prom --openmetrics`` over all of
+    them (parsed), ``cli.slo`` over all of them (exit 0), ``cli.forensics`` of
+    the slowest trace (spans of the coordinator and of a worker), and
+    ``cli.soak --addr`` the coordinator at its stock mix (exit 0).  None of
+    their processes may map libcuda."""
+    addrs = [coord_addr, *worker_addrs]
+    flags = [a for addr in addrs for a in ("--addr", addr)]
+    out, maps, walls = {}, {}, {}
+
+    def cli(name, module, *args, want_rc=0):
+        t0 = time.monotonic()
+        rc, text, maps[name] = run_cli(f"distpow_tpu_torch.cli.{module}", args, HERE, env,
+                                       os.path.join(out_dir, f"{name}.log"), timeout)
+        walls[name] = time.monotonic() - t0
+        if rc != want_rc:
+            raise AssertionError(f"{name} exited {rc}: {text[-3000:]}")
+        return text
+
+    stats = {name: json.loads(cli(f"stats_{name}", "stats", "--addr", addr))
+             for name, addr in (("coordinator", coord_addr),
+                                *((f"worker{i + 1}", a) for i, a in enumerate(worker_addrs)))}
+    if stats["coordinator"].get("role") != "coordinator":
+        raise AssertionError(f"coordinator stats: {stats['coordinator'].get('role')}")
+    for name, snap in stats.items():
+        if name == "coordinator":
+            continue
+        n = sum((snap.get("kernel_launches") or {}).values())
+        if not str(snap.get("device", "")).startswith(device) or (launched and n <= 0):
+            raise AssertionError(f"{name} stats: device {snap.get('device')}, kernel "
+                                 f"launches {snap.get('kernel_launches')}")
+    out["stats"] = {name: {"role": snap.get("role"), "device": snap.get("device"),
+                           "kernel_launches": snap.get("kernel_launches")}
+                    for name, snap in stats.items()}
+    prom = cli("stats_cluster_prom", "stats", "--cluster", *flags, "--prom", "--openmetrics")
+    families = check_prometheus(prom)
+    if "distpow_coord_mine_s_miss" not in families.get("histogram", []):
+        raise AssertionError(f"cluster exposition families: {families}")
+    out["prometheus"] = {"lines": prom.count("\n"),
+                         "families": {k: len(v) for k, v in families.items()}}
+    verdict = json.loads(cli("slo", "slo", "--config", SLO_CONFIG, *flags, "--json"))
+    out["slo"] = {"status": verdict["status"],
+                  "objectives": {f"{o['name']}[{o.get('model', '')}]": o["status"]
+                                 for o in verdict["objectives"]}}
+    timeline = json.loads(cli("forensics", "forensics", *flags, "--json"))
+    nodes = timeline.get("nodes") or []
+    if "coordinator" not in nodes or not any(n.startswith("worker") for n in nodes):
+        raise AssertionError(f"forensics: trace {timeline.get('trace_id')} spans of {nodes}")
+    out["forensics"] = {"trace_id": timeline["trace_id"], "nodes": nodes,
+                        "spans": len(timeline["spans"]), "wall_s": timeline.get("wall_s"),
+                        "slowest": (timeline.get("slowest") or {}).get("name")}
+    soak = cli("soak", "soak", "--config", SLO_CONFIG, "--addr", coord_addr,
+               "--minutes", str(soak_minutes))
+    out["soak"] = soak.strip().splitlines()
+    if any(maps[name] is not False for name in maps):
+        raise AssertionError(f"libcuda mapped: {maps}")
+    out["libcuda_mapped"], out["wall_s"] = maps, walls
+    return out
+
 
 # sched_cancel: run in a fresh process with a fresh build directory
 # (DISTPOW_TORCH_BUILD_DIR): CudaBackend.warmup builds and loads md5's
@@ -3277,7 +3457,11 @@ def main() -> int:
         checked with hashlib, ``trace_check`` runs on the two logs, each
         worker's ``Stats`` must name the card and one must count the
         kernels' launches, and ``nvidia-smi`` must list the workers and
-        none of the other processes."""
+        none of the other processes.  After the sequential requests the
+        observability and load CLIs run against the stack
+        (``observe_stack``: stats, the cluster's OpenMetrics, the SLO gate,
+        forensics, the soak attached to the coordinator), none of them
+        mapping libcuda."""
         from distpow_tpu_torch.runtime.rpc import RPCClient
 
         demo_dir = os.path.join(OUT_DIR, "demo")
@@ -3363,14 +3547,6 @@ def main() -> int:
             return [tuple(s.strip() for s in line.split(",")) for line in out.splitlines()
                     if line.strip()]
 
-        def maps_cuda(pid):
-            """Whether process ``pid`` has the CUDA driver library mapped."""
-            try:
-                with open(f"/proc/{pid}/maps") as fh:
-                    return "libcuda.so" in fh.read()
-            except OSError:
-                return None
-
         try:
             # the contexts on the card before each step: this process's own,
             # then as many again with the device-less processes up, then one
@@ -3433,7 +3609,7 @@ def main() -> int:
                             raise
                 if sample is not None:
                     sample.append(device_apps())
-                mapped = maps_cuda(client.proc.pid)
+                mapped = maps_libcuda(client.proc.pid)
                 client.proc.stdin.close()
                 client.reader.join(DEMO_TIMEOUT_S)
                 rc = client.proc.wait(timeout=DEMO_TIMEOUT_S)
@@ -3519,11 +3695,16 @@ def main() -> int:
                                    "boot_to_warmup_done_s": w.marks["warmup done"]})
             if not launched:
                 raise AssertionError(f"no worker ran the persistent kernel: {per_worker}")
+            # the observability and load planes' CLIs against the stack, each a
+            # fresh device-less process
+            observed = observe_stack(coord["ClientAPIListenAddr"], coord["Workers"], demo_dir,
+                                     env)
             # on the card: the workers, and none of the device-less processes.
             # nvidia-smi counts one process a context; where its pids are this
             # machine's (a shared pid namespace) they must be the workers'
             others = {c.name: c.proc.pid for c in (tracer, coordinator, client)}
-            cuda_maps = {c.name: maps_cuda(c.proc.pid) for c in workers + [tracer, coordinator]}
+            cuda_maps = {c.name: maps_libcuda(c.proc.pid)
+                         for c in workers + [tracer, coordinator]}
             cuda_maps.update(client=client_maps, client_repeat=repeat_maps)
             n0 = len(apps["before"])
             counts = {k: len(v) for k, v in apps.items()}
@@ -3602,6 +3783,7 @@ def main() -> int:
                                "pids_are_this_machines": pids_seen},
                 "device_less_pids": others, "libcuda_mapped": cuda_maps,
                 "trace_check": verdict.stdout.strip().splitlines()[-1],
+                "observe": observed,
                 "card": smoke.info["device"]["nvidia_smi"],
                 "phase_wall_s": time.monotonic() - t_start}
             passed = True
@@ -3628,6 +3810,165 @@ def main() -> int:
                     bad.append((c.name, rc))
             if bad and passed:
                 raise AssertionError(f"children exited badly: {bad}")
+
+    def load():
+        """The load harness on the card: ``InProcCluster(n_workers=4,
+        backend="cuda", device="cuda")`` (the harness's own worker config,
+        four workers sharing this process and its CUDA context), then
+        ``run_load_slo`` at ``LOAD_MIX`` judged against ``config/slo.json``,
+        then a compressed ``run_soak`` on the same cluster.  Every completed
+        request's secret is checked with hashlib, errors must be 0, both
+        verdicts must exit 0, and md5's solo and persistent kernels must have
+        launched (the counts set to 0 just before and read just after).  Each
+        run's client-side exact percentiles, the coordinator's merged
+        run-window percentiles, the generator's lag and the launches per
+        kernel form are reported.  Last, ``demo``'s requests on this cluster
+        (the demo client's four at once, then four one at a time), for the
+        same requests in one process against ``demo``'s four."""
+        import argparse
+
+        from distpow_tpu_torch.cli.soak import build_shape
+        from distpow_tpu_torch.cli.stats import fetch_stats
+        from distpow_tpu_torch.load import (InProcCluster, LoadMix, exact_percentile,
+                                            run_load_slo, run_soak)
+        from distpow_tpu_torch.load.harness import keeping_results
+        from distpow_tpu_torch.obs.merge import delta_merged
+        from distpow_tpu_torch.obs.scrape import scrape_cluster
+
+        def pcts(samples_or_hist):
+            if isinstance(samples_or_hist, list):
+                return {"n": len(samples_or_hist),
+                        **{f"p{q}_ms": None if v is None else v * 1e3
+                           for q, v in ((50, exact_percentile(samples_or_hist, 0.50)),
+                                        (95, exact_percentile(samples_or_hist, 0.95)),
+                                        (99, exact_percentile(samples_or_hist, 0.99)))}}
+            h = samples_or_hist or {}
+            return {"n": h.get("count", 0),
+                    **{f"{q}_ms": None if h.get(q) is None else h[q] * 1e3
+                       for q in ("p50", "p95", "p99")}}
+
+        def judged(name, report, verdict, window, tracker, wall_s):
+            """One run's checks and numbers."""
+            for res in tracker.results:
+                if res.error is not None or res.secret is None:
+                    raise AssertionError(f"{name}: {res.nonce.hex()} "
+                                         f"d{res.num_trailing_zeros}: {res.error}")
+                digest = hashlib.md5(bytes(res.nonce) + bytes(res.secret)).hexdigest()
+                if not digest.endswith("0" * res.num_trailing_zeros):
+                    raise AssertionError(f"{name}: {res.nonce.hex()} d{res.num_trailing_zeros} "
+                                         f"{res.secret.hex()}: md5 {digest}")
+            issued = report["load"]["issued"]
+            if report["request_errors"] or report["completed"] != issued or \
+                    len(tracker.results) != issued or verdict.exit_code() != 0:
+                raise AssertionError(f"{name}: {issued} offered, {report['completed']} "
+                                     f"completed, {report['request_errors']} errors "
+                                     f"({report['error_samples']}), client "
+                                     f"{report['client_latency_ms']}, generator lag max "
+                                     f"{report['load']['max_lag_s']} s, verdict "
+                                     f"{verdict.to_dict()}")
+            hists = window.get("histograms") or {}
+            return {"offered": issued, "completed": report["completed"], "errors": 0,
+                    "wall_s": wall_s, "verdict": verdict.status,
+                    "difficulties": dict(collections.Counter(
+                        r.num_trailing_zeros for r in tracker.results)),
+                    "client_exact": pcts(list(tracker.latencies_s)),
+                    "merged": {k: pcts(hists.get(k)) for k in (
+                        "coord.mine_s.miss", "coord.mine_s.hit", "coord.first_result_s",
+                        "powlib.mine_s")},
+                    "cache_hits": (window.get("counters") or {}).get("cache.hit", 0),
+                    "coalesced": (window.get("counters") or {}).get(
+                        "sched.coalesced_requests", 0),
+                    "generator_lag": {**{k: report["load"][k] for k in ("max_lag_s",
+                                                                        "mean_lag_s")},
+                                      "p99_s": (hists.get("load.lag_s") or {}).get("p99")},
+                    "report": {k: report[k] for k in ("load", "client_latency_ms",
+                                                      "achieved_solves_per_s")}}
+
+        with keeping_results() as trackers:
+            cluster = None
+            try:
+                t_boot = time.monotonic()
+                cluster = InProcCluster(n_workers=LOAD_WORKERS, backend="cuda", device="cuda")
+                boot_s = time.monotonic() - t_boot
+                workers = [fetch_stats(a, role="worker", timeout=60) for a in cluster.worker_addrs]
+                if any(not w["device"].startswith("cuda") or w["backend"] != "CudaBackend"
+                       for w in workers):
+                    raise AssertionError(
+                        f"workers: {[(w['device'], w['backend']) for w in workers]}")
+                for counter in LAUNCHES.values():
+                    counter.reset()
+                runs = {}
+                before = scrape_cluster([cluster.client_addr], deadline_s=30)
+                t0 = time.monotonic()
+                report, verdict = run_load_slo(LoadMix(**LOAD_MIX), SLO_CONFIG, cluster=cluster,
+                                               include_worker_targets=True)
+                wall_s = time.monotonic() - t0
+                after = scrape_cluster([cluster.client_addr], deadline_s=30)
+                runs["load"] = judged("load", report, verdict, delta_merged(after, before),
+                                      trackers[-1], wall_s)
+                # the merged percentile over the coordinator and its workers
+                # within one log bucket of the coordinator's own
+                oracle = report.get("oracle_check") or {}
+                if not oracle.get("ok") or oracle.get("nodes") != LOAD_WORKERS + 1:
+                    raise AssertionError(f"load: merged coord.mine_s.miss against the "
+                                         f"coordinator's own: {oracle}")
+                runs["load"]["oracle_check"] = oracle
+                shape = build_shape(argparse.Namespace(
+                    minutes=LOAD_SOAK_MINUTES, compress=320.0, base_hz=6.0, amplitude_hz=4.0,
+                    spike_hz=18.0, spike_frac=0.55, spike_width_frac=0.08))
+                mix = LoadMix(**{**LOAD_MIX, "seed": LOAD_SOAK_SEED})
+                before = after
+                t0 = time.monotonic()
+                report, verdict = run_soak(shape, mix, SLO_CONFIG, cluster=cluster)
+                wall_s = time.monotonic() - t0
+                after = scrape_cluster([cluster.client_addr], deadline_s=30)
+                runs["soak"] = judged("soak", report, verdict, delta_merged(after, before),
+                                      trackers[-1], wall_s)
+                runs["soak"]["phases"] = [(p.name, p.status) for p in verdict.phases]
+                runs["soak"]["leak_suspects"] = verdict.leak_suspects
+                # demo's requests on this cluster: the demo client's four at once,
+                # then DEMO_SEQUENTIAL's one at a time (four workers in one
+                # process and context, where demo's are four processes)
+                same = {}
+                for leg, requests, together in (("concurrent", WORKER_DEMO[:4], True),
+                                                ("sequential", DEMO_SEQUENTIAL, False)):
+                    before = scrape_cluster([cluster.client_addr], deadline_s=30)
+                    ms = []
+                    for i, (nonce, d) in enumerate(requests):
+                        t1 = time.monotonic()
+                        cluster.client.mine(nonce, d)
+                        if together and i < len(requests) - 1:
+                            continue
+                        for _ in range(len(requests) if together else 1):
+                            res = cluster.client.notify_queue.get(timeout=DEMO_TIMEOUT_S)
+                            if res.error is not None or not hashlib.md5(
+                                    bytes(res.nonce) + bytes(res.secret)).hexdigest().endswith(
+                                        "0" * res.num_trailing_zeros):
+                                raise AssertionError(f"{leg}: {res.nonce.hex()} "
+                                                     f"d{res.num_trailing_zeros}: {res.error}")
+                            ms.append((time.monotonic() - t1) * 1e3)
+                    window = delta_merged(scrape_cluster([cluster.client_addr], deadline_s=30),
+                                          before)
+                    hists = window.get("histograms") or {}
+                    same[leg] = {"client_ms": ms, **{k: {
+                        "n": (hists.get(k) or {}).get("count", 0),
+                        "mean_ms": (hists[k]["sum"] / hists[k]["count"] * 1e3
+                                    if (hists.get(k) or {}).get("count") else None)}
+                        for k in ("coord.first_result_s", "coord.cancel_propagation_s",
+                                  "coord.mine_s.miss")}}
+                launches = {k: c.value for k, c in LAUNCHES.items() if c.value}
+                kernel = KERNELS["md5"]
+                if not launches.get(kernel) or not launches.get(f"{kernel}_persistent"):
+                    raise AssertionError(f"md5's solo and persistent kernels: {launches}")
+                return {"workers": LOAD_WORKERS, "boot_s": boot_s,
+                        "devices": [w["device"] for w in workers],
+                        "mix": {k: v for k, v in LOAD_MIX.items()}, **runs,
+                        "demo_requests": same,
+                        "kernel_launches": launches,
+                        "card": smoke.info["device"]["nvidia_smi"]}
+            finally:
+                if cluster is not None:
+                    cluster.close()
 
     def mesh_procs():
         """The mesh across processes: ``MESH_PROCS_RANKS`` processes of
@@ -3795,6 +4136,7 @@ def main() -> int:
     smoke.phase("worker_cli", worker_cli, needs=("build", "mine"))
     smoke.phase("native", native, needs=("mine",))
     smoke.phase("demo", demo, needs=("build", "mine"))
+    smoke.phase("load", load, needs=("build", "mine"))
     smoke.phase("mesh_procs", mesh_procs,
                 needs=("build", *(f"{p}{suffix(m)}" for m in MESH_PROCS_MODELS
                                   for p in ("full_parity", "mesh_full_parity"))))

@@ -20,10 +20,14 @@ Layout mirrors the reference package:
 * ``nodes/``    the worker node, the coordinator, the client and powlib
 * ``cli/``      ``python -m distpow_tpu_torch.cli.<name>``: worker,
                 coordinator, client, tracing_server, config_gen,
-                trace_check
+                trace_check, stats, slo, forensics, soak
 * ``cluster/``  the coordinator pool: hash ring, redirects, replication
 * ``fleet/``    the elastic fleet: the worker's agent, the coordinator's
                 lease registry
+* ``obs/``      the cluster view: merged fleet scrapes, time series, the
+                SLO engine, cross-node request forensics
+* ``load/``     the open-loop load generator, rate shapes, the in-process
+                cluster and its load and soak harnesses
 * ``runtime/``  metrics, spans, flight recorder, watchdog, and the RPC
                 plane: wire codec, RPC, tracing, tracing server, trace
                 check, config, cache, faults, health
@@ -31,6 +35,6 @@ Layout mirrors the reference package:
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a GPU they raise instead of falling back.  The
-coordinator, client and tracing-server processes never touch a device
-and import no ``torch``.
+coordinator, client, tracing-server, stats, SLO and forensics processes
+never touch a device and import no ``torch``.
 """

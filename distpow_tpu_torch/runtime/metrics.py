@@ -16,11 +16,15 @@ ring and the flight recorder (``spans.dropped``, ``telemetry.*``), the
 coordinator (``coord.*``, ``coord.mine_s.<hit|miss>``), its admission and
 coalescing (``sched.admission_rejected``, ``sched.coalesced_requests``),
 its fleet registry (``fleet.*``) and pool (``cluster.*``, ``repl.*``), the
-client library (``powlib.*``) and the slow-request capture
-(``forensics.slow_captures``).  ``worker.warmup_failures`` is the port's
-own: a failed boot warm-up; so are ``mesh.collective_host_waits`` and
-``mesh.collective_s``, the cross-process min of a mesh in a
-``torch.distributed`` group.
+client library (``powlib.*``), the slow-request capture
+(``forensics.slow_captures``), and the observability and load planes: the
+fleet scraper and its spool (``obs.scrapes``, ``obs.scrape_failures``,
+``obs.spool_rotations``, ``obs.sweep_s``), the SLO engine (``slo.*``), the
+span sweeps (``forensics.fetches``, ``forensics.fetch_failures``), the soak
+harness (``soak.*``) and the open-loop generator's lag (``load.lag_s``).
+``worker.warmup_failures`` is the port's own: a failed boot warm-up; so
+are ``mesh.collective_host_waits`` and ``mesh.collective_s``, the
+cross-process min of a mesh in a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ Number = Union[int, float]
 
 KNOWN_COUNTERS = frozenset({
     "search.hashes", "search.launches", "search.cancelled", "search.found",
-    "search.blocking_syncs", "mesh.collective_host_waits",
+    "search.blocking_syncs", "search.persistent_steps", "mesh.collective_host_waits",
     "worker.mine_rpcs", "worker.found_rpcs", "worker.cancel_rpcs",
     "worker.results_sent", "worker.forward_retries", "worker.warmup_failures",
     "coord.mine_rpcs", "coord.fanouts", "coord.late_results",
@@ -45,7 +49,10 @@ KNOWN_COUNTERS = frozenset({
     "sched.admission_rejected", "sched.coalesced_requests",
     "fleet.joins", "fleet.lease_expiries", "fleet.drains",
     "fleet.hedged_shards",
-    "forensics.slow_captures",
+    "forensics.slow_captures", "forensics.fetches", "forensics.fetch_failures",
+    "obs.scrapes", "obs.scrape_failures", "obs.spool_rotations",
+    "slo.evaluations", "slo.breaches",
+    "soak.sweeps", "soak.phase_breaches",
     "cluster.not_owner_redirects", "cluster.foreign_mines",
     "cluster.ring_serves",
     "cluster.reroutes", "cluster.failovers", "cluster.sibling_hedges",
@@ -71,10 +78,11 @@ KNOWN_HISTOGRAMS = frozenset({
     "powlib.mine_s",
     "cluster.failover_s", "repl.push_lag_s", "repl.handoff_s",
     "worker.solve_s", "worker.time_to_cancel_s",
-    "search.launch_s", "mesh.collective_s",
+    "search.launch_s", "search.poll_s", "mesh.collective_s",
     "sched.batch_occupancy", "sched.slot_wait_s",
     "rpc.frame.sent_bytes", "rpc.frame.recv_bytes",
     "fleet.heartbeat_rtt_s",
+    "obs.sweep_s", "load.lag_s",
 })
 KNOWN_HISTOGRAM_PREFIXES = frozenset({
     "rpc.client.call_s.",

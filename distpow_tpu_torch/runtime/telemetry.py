@@ -8,7 +8,8 @@ the watchdog ``watchdog.hang``); ``configure`` enables an append-only
 JSONL journal and a dump directory, and ``dump`` writes the ring with a
 metrics snapshot to one JSON file.  With nothing configured (the default)
 the recorder is memory-only.  ``DISTPOW_TELEMETRY_DIR`` configures both
-from the environment.
+from the environment.  ``rotate_if_over`` and ``iter_rotated_jsonl`` are
+the rotation shared with the time-series spool (``obs/timeseries.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +70,34 @@ def rotate_if_over(path: str, max_bytes: int, keep: int) -> bool:
     except OSError as exc:
         log.warning("journal rotation failed for %s: %s", path, exc)
         return False
+
+
+def iter_rotated_jsonl(path: str):
+    """Yield parsed JSON objects from a rotated spool, oldest segment
+    first (``path.N`` ... ``path.1``, then the live file), skipping
+    lines that fail to parse (a crash mid-append leaves at most one
+    torn tail line per segment)."""
+    segments = []
+    i = 1
+    while os.path.exists(f"{path}.{i}"):
+        segments.append(f"{path}.{i}")
+        i += 1
+    segments.reverse()
+    if os.path.exists(path):
+        segments.append(path)
+    for seg in segments:
+        try:
+            with open(seg) as fh:
+                for line in fh:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        yield json.loads(line)
+                    except ValueError:
+                        continue
+        except OSError as exc:
+            log.warning("spool segment unreadable: %s: %s", seg, exc)
 
 
 class FlightRecorder:

@@ -9,7 +9,9 @@ on the CPU, and finds no ``jax`` in ``sys.modules`` (this pytest process has
 JAX loaded already, so the check needs its own process).  Another fresh
 interpreter imports the coordinator, client, tracing-server, config-gen and
 trace-check CLIs and finds no ``torch``: those processes never touch a
-device.
+device; so do the stats, SLO and forensics CLIs.  The soak CLI imports no
+``torch`` while it soaks running processes (``--addr``), and loads it when
+it boots its in-process cluster (``--device cpu`` here).
 """
 
 import ast
@@ -93,7 +95,8 @@ def test_main_path_imports_no_jax_in_a_fresh_process():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-DEVICE_LESS_CLIS = ("coordinator", "client", "tracing_server", "config_gen", "trace_check")
+DEVICE_LESS_CLIS = ("coordinator", "client", "tracing_server", "config_gen", "trace_check",
+                    "stats", "slo", "forensics")
 
 
 @pytest.mark.parametrize("cli", DEVICE_LESS_CLIS)
@@ -110,3 +113,38 @@ def test_device_less_clis_import_no_torch_in_a_fresh_process(cli):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_soak_cli_imports_no_torch_until_it_boots_a_cluster(tmp_path):
+    from tests.test_torch_cli import PortProcStack
+
+    stack = PortProcStack(tmp_path, workers=1, seed=99)
+    try:
+        stack.boot_core()
+        stack.boot_port_worker(0)
+        slo = os.path.join(REPO, "config", "slo.json")
+        code = (
+            "import sys\n"
+            "def loaded():\n"
+            "    return sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'distpow_tpu'))\n"
+            "from distpow_tpu_torch.cli import soak\n"
+            "assert not loaded(), loaded()\n"
+            f"rc = soak.main(['--config', {slo!r}, '--addr', "
+            f"{stack.coord_cfg['ClientAPIListenAddr']!r}, '--minutes', '0.03', "
+            "'--interval', '0.5'])\n"
+            "assert rc == 0, rc\n"
+            "assert not loaded(), loaded()\n"
+            f"rc = soak.main(['--config', {slo!r}, '--device', 'cpu', '--workers', '1', "
+            "'--minutes', '0.03', '--interval', '0.5'])\n"
+            "assert rc == 0, rc\n"
+            "assert 'torch' in sys.modules\n"
+            "assert not [m for m in loaded() if m.split('.')[0] != 'torch'], loaded()\n"
+        )
+        env = dict(os.environ, PYTHONPATH=REPO)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+        assert proc.stdout.count("Soak verdict: PASS") == 2
+    finally:
+        stack.close()
