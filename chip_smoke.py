@@ -84,7 +84,14 @@ worker; ``soak --addr`` the coordinator, green).  ``load`` boots the load
 harness's ``InProcCluster`` of four workers on the card in this process,
 runs ``run_load_slo`` and a compressed ``run_soak`` on it (every secret
 checked with hashlib, no errors, both verdicts green, md5's solo and
-persistent kernels launched), then ``demo``'s requests.  The
+persistent kernels launched), then ``demo``'s requests.  ``lock_audit``
+runs the port's runtime lock-order audit over the same cluster in a fresh
+process (``python -m distpow_tpu_torch.tools.lock_audit``: the audit
+installed before the port is imported, a short ``run_load_slo``, then
+``demo``'s requests): no observed inversion, md5's persistent kernel
+launched, the sites held longest.  ``lint`` runs ``python -m
+distpow_tpu_torch.cli.lint --json`` in a fresh process: exit 0, no
+finding, neither ``torch`` nor ``libcuda.so`` loaded.  The
 persistent loop (the reference worker's default ``SearchLoop``):
 ``persistent_parity`` holds each model's persistent kernel, solo and on 4
 logical shards, against the plain persistent step on both of its words
@@ -342,6 +349,16 @@ rc = importlib.import_module(sys.argv[1]).main(sys.argv[2:])
 print({DEMO_CLI_DONE!r}, rc or 0, flush=True)
 sys.stdin.read()
 """
+# lint: DEMO_CLI_SHIM that also prints, before its done line, the modules of
+# torch, JAX or the JAX package the CLI's process loaded
+LINT_SHIM = f"""
+import importlib, json, sys
+rc = importlib.import_module(sys.argv[1]).main(sys.argv[2:])
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'distpow_tpu'))))
+print({DEMO_CLI_DONE!r}, rc or 0, flush=True)
+sys.stdin.read()
+"""
 DEMO_SOAK_MINUTES = 0.25
 SLO_CONFIG = os.path.join(HERE, "config", "slo.json")
 # load: the harness's in-process cluster (four workers on the card in this
@@ -352,6 +369,10 @@ LOAD_WORKERS = 4
 LOAD_MIX = {"rate_hz": 10.0, "duration_s": 20.0, "n_keys": 64, "zipf_s": 1.1, "nonce_len": 4,
             "difficulties": ((5, 0.5), (7, 0.5))}
 LOAD_SOAK_MINUTES, LOAD_SOAK_SEED = 0.25, 1805
+# lock_audit: the runtime lock-order audit over the same cluster in a fresh
+# process (python -m distpow_tpu_torch.tools.lock_audit): run_load_slo at
+# LOAD_MIX (the tool's own mix) for LOCK_AUDIT_LOAD_S, then demo's requests
+LOCK_AUDIT_LOAD_S = 5.0
 
 
 def maps_libcuda(pid):
@@ -364,12 +385,14 @@ def maps_libcuda(pid):
         return None
 
 
-def run_cli(module, args, cwd, env, log_path, timeout):
-    """``module``'s main with ``args`` in a fresh process (DEMO_CLI_SHIM):
+def run_cli(module, args, cwd, env, log_path, timeout, shim=None):
+    """``module``'s main with ``args`` in a fresh process (``shim``, by
+    default DEMO_CLI_SHIM):
     its exit code, its standard output before the done line, and whether it
     mapped libcuda, read while it waits on its standard input."""
     with open(log_path, "w") as log:
-        proc = subprocess.Popen([sys.executable, "-c", DEMO_CLI_SHIM, module, *args], cwd=cwd,
+        proc = subprocess.Popen([sys.executable, "-c", shim or DEMO_CLI_SHIM, module, *args],
+                                cwd=cwd,
                                 env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                                 stderr=log, text=True)
     lines, done = [], threading.Event()
@@ -3970,6 +3993,80 @@ def main() -> int:
                 if cluster is not None:
                     cluster.close()
 
+    def lock_audit():
+        """The runtime lock-order audit on the card: ``python -m
+        distpow_tpu_torch.tools.lock_audit`` in a fresh process loads the
+        port's ``runtime/lockcheck.py`` by path and installs it before it
+        imports the port, boots ``InProcCluster(n_workers=LOAD_WORKERS,
+        backend="cuda", device="cuda")``, runs ``run_load_slo`` at
+        ``LOAD_MIX`` for ``LOCK_AUDIT_LOAD_S``,
+        then ``demo``'s requests as ``load`` does after its runs (the demo
+        client's four at once, then ``DEMO_SEQUENTIAL`` one at a time),
+        every secret checked with hashlib.  Fails on an observed lock-order
+        inversion, on no instrumented site of the port, or on no launch of
+        md5's persistent kernel (the card served).  Reports the sites and
+        edges, the five sites with the most held seconds and the five with
+        the longest hold, and the requests' latencies with the audit on
+        beside ``load``'s without it."""
+        env = {**os.environ, "PYTHONPATH": HERE, "PYTHONUNBUFFERED": "1",
+               "DISTPOW_TORCH_BUILD_DIR": _build.BUILD_DIR}
+        env.pop("DISTPOW_LOCK_CHECK", None)
+        args = ["--backend", "cuda", "--device", "cuda", "--workers", str(LOAD_WORKERS),
+                "--concurrent", *(f"{n.hex()}:{d}" for n, d in WORKER_DEMO[:4]),
+                "--sequential", *(f"{n.hex()}:{d}" for n, d in DEMO_SEQUENTIAL),
+                "--duration-s", str(LOCK_AUDIT_LOAD_S),
+                "--difficulty", *(f"{d}:{w}" for d, w in LOAD_MIX["difficulties"])]
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-m", "distpow_tpu_torch.tools.lock_audit",
+                               *args], cwd=HERE, env=env, capture_output=True, text=True,
+                              timeout=240)
+        wall_s = time.monotonic() - t0
+        with open(os.path.join(OUT_DIR, "lock_audit.log"), "w") as fh:
+            fh.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        if proc.returncode != 0:
+            raise AssertionError(f"lock_audit exited {proc.returncode}: "
+                                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        audit = out["audit"]
+        persistent = out["kernel_launches"].get(f"{KERNELS['md5']}_persistent", 0)
+        if audit["cycles"] or not audit["port_sites_held"] or not persistent:
+            raise AssertionError(f"cycles {audit['cycles']}, port sites "
+                                 f"{audit['port_sites_held']}, launches "
+                                 f"{out['kernel_launches']}")
+        without = (smoke.info.get("load") or {}).get("demo_requests") or {}
+        return {**out, "wall_s_process": wall_s,
+                "demo_requests_without_audit": {
+                    leg: (without.get(leg) or {}).get("client_ms") for leg in
+                    ("concurrent", "sequential")},
+                "load_without_audit": ((smoke.info.get("load") or {}).get("load") or {}).get(
+                    "client_exact"),
+                "card": smoke.info["device"]["nvidia_smi"]}
+
+    def lint():
+        """``python -m distpow_tpu_torch.cli.lint --json`` in a fresh process
+        from the tree's root (``LINT_SHIM``, so its maps are read while it
+        waits): exit 0, no finding, every suppression justified, no module
+        of ``torch`` or JAX loaded and the CUDA driver library not
+        mapped."""
+        t0 = time.monotonic()
+        log = os.path.join(OUT_DIR, "lint.log")
+        rc, stdout, mapped = run_cli("distpow_tpu_torch.cli.lint", ["--json"], HERE,
+                                     {**os.environ, "PYTHONPATH": HERE}, log, timeout=120,
+                                     shim=LINT_SHIM)
+        wall_s = time.monotonic() - t0
+        report_text, _, loaded = stdout.rstrip("\n").rpartition("\n")
+        report, loaded = json.loads(report_text), json.loads(loaded)
+        if rc != 0 or report["findings"] or not report["ok"] or mapped is not False or \
+                loaded or not all(s["justification"] for s in report["suppressed"]):
+            raise AssertionError(f"lint: exit {rc}, findings {report['findings'][:5]}, "
+                                 f"libcuda mapped {mapped}, loaded {loaded}")
+        return {"exit": rc, "findings": len(report["findings"]),
+                "suppressed": len(report["suppressed"]),
+                "checked_files": report["checked_files"], "wall_s_process": wall_s,
+                "maps_libcuda": mapped, "loaded_torch_or_jax": loaded,
+                "suppressed_by_rule": dict(collections.Counter(
+                    s["rule"] for s in report["suppressed"]))}
+
     def mesh_procs():
         """The mesh across processes: ``MESH_PROCS_RANKS`` processes of
         ``python -m distpow_tpu_torch.tools.mesh_procs`` in one
@@ -4137,6 +4234,8 @@ def main() -> int:
     smoke.phase("native", native, needs=("mine",))
     smoke.phase("demo", demo, needs=("build", "mine"))
     smoke.phase("load", load, needs=("build", "mine"))
+    smoke.phase("lock_audit", lock_audit, needs=("build", "mine"))
+    smoke.phase("lint", lint)
     smoke.phase("mesh_procs", mesh_procs,
                 needs=("build", *(f"{p}{suffix(m)}" for m in MESH_PROCS_MODELS
                                   for p in ("full_parity", "mesh_full_parity"))))

@@ -20,7 +20,7 @@ Layout mirrors the reference package:
 * ``nodes/``    the worker node, the coordinator, the client and powlib
 * ``cli/``      ``python -m distpow_tpu_torch.cli.<name>``: worker,
                 coordinator, client, tracing_server, config_gen,
-                trace_check, stats, slo, forensics, soak
+                trace_check, stats, slo, forensics, soak, lint
 * ``cluster/``  the coordinator pool: hash ring, redirects, replication
 * ``fleet/``    the elastic fleet: the worker's agent, the coordinator's
                 lease registry
@@ -28,13 +28,15 @@ Layout mirrors the reference package:
                 SLO engine, cross-node request forensics
 * ``load/``     the open-loop load generator, rate shapes, the in-process
                 cluster and its load and soak harnesses
-* ``runtime/``  metrics, spans, flight recorder, watchdog, and the RPC
-                plane: wire codec, RPC, tracing, tracing server, trace
-                check, config, cache, faults, health
+* ``runtime/``  metrics, spans, flight recorder, watchdog, the runtime
+                lock-order audit, and the RPC plane: wire codec, RPC,
+                tracing, tracing server, trace check, config, cache,
+                faults, health
+* ``analysis/`` distpow-lint: the AST rule engine and its 17 rules
 * ``csrc/``     the hand-written CUDA sources (built at first use)
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a GPU they raise instead of falling back.  The
-coordinator, client, tracing-server, stats, SLO and forensics processes
-never touch a device and import no ``torch``.
+coordinator, client, tracing-server, stats, SLO, forensics and lint
+processes never touch a device and import no ``torch``.
 """

@@ -13,8 +13,8 @@ enumeration contract as every other backend, verified against the
 hashlib oracle in tests/test_torch_native.py.
 
 The port's own copy of the reference's ``backends/native_miner.py``
-(``distpow_tpu/backends/native_miner.py``), without its lint
-declarations: it imports nothing of the JAX package, and no ``torch``.
+(``distpow_tpu/backends/native_miner.py``): it imports nothing of the JAX
+package, and no ``torch``.
 """
 
 from __future__ import annotations
@@ -122,9 +122,10 @@ def load_library(build: bool = True) -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not os.path.exists(path) and build:
-            # one-shot lazy build under the load lock is the point:
-            # concurrent first-callers must block until the single g++
-            # finishes rather than race parallel builds of the same .so
+            # distpow: ok transitive-blocking-under-lock -- one-shot lazy
+            # build under the load lock is the point: concurrent
+            # first-callers must block until the single g++ finishes
+            # rather than race parallel builds of the same .so
             build_library()
         if not os.path.exists(path):
             raise NativeUnavailable(f"native miner library missing: {path}")

@@ -17,7 +17,7 @@ configs use) and divides by 4, so ``--difficulty-bits 32`` ≡
 no sub-nibble resolution.
 
 The port's own copy of the reference's ``cli/client.py``
-(``distpow_tpu/cli/client.py``), without its lint declarations: it
+(``distpow_tpu/cli/client.py``): it
 imports nothing of the JAX package.
 """
 

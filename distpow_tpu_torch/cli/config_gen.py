@@ -36,7 +36,7 @@ API (pooled rounds stamp their own reply-to, so the default only
 matters for which coordinator a static worker appears under).
 
 The port's own copy of the reference's ``cli/config_gen.py``
-(``distpow_tpu/cli/config_gen.py``), without its lint declarations: it
+(``distpow_tpu/cli/config_gen.py``): it
 imports nothing of the JAX package.
 """
 

@@ -6,7 +6,7 @@
 installs a deterministic fault-injection plan — see docs/FAULTS.md.
 
 The port's own copy of the reference's ``cli/coordinator.py``
-(``distpow_tpu/cli/coordinator.py``), without its lint declarations: it
+(``distpow_tpu/cli/coordinator.py``): it
 imports nothing of the JAX package.
 """
 

@@ -8,7 +8,7 @@ Exits 0 when every ordering invariant holds, 1 otherwise (violations are
 printed one per line).
 
 The port's own copy of the reference's ``cli/trace_check.py``
-(``distpow_tpu/cli/trace_check.py``), without its lint declarations: it
+(``distpow_tpu/cli/trace_check.py``): it
 imports nothing of the JAX package.
 """
 

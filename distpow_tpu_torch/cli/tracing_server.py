@@ -3,7 +3,7 @@
     python -m distpow_tpu_torch.cli.tracing_server [--config PATH]
 
 The port's own copy of the reference's ``cli/tracing_server.py``
-(``distpow_tpu/cli/tracing_server.py``), without its lint declarations:
+(``distpow_tpu/cli/tracing_server.py``):
 it imports nothing of the JAX package.
 """
 

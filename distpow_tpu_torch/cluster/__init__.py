@@ -15,7 +15,7 @@ ranges to their new owner before a ring change is acked
 (docs/CLUSTER.md "Replication & HA").
 
 The port's own copy of the reference's ``cluster/__init__.py``
-(``distpow_tpu/cluster/__init__.py``), without its lint declarations: it
+(``distpow_tpu/cluster/__init__.py``): it
 imports nothing of the JAX package.
 """
 

@@ -42,7 +42,7 @@ construct a :class:`Replicator`, so every pre-cluster code path and
 wire frame stays byte-identical (test-pinned).
 
 The port's own copy of the reference's ``cluster/replication.py``
-(``distpow_tpu/cluster/replication.py``), without its lint declarations:
+(``distpow_tpu/cluster/replication.py``):
 it imports nothing of the JAX package.
 """
 
@@ -234,7 +234,7 @@ class Replicator:
                 client = self._client(target, ring.addr_of(target))
                 client.call("Cluster.CacheSync",
                             {"entries": entries, "self": me},
-                            timeout=self.push_timeout_s)  # deliberately serial: the pusher is a single background thread OFF the Mine critical path, each call is bounded by push_timeout_s, and the loop spans at most ClusterCacheReplicas (default 1) successors per batch — concurrency here would buy nothing and cost a thread per replica
+                            timeout=self.push_timeout_s)  # distpow: ok serial-rpc-fanout -- deliberately serial: the pusher is a single background thread OFF the Mine critical path, each call is bounded by push_timeout_s, and the loop spans at most ClusterCacheReplicas (default 1) successors per batch — concurrency here would buy nothing and cost a thread per replica
                 metrics.inc("repl.pushes", len(items))
                 now = time.monotonic()
                 for _n, _z, _s, t0 in items:
@@ -333,7 +333,7 @@ class Replicator:
                 reply = client.call("Cluster.CacheSync",
                                     {"digest": self.digest_buckets,
                                      "self": me},
-                                    timeout=self.push_timeout_s)  # deliberately serial: the anti-entropy loop is a slow BACKGROUND reconciliation (ClusterAntiEntropyS cadence), each digest exchange is bounded by push_timeout_s, and the loop spans the pool's other members (small by construction) — serializing it is the bandwidth bound the design wants
+                                    timeout=self.push_timeout_s)  # distpow: ok serial-rpc-fanout -- deliberately serial: the anti-entropy loop is a slow BACKGROUND reconciliation (ClusterAntiEntropyS cadence), each digest exchange is bounded by push_timeout_s, and the loop spans the pool's other members (small by construction) — serializing it is the bandwidth bound the design wants
             except (OSError, RPCError, Exception):
                 log.warning("anti-entropy digest exchange with %s failed; "
                             "next sweep retries", peer)
@@ -358,7 +358,7 @@ class Replicator:
             try:
                 client.call("Cluster.CacheSync",
                             {"entries": entries, "self": me},
-                            timeout=self.push_timeout_s)  # same bounded background loop as the digest exchange above: one capped (antientropy_max_entries) heal push per diverged peer per sweep
+                            timeout=self.push_timeout_s)  # distpow: ok serial-rpc-fanout -- same bounded background loop as the digest exchange above: one capped (antientropy_max_entries) heal push per diverged peer per sweep
             except (OSError, RPCError, Exception):
                 log.warning("anti-entropy heal push to %s failed; next "
                             "sweep retries", peer)
@@ -416,7 +416,7 @@ class Replicator:
                 args=(target, new_ring.addr_of(target), entries,
                       deadline, results),
                 daemon=True, name=f"repl-handoff-{target}",
-            )  # bounded: one spawn per NEW owner of a remapped range (<= pool size, a handful), and every sender self-terminates at the shared handoff deadline — per-target threads are exactly how a frozen recipient is kept from serializing the other targets' handoffs
+            )  # distpow: ok unbounded-thread-spawn -- bounded: one spawn per NEW owner of a remapped range (<= pool size, a handful), and every sender self-terminates at the shared handoff deadline — per-target threads are exactly how a frozen recipient is kept from serializing the other targets' handoffs
             t.start()
             senders.append(t)
         for t in senders:

@@ -27,7 +27,7 @@ the extended ``rpc.hello`` ack, and the ``NOT_OWNER`` redirect's
 :meth:`HashRing.to_wire`/:meth:`HashRing.from_wire`.
 
 The port's own copy of the reference's ``cluster/ring.py``
-(``distpow_tpu/cluster/ring.py``), without its lint declarations: it
+(``distpow_tpu/cluster/ring.py``): it
 imports nothing of the JAX package.
 """
 

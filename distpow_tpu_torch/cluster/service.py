@@ -27,7 +27,7 @@ RPCs then refuse politely and nothing about the pre-cluster wire
 surface changes.
 
 The port's own copy of the reference's ``cluster/service.py``
-(``distpow_tpu/cluster/service.py``), without its lint declarations: it
+(``distpow_tpu/cluster/service.py``): it
 imports nothing of the JAX package.
 """
 

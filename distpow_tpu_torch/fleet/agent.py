@@ -26,7 +26,7 @@ wire v2 when the coordinator speaks it, and the fault plane can
 refuse/delay/drop them like any other frame (chaos tests).
 
 The port's own copy of the reference's ``fleet/agent.py``
-(``distpow_tpu/fleet/agent.py``), without its lint declarations: it
+(``distpow_tpu/fleet/agent.py``): it
 imports nothing of the JAX package.
 """
 

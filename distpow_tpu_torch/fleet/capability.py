@@ -11,7 +11,7 @@ capability-weighted prefix split (parallel/partition.py
 ``stats --discover``) and reserved for future placement policy.
 
 The port's own copy of the reference's ``fleet/capability.py``
-(``distpow_tpu/fleet/capability.py``), without its lint declarations: it
+(``distpow_tpu/fleet/capability.py``): it
 imports nothing of the JAX package.
 """
 

@@ -34,7 +34,7 @@ the rates differ — attaches the capability-weighted prefix split
 ``worker_byte``/``worker_bits`` algebra, wire-identical to before.
 
 The port's own copy of the reference's ``fleet/membership.py``
-(``distpow_tpu/fleet/membership.py``), without its lint declarations: it
+(``distpow_tpu/fleet/membership.py``): it
 imports nothing of the JAX package.
 """
 

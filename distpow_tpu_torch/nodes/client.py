@@ -7,7 +7,7 @@ this client's tracer; ``close`` tears down tracer then powlib
 (client.go:61-68).
 
 The port's own copy of the reference's ``nodes/client.py``
-(``distpow_tpu/nodes/client.py``), without its lint declarations: it
+(``distpow_tpu/nodes/client.py``): it
 imports nothing of the JAX package.
 """
 

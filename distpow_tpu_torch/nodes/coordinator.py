@@ -62,7 +62,7 @@ whose ack fails (or expires) is dropped from the ledgers and re-issued
 exactly as a failed blocking call was.
 
 The port's own copy of the reference's ``nodes/coordinator.py``
-(``distpow_tpu/nodes/coordinator.py``), without its lint declarations:
+(``distpow_tpu/nodes/coordinator.py``):
 it imports nothing of the JAX package.
 """
 
@@ -423,7 +423,7 @@ class CoordRPCHandler:
                 # a hung worker counts as dead: bounded probe.
                 # concurrent.futures.TimeoutError is caught explicitly —
                 # it only aliases the OSError-derived builtin on 3.11+.
-                # deliberately serial:
+                # distpow: ok serial-rpc-fanout -- deliberately serial:
                 # probes run only while the round is already parked in
                 # results.get, each is bounded to 2 s, and serializing
                 # them keeps the failure detector from stampeding a
@@ -595,7 +595,7 @@ class CoordRPCHandler:
                 # fix; with coalescing on, only round leaders ever
                 # contend here)
                 with self._key_lock(key):
-                    # the
+                    # distpow: ok transitive-blocking-under-lock -- the
                     # per-key lock exists precisely to serialize the
                     # whole miss path for one (nonce, ntz): concurrent
                     # identical requests MUST wait for the leader's
@@ -608,14 +608,14 @@ class CoordRPCHandler:
                         metrics.observe("coord.mine_s.hit",
                                         time.monotonic() - t0,
                                         trace_id=tid)
-                        # same
+                        # distpow: ok transitive-blocking-under-lock -- same
                         # per-key serialization invariant as the cache
                         # probe above; the reply's span bookkeeping is
                         # bounded work on the key's own critical path
                         return self._success_reply(trace, nonce, ntz, cached)
                     reserved = self._admit(nonce, ntz)
                     try:
-                        # the
+                        # distpow: ok transitive-blocking-under-lock -- the
                         # miss itself runs under the per-key lock BY
                         # DESIGN (docs/COALESCING.md): followers for the
                         # same key block here until the leader finishes,
@@ -913,7 +913,7 @@ class CoordRPCHandler:
                    model: Optional[str] = None) -> dict:
         self._initialize_workers()
         key = (nonce, ntz)
-        # protocol-bounded: one round's
+        # distpow: ok bounded-queue -- protocol-bounded: one round's
         # queue holds at most 2 messages per live worker (the 2N-ack
         # ledger) plus one ack per re-broadcast, and the Result handler
         # drops stale-round messages before they are enqueued; a hard
@@ -1239,7 +1239,7 @@ class CoordRPCHandler:
                 )
 
         for w in workers:
-            # bounded: one spawn
+            # distpow: ok unbounded-thread-spawn -- bounded: one spawn
             # per abandoned worker of ONE round (<= fleet size), and
             # every thread self-terminates within RESYNC_CAP_S via the
             # shared deadline — the per-item spawn is the point (the

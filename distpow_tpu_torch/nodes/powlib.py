@@ -65,7 +65,7 @@ Documented divergences from the reference:
   results are delivered and the process can exit.
 
 The port's own copy of the reference's ``nodes/powlib.py``
-(``distpow_tpu/nodes/powlib.py``), without its lint declarations: it
+(``distpow_tpu/nodes/powlib.py``): it
 imports nothing of the JAX package.
 """
 
@@ -143,7 +143,7 @@ class _CoordLink:
         with self._lock:
             if self._client is None:
                 try:
-                    # exactly-one-
+                    # distpow: ok no-blocking-under-lock -- exactly-one-
                     # dialer per shard, like POW._reconnect: the lock
                     # exists to make the dial exclusive; RPCClient has
                     # its default bounded dial timeout
@@ -169,7 +169,7 @@ class _CoordLink:
             delay = backoff_delay(
                 attempt, pow_.backoff_s, pow_.backoff_max_s, pow_._rng
             )
-            # same single-dialer
+            # distpow: ok no-blocking-under-lock -- same single-dialer
             # design as POW._reconnect: failed attempts queue behind
             # the one re-dialer; the wait is close()-interruptible
             if pow_._close_ev.wait(delay):
@@ -178,7 +178,7 @@ class _CoordLink:
                     not getattr(self._client, "dead", True):
                 return False  # healthy transport: re-issue on it
             try:
-                # exactly-one-
+                # distpow: ok no-blocking-under-lock -- exactly-one-
                 # dialer (see above); bounded by the default dial timeout
                 fresh = RPCClient(self.addr)
             except OSError as exc:
@@ -309,7 +309,7 @@ class POW:
             self.backoff_max_s = float(backoff_max_s)
         if attempt_timeout_s:  # 0/None both mean "wait forever"
             self.attempt_timeout_s = float(attempt_timeout_s)
-        # write-once before any
+        # distpow: ok unguarded-shared-write -- write-once before any
         # reader thread exists: initialize() runs before the notify
         # pump starts, so no thread can observe the handoff; later
         # swaps (in _reconnect) do take _conn_lock
@@ -442,7 +442,7 @@ class POW:
             delay = backoff_delay(
                 attempt, self.backoff_s, self.backoff_max_s, self._rng
             )
-            # holding _conn_lock
+            # distpow: ok no-blocking-under-lock -- holding _conn_lock
             # across the backoff is the design (docstring above): failed
             # attempts queue behind the one re-dialer instead of dial-
             # storming the coordinator; the wait is close()-interruptible
@@ -451,7 +451,7 @@ class POW:
             if not getattr(self.coordinator, "dead", True):
                 return False  # healthy transport: re-issue on it
             try:
-                # exactly-one-dialer:
+                # distpow: ok no-blocking-under-lock -- exactly-one-dialer:
                 # the lock exists to make this dial exclusive (see above);
                 # the connect has the RPCClient default dial timeout
                 fresh = RPCClient(self.coord_addr)

@@ -682,7 +682,7 @@ class Worker:
             sink=sink,
         )
         self.coordinator = RPCClient(config.CoordAddr)
-        # the forwarder queue must never
+        # distpow: ok bounded-queue -- the forwarder queue must never
         # drop or block the miner: every message is owed to the
         # coordinator's ack ledger (losing one wedges the round), depth
         # is bounded by in-flight rounds x2 in practice, and the
@@ -994,7 +994,7 @@ class Worker:
         def destination(addr: str) -> "queue.Queue":
             q = self._forward_subqueues.get(addr)
             if q is None:
-                # protocol-bounded like
+                # distpow: ok bounded-queue -- protocol-bounded like
                 # the result queue it demuxes: depth is the in-flight
                 # rounds x2 owed to ONE coordinator, every message is
                 # owed to that coordinator's ack ledger (dropping one

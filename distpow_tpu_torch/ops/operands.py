@@ -149,6 +149,8 @@ def group_operands(init, base, masks, tb_lo, log_tbc, chunk0,
     flat = np.concatenate([r.reshape(-1) for r in rows]).view(np.int32)
     if torch.device(device).type == "cuda":
         staged = torch.empty(flat.size, dtype=torch.int32, pin_memory=True)
+        # distpow: ok hot-path-host-sync -- staged is a pinned HOST
+        # tensor: .numpy() is a view of its memory, no device copy
         staged.numpy()[:] = flat
         buf = staged.to(device, non_blocking=True)
     else:

@@ -414,6 +414,9 @@ def plain_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs,
     launch_steps)`` or SENTINEL, as ``int64[n_slots]`` on the operands'
     device: the plain version of the group kernel."""
     _check_launch(batch, launch_steps)
+    # distpow: ok hot-path-host-sync -- the plain version, not a kernel:
+    # it reads its three per-slot scalar rows once per call, before any
+    # work of its own is queued, so there is no pipeline to stall
     tb_lo, log_tbc, chunk0 = ((widen(t) & MASK32).tolist()
                               for t in (ops.tb_lo, ops.log_tbc, ops.chunk0))
     return plain_first_hits(model, ops.n_blocks, tb_loc, chunk_locs, ops.init, ops.base,
@@ -445,6 +448,9 @@ def slot_search_step(model_name: str, n_blocks: int, tb_loc, chunk_locs, batch: 
         ops = _group(rows)
         if ops.n_slots != n_slots:
             raise ValueError(f"{ops.n_slots} slot rows, the step has {n_slots}")
+        # distpow: ok hot-path-host-sync -- the plain multi-slot step's
+        # contract is a result on the CPU (the reference's step returns
+        # a host array): this copy is its caller's one wait per launch
         return plain_group_search(model, ops, tb_loc, chunk_locs, batch, launch_steps).cpu()
 
     return step

@@ -126,7 +126,7 @@ def gather_counts(n: int, group, first: torch.device) -> List[int]:
     mine = torch.tensor([n], dtype=torch.int64, device=where)
     counts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
     dist.all_gather(counts, mine, group=group)
-    return [int(c) for c in counts]
+    return torch.cat(counts).tolist()  # one copy to the host, not one per rank
 
 
 def u32_min_across(cells: torch.Tensor, group) -> torch.Tensor:

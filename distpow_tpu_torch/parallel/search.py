@@ -500,6 +500,9 @@ def search(
         fetch_ts = time.time()
         t0 = time.monotonic()
         if event is not None:
+            # distpow: ok hot-path-host-sync -- the driver's one sanctioned
+            # drain: drain_one waits here on the OLDEST launch's event, in
+            # FIFO order, while the later launches stay queued
             event.synchronize()
         fetch_s = time.monotonic() - t0
         metrics.observe("search.launch_s", fetch_s)

@@ -24,7 +24,7 @@ base64 a ``[]byte`` — untestable here either way (no Go toolchain, the
 DistributedClocks library is not vendored), so the readable form wins.
 
 The port's own copy of the reference's ``runtime/actions.py``
-(``distpow_tpu/runtime/actions.py``), without its lint declarations: it
+(``distpow_tpu/runtime/actions.py``): it
 imports nothing of the JAX package.
 """
 

@@ -35,7 +35,7 @@ story (docs/CLUSTER.md "Replication & HA"): a restarted member replays
 its journal, then anti-entropy backfills what it missed while dead.
 
 The port's own copy of the reference's ``runtime/cache.py``
-(``distpow_tpu/runtime/cache.py``), without its lint declarations: it
+(``distpow_tpu/runtime/cache.py``): it
 imports nothing of the JAX package.
 """
 
@@ -167,7 +167,7 @@ class ResultCache:
             if entry is not None and entry.num_trailing_zeros >= num_trailing_zeros:
                 metrics.inc("cache.hit")
                 if trace:
-                    # trace emission
+                    # distpow: ok no-blocking-under-lock -- trace emission
                     # order must match cache state order (the reference
                     # records from inside its cache mutex,
                     # coordinator.go:403); emitting after release lets a
@@ -182,7 +182,7 @@ class ResultCache:
                 return entry.secret
             metrics.inc("cache.miss")
             if trace:
-                # same mutex-order
+                # distpow: ok no-blocking-under-lock -- same mutex-order
                 # invariant as the hit path above
                 trace.record_action(
                     CacheMiss(nonce=nonce, num_trailing_zeros=num_trailing_zeros)
@@ -206,7 +206,7 @@ class ResultCache:
                 self._entries[nonce] = CacheEntry(num_trailing_zeros, secret)
                 self._append(nonce, num_trailing_zeros, secret)
                 if trace:
-                    # CacheAdd must
+                    # distpow: ok no-blocking-under-lock -- CacheAdd must
                     # be emitted in cache-mutation order (reference emits
                     # inside the cache mutex, coordinator.go:436)
                     trace.record_action(
@@ -229,7 +229,7 @@ class ResultCache:
                 # cache mutex, coordinator.go:436-454) and trace_check.py
                 # asserts that adjacency — per-action locking would let a
                 # concurrent handler interleave an event between them
-                # the adjacency
+                # distpow: ok no-blocking-under-lock -- the adjacency
                 # invariant above requires emitting under the cache mutex
                 trace.record_actions(
                     CacheRemove(

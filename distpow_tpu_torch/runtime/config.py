@@ -23,7 +23,7 @@ Unknown JSON fields are ignored (forward compatibility); missing fields
 take dataclass defaults.
 
 The port's own copy of the reference's ``runtime/config.py``
-(``distpow_tpu/runtime/config.py``), without its lint declarations: it
+(``distpow_tpu/runtime/config.py``): it
 imports nothing of the JAX package.
 """
 

@@ -68,7 +68,7 @@ passed through ``on_frame`` — dial-window faults are modeled by the
 to the JSON floor anyway (docs/RPC.md).
 
 The port's own copy of the reference's ``runtime/faults.py``
-(``distpow_tpu/runtime/faults.py``), without its lint declarations: it
+(``distpow_tpu/runtime/faults.py``): it
 imports nothing of the JAX package.
 """
 

@@ -35,7 +35,7 @@ Sampling is read-only and bounded (two /proc reads, one directory
 listing, a couple of ring locks) — cheap enough for every Stats call.
 
 The port's own copy of the reference's ``runtime/health.py``
-(``distpow_tpu/runtime/health.py``), without its lint declarations: it
+(``distpow_tpu/runtime/health.py``): it
 imports nothing of the JAX package.
 """
 

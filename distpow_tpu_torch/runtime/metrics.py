@@ -2,7 +2,7 @@
 histograms.
 
 The port's own copy of the reference registry (``distpow_tpu/runtime/
-metrics.py``), without the lint declarations.  Every process has one
+metrics.py``).  Every process has one
 ``REGISTRY``; a caller may also create a ``Metrics`` and pass it to a
 backend or to the search driver.  The names the port writes are declared
 below (``KNOWN_*``, with the reference's names): the search driver and

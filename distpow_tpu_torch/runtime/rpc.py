@@ -38,7 +38,7 @@ traffic between hosts, as the north-star design prescribes
 (BASELINE.json: "the coordinator/worker RPC boundary stays intact").
 
 The port's own copy of the reference's ``runtime/rpc.py``
-(``distpow_tpu/runtime/rpc.py``), without its lint declarations: it
+(``distpow_tpu/runtime/rpc.py``): it
 imports nothing of the JAX package.
 """
 
@@ -202,7 +202,7 @@ def _write_frame(sock: socket.socket, obj: dict, lock: threading.Lock,
     payload = codec.encode(obj)
     metrics.observe("rpc.frame.sent_bytes", len(payload))
     with lock:
-        # this lock IS the frame
+        # distpow: ok no-blocking-under-lock -- this lock IS the frame
         # serializer: interleaved sendall from two threads would corrupt
         # the length-prefixed stream; the send is bounded by SO_SNDTIMEO
         sock.sendall(struct.pack(">I", len(payload)) + payload)
@@ -219,7 +219,7 @@ def _write_truncated(sock: socket.socket, obj: dict,
     frame = struct.pack(">I", len(payload)) + payload
     try:
         with lock:
-            # same frame-serializer
+            # distpow: ok no-blocking-under-lock -- same frame-serializer
             # lock as _write_frame; the deliberately-torn fault frame must
             # not interleave with a concurrent healthy write either
             sock.sendall(frame[: max(5, len(frame) // 2)])
@@ -324,7 +324,7 @@ class RPCServer:
 
     def serve_in_background(self) -> None:
         for ls in self._listeners:
-            # bounded: one
+            # distpow: ok unbounded-thread-spawn -- bounded: one
             # acceptor per listener, and listeners are a small fixed
             # set wired at boot (the coordinator's two)
             t = threading.Thread(target=self._accept_loop, args=(ls,), daemon=True)
@@ -347,7 +347,7 @@ class RPCServer:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._lock:
                 self._conns.add(conn)
-            # deliberate
+            # distpow: ok unbounded-thread-spawn -- deliberate
             # thread-per-connection: Go net/rpc parity (the reference's
             # accept loop spawns a goroutine per conn), and the peer set
             # is the cluster's node count, not open traffic
@@ -381,7 +381,7 @@ class RPCServer:
                     # exchange so nothing else can be in flight
                     self._handle_hello(conn, wlock, req, codec)
                     continue
-                # deliberate
+                # distpow: ok unbounded-thread-spawn -- deliberate
                 # goroutine-per-request parity (class docstring): a slow
                 # handler (the blocking Mine) must not head-of-line-block
                 # the connection; depth is bounded by the caller's own
@@ -419,7 +419,7 @@ class RPCServer:
             if self.hello_extra is not None:
                 try:
                     result.update(self.hello_extra() or {})
-                # the hello extra is an
+                # distpow: ok silent-except -- the hello extra is an
                 # ADVISORY advertisement (the cluster ring): a broken
                 # provider must not take codec negotiation down with
                 # it, and clients refresh the same payload via

@@ -41,7 +41,7 @@ Usage: ``python -m distpow_tpu_torch.cli.trace_check trace_output.log
 [shiviz_output.log]`` — exits non-zero and prints each violation.
 
 The port's own copy of the reference's ``runtime/trace_check.py``
-(``distpow_tpu/runtime/trace_check.py``), without its lint declarations:
+(``distpow_tpu/runtime/trace_check.py``):
 it imports nothing of the JAX package.
 """
 

@@ -17,8 +17,8 @@ connections with a wrong secret are dropped, mirroring the reference
 tracer's shared-secret authentication (worker.go:117-121).
 
 The port's own copy of the reference's ``runtime/trace_server.py``
-(``distpow_tpu/runtime/trace_server.py``), without its lint
-declarations: it imports nothing of the JAX package.
+(``distpow_tpu/runtime/trace_server.py``): it imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ class TracingServer:
                 conn, _ = self._listener.accept()
             except OSError:
                 return
-            # thread-per-node
+            # distpow: ok unbounded-thread-spawn -- thread-per-node
             # connection like the RPC server's accept loop: the tracing
             # peers are the cluster's nodes, a small bounded set
             threading.Thread(

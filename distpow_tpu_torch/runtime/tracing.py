@@ -25,7 +25,7 @@ reference records from RPC handler goroutines); the clock and sink are
 mutex-guarded.
 
 The port's own copy of the reference's ``runtime/tracing.py``
-(``distpow_tpu/runtime/tracing.py``), without its lint declarations: it
+(``distpow_tpu/runtime/tracing.py``): it
 imports nothing of the JAX package.
 """
 
@@ -120,13 +120,13 @@ class TCPSink:
             for attempt in (0, 1):
                 try:
                     if self._sock is None:
-                        # the
+                        # distpow: ok transitive-blocking-under-lock -- the
                         # sink lock doubles as the exclusive-redialer
                         # guard: exactly one tracer thread dials after a
                         # drop while the rest queue behind it, and the
                         # dial is bounded by the connect timeout
                         self._sock = self._connect()
-                    # the sink lock
+                    # distpow: ok no-blocking-under-lock -- the sink lock
                     # is the per-connection frame serializer (same
                     # invariant as rpc._write_frame); only tracer threads
                     # of this process contend here, and a wedged tracing
@@ -227,7 +227,7 @@ class Tracer:
             # emit INSIDE the lock: clock tick and wire order must agree,
             # or concurrent threads ship events out of clock order and the
             # ShiViz happens-before stream is corrupt
-            # that ordering invariant
+            # distpow: ok no-blocking-under-lock -- that ordering invariant
             # REQUIRES the emit under the clock lock; the TCP sink degrades
             # to dropping events rather than blocking indefinitely
             self._emit(
@@ -255,7 +255,7 @@ class Tracer:
             for action in actions:
                 self._tick_locked()
                 vc = dict(self._vc)
-                # clock tick and
+                # distpow: ok no-blocking-under-lock -- clock tick and
                 # wire order must agree (see receive_token); emitting
                 # outside the lock lets concurrent recorders invert the
                 # happens-before stream
@@ -274,7 +274,7 @@ class Tracer:
         with self._lock:
             self._tick_locked()
             vc = dict(self._vc)
-            # clock tick and wire
+            # distpow: ok no-blocking-under-lock -- clock tick and wire
             # order must agree (see receive_token)
             self._emit(
                 {

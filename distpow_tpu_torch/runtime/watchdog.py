@@ -122,6 +122,10 @@ class DeviceWatchdog:
     def beat(self) -> None:
         if self._thread is None:
             return
+        # distpow: ok unguarded-shared-write -- lock-free by documented
+        # design (class docstring): beat() sits on the per-launch hot
+        # path, the store of a monotonic float is atomic under the GIL,
+        # and the staleness window tolerates one torn/lost beat
         self._last_beat = monotonic()
 
     @contextmanager
@@ -176,6 +180,10 @@ class DeviceWatchdog:
                 # idle: nothing is driving the device; keep the clock
                 # fresh so the first beat of the next section starts a
                 # clean window
+                # distpow: ok unguarded-shared-write -- monitor-thread
+                # refresh of the same GIL-atomic monotonic store as
+                # beat(); racing a concurrent beat() only makes the
+                # clock fresher, never staler
                 self._last_beat = monotonic()
                 continue
             # snapshot beat + grace state atomically: reading the beat

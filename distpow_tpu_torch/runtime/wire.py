@@ -55,7 +55,7 @@ same class a corrupt JSON frame raises, so rpc.py's existing
 drop-the-connection error handling covers both codecs.
 
 The port's own copy of the reference's ``runtime/wire.py``
-(``distpow_tpu/runtime/wire.py``), without its lint declarations: it
+(``distpow_tpu/runtime/wire.py``): it
 imports nothing of the JAX package.
 """
 

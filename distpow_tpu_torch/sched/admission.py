@@ -21,7 +21,7 @@ backoff, and the requests that ARE admitted keep their latency instead
 of aging in an unbounded queue.
 
 The port's own copy of the reference's ``sched/admission.py``
-(``distpow_tpu/sched/admission.py``), without its lint declarations: it
+(``distpow_tpu/sched/admission.py``): it
 imports nothing of the JAX package.
 """
 

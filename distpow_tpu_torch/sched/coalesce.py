@@ -24,7 +24,7 @@ round rejects/fails every coalesced request with the same typed error
 instead of stranding the waiters.
 
 The port's own copy of the reference's ``sched/coalesce.py``
-(``distpow_tpu/sched/coalesce.py``), without its lint declarations: it
+(``distpow_tpu/sched/coalesce.py``): it
 imports nothing of the JAX package.
 """
 

@@ -117,6 +117,10 @@ class Slot:
 
     def cancel(self) -> None:
         """Request cancellation; honored at the next launch boundary."""
+        # distpow: ok unguarded-shared-write -- monotonic False->True
+        # flag set from caller threads; the device loop re-reads it at
+        # every launch boundary (cancel_requested), so the worst a
+        # bare store costs is one extra launch, never a missed cancel
         self._cancelled = True
 
     def cancel_requested(self) -> bool:
@@ -241,7 +245,12 @@ class BatchingScheduler:
             slot = Slot(self._seq, nonce, difficulty, tb_lo, tbc, cancel_check, weight, masks,
                         segments, model)
             # the slot's whole scheduler life lands on the submitting thread's
-            # trace; _finish is its one finish point
+            # trace.
+            # distpow: ok unclosed-span -- slot spans cross the
+            # submit(miner)->device-loop thread boundary by design;
+            # _finish() is the single exit point for every slot (hit,
+            # cancel, exhaustion, loop death, close) and finishes the
+            # handle exactly once
             slot.span = SPANS.begin("sched.slot", seq=slot.seq, model=model.name)
             # virtual-clock floor: a joining slot starts at the most-starved
             # slot's vtime, not 0, so fresh arrivals cannot starve a long one

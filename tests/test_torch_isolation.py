@@ -9,7 +9,9 @@ on the CPU, and finds no ``jax`` in ``sys.modules`` (this pytest process has
 JAX loaded already, so the check needs its own process).  Another fresh
 interpreter imports the coordinator, client, tracing-server, config-gen and
 trace-check CLIs and finds no ``torch``: those processes never touch a
-device; so do the stats, SLO and forensics CLIs.  The soak CLI imports no
+device; so do the stats, SLO, forensics and lint CLIs.  The lint
+(``analysis/``, ``cli/lint.py``) and the lock audit (``runtime/lockcheck.py``)
+import neither ``torch`` nor numpy at all.  The soak CLI imports no
 ``torch`` while it soaks running processes (``--addr``), and loads it when
 it boots its in-process cluster (``--device cpu`` here).
 """
@@ -45,6 +47,30 @@ def test_no_jax_imports(path):
             bad += [a.name for a in node.names if _forbidden(a.name)]
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# the lint and the lock audit run where torch may not import: stdlib only
+TORCH_FREE = sorted(p for p in FILES if os.path.relpath(p, PKG).startswith("analysis" + os.sep)) + [
+    os.path.join(PKG, "runtime", "lockcheck.py"), os.path.join(PKG, "cli", "lint.py")]
+
+
+def test_scan_covers_the_lint_and_the_lock_audit():
+    assert len(TORCH_FREE) >= 20 + 2
+    assert set(TORCH_FREE) <= set(FILES)
+
+
+@pytest.mark.parametrize("path", TORCH_FREE, ids=[os.path.relpath(p, REPO) for p in TORCH_FREE])
+def test_lint_and_lock_audit_import_no_torch(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if a.name.split(".")[0] in ("torch", "numpy")]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if node.module.split(".")[0] in ("torch", "numpy"):
                 bad.append(node.module)
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
@@ -96,7 +122,7 @@ def test_main_path_imports_no_jax_in_a_fresh_process():
 
 
 DEVICE_LESS_CLIS = ("coordinator", "client", "tracing_server", "config_gen", "trace_check",
-                    "stats", "slo", "forensics")
+                    "stats", "slo", "forensics", "lint")
 
 
 @pytest.mark.parametrize("cli", DEVICE_LESS_CLIS)
