@@ -246,6 +246,14 @@ PERSISTENT_MESH_RUNS = ((0, 256), (16, 4), (5, 3))
 # launches timed of the main-path persistent launch (at the deep hit, and
 # without a hit in rate*)
 PERSISTENT_RATE_LAUNCHES = 5
+# persistent_parity: blocks of its launches on a small grid, claiming tiles
+# of one candidate a thread (every third case)
+PERSISTENT_SMALL_GRID = 3
+# persistent_main (md5): the worker's width-1 and width-2 dispatches,
+# (width, the found case's difficulty, the least fraction of the launch its
+# hit lies at), and launches timed of each
+WORKER_LAUNCHES = ((1, 5, 0.0), (2, 6, 0.25))
+WORKER_LAUNCH_REPS = 50
 # mine_mesh, mesh_full_parity, rate_mesh, sched_mesh: shards of search_mesh
 MESH_SHARDS = 4
 # mesh_procs: the ranks of the group and each rank's logical shards of its
@@ -1183,8 +1191,8 @@ def main() -> int:
     from distpow_tpu_torch.ops.operands import make_operands, u32_value
     from distpow_tpu_torch.ops.packing import build_tail_spec
     from distpow_tpu_torch.ops.difficulty import nibble_masks
-    from distpow_tpu_torch.ops.hash_cuda import (group_grid, hash_group_search,
-                                                 hash_persistent_search, one_wave_for)
+    from distpow_tpu_torch.ops.hash_cuda import (claim_rounds, group_grid, hash_group_search,
+                                                 hash_persistent_search, persistent_cell)
     from distpow_tpu_torch.ops.operands import group_operands
     from distpow_tpu_torch.ops.search_step import (
         SENTINEL, MeshOrigin, mask_words_for, partition_index, persistent_search_step,
@@ -1331,7 +1339,8 @@ def main() -> int:
                 "spill_bytes": max([v["spill_bytes"] for v in mspecs.values()], default=None),
                 "timed": {**mspecs.get(tk, {}), "loop_instructions": sum(mloops[tk].values())}}
             # the persistent forms, one specialization per solo (mesh) one:
-            # the same loop with the checks of the cell and the flag
+            # the same candidate test in the claim loop (its widest loop,
+            # the tile's candidate loop inside it)
             persistent_info[kernel] = {}
             for form, key, base_specs in (("solo", PERSISTENT_KEY, specs),
                                           ("mesh", MESH_PERSISTENT_KEY, mspecs)):
@@ -1344,7 +1353,11 @@ def main() -> int:
                     "register_delta_to_serial": sorted({v["registers"] - base_specs[k]["registers"]
                                                         for k, v in pspecs.items()
                                                         if k in base_specs}),
+                    "registers": sorted({v["registers"] for v in pspecs.values()}),
                     "spill_bytes": max([v["spill_bytes"] for v in pspecs.values()], default=None),
+                    "stack_bytes": max([int(stack) for name, stack, *_ in re.findall(
+                        PTXAS_FUNCTION, build_log.get(kernel, "")) if name_key(name, key)],
+                        default=None),
                     "timed": {**pspecs.get(tk, {}),
                               "loop_instructions": sum(ploops[tk].values())}}
         for lib in libs:
@@ -1605,6 +1618,12 @@ def main() -> int:
         stopped = [hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs, c0, batch,
                                           segs, one, device=dev)
                    for ops, spec, c0, batch, segs in cases[::3]]
+        # every third case once more on a small grid of tiles of one
+        # candidate a thread: many tiles a block, claims racing across
+        # blocks, tiles inside segments and tiles dropped below a hit
+        tiled = [persistent_cell(model, ops, spec.tb_loc, spec.chunk_locs, c0, batch, segs, zero,
+                                 grid=PERSISTENT_SMALL_GRID, rounds=1)
+                 for ops, spec, c0, batch, segs in cases[::3]]
         torch.cuda.synchronize()
         want = persistent_words(model, cases)
         mismatches, kinds, tails, max_err = [], collections.Counter(), set(), 0
@@ -1619,6 +1638,15 @@ def main() -> int:
         for label, g in zip(labels[::3], stopped):
             if words_of(g) != [SENTINEL, 0]:
                 mismatches.append({"case": f"{label}_stopped", "kernel": words_of(g)})
+        # the words exact; without a hit, every tile claimed once and one
+        # claim past the end a block
+        for label, g, w, case in zip(labels[::3], tiled, want[::3], cases[::3]):
+            tiles = -(-case[3] * case[4] // BLOCK_THREADS)
+            claims = u32_value(g[2])
+            if words_of(g[:2]) != w or \
+                    (w[0] == SENTINEL and claims != tiles + PERSISTENT_SMALL_GRID):
+                mismatches.append({"case": f"{label}_tiled", "kernel": words_of(g[:2]),
+                                   "claims": claims, "plain": w})
         # persistent_search_step itself: per width the case with the latest
         # first hit, and with the flag set
         direct = []
@@ -1668,7 +1696,8 @@ def main() -> int:
                 raised != 4 or not 0 < mesh_hits < len(mesh_cases):
             raise AssertionError(f"the grid missed a case: tails {tails}, {dict(kinds)}, "
                                  f"{raised} width-0 refusals, {mesh_hits} mesh hits")
-        return {"cases": len(cases), "stopped_cases": len(stopped), "mesh_cases": len(mesh_cases),
+        return {"cases": len(cases), "stopped_cases": len(stopped), "tiled_cases": len(tiled),
+                "tiled_grid": PERSISTENT_SMALL_GRID, "mesh_cases": len(mesh_cases),
                 "mismatches": 0, "segments_of_first_hit": dict(kinds), "tails": sorted(tails),
                 "width0_refused": raised, "plain_step": direct, "max_abs_err": max_err,
                 "tolerance": "exact (integer first-hit index and segment count)",
@@ -1677,9 +1706,11 @@ def main() -> int:
     def persistent_main(model, mesh):
         """The main path's persistent launch at full_parity's deep
         difficulty-7 hit, solo and on the mesh: both give (the solo kernel's
-        index, its segment + 1); timed beside the solo kernel on the same
-        launch (which runs on past its hit), and the plain persistent step's
-        time and words on it."""
+        index, its segment + 1), and (SENTINEL, 0) with the flag set; timed
+        beside the solo kernel on the same launch (which runs on past its
+        hit), each over the solo kernel's ms beside the hit's fraction of the
+        launch, with the claims of the solo persistent launch; and the plain
+        persistent step's time and words on it."""
         fp = smoke.info[f"full_parity{suffix(model.name)}"]
         nonce, steps, f = bytes.fromhex(fp["nonce"]), fp["launch_steps"], fp["cases"][0]["kernel"]
         spec = build_tail_spec(nonce, 4, model)
@@ -1690,21 +1721,14 @@ def main() -> int:
             nonce, 7, 0, 256, model, mesh, max_launch=budget)(4, b"", MAIN_BATCH // 256, steps)
         if each * 256 != MAIN_BATCH or chunks * 256 != MAIN_BATCH * steps:
             raise AssertionError(f"the mesh's segments: {each} chunks, {chunks} a launch")
-        # the persistent form on one resident wave and on the serial
-        # kernel's grid of several waves; "persistent" is the one the
-        # backends launch here (one_wave_for: one wave where the launch is
-        # expected to hold half a hit or more)
-        one_wave = one_wave_for(MAIN_BATCH * steps, 7)
+        # the persistent form (one resident wave claiming tiles in index
+        # order) beside the solo kernel, which runs on past the hit
         forms = {"solo": lambda: hash_search(model, ops, spec.tb_loc, spec.chunk_locs,
                                              MAIN_CHUNK0, MAIN_BATCH, steps, device=dev),
-                 "persistent_one_wave": lambda: hash_persistent_search(
+                 "persistent": lambda: hash_persistent_search(
                      model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0, MAIN_BATCH, steps,
-                     zero, device=dev, one_wave=True),
-                 "persistent_waves": lambda: hash_persistent_search(
-                     model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0, MAIN_BATCH, steps,
-                     zero, device=dev, one_wave=False),
+                     zero, device=dev),
                  "mesh_persistent": lambda: mstep(MAIN_CHUNK0, StopFlag())}
-        waves = default_grid(MAIN_BATCH * steps, smoke.info["device"]["sm_count"])
         expect = [f, f // MAIN_BATCH + 1]
         for name, fn in forms.items():
             out = fn()
@@ -1712,17 +1736,24 @@ def main() -> int:
             got = words_of(out)
             if got != (expect[:1] if name == "solo" else expect):
                 raise AssertionError(f"main path {name}: {got}, expected {expect}")
+        claims = u32_value(persistent_cell(model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
+                                           MAIN_BATCH, steps, zero)[2])
+        one = torch.ones(1, dtype=torch.int32, device=dev)
+        for name, out in (("persistent", hash_persistent_search(
+                model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0, MAIN_BATCH, steps, one,
+                device=dev)), ("mesh_persistent", mstep(MAIN_CHUNK0, StopFlag(set_=True)))):
+            if words_of(out) != [SENTINEL, 0]:
+                raise AssertionError(f"main path {name} with the flag set: {words_of(out)}")
         runs = collections.defaultdict(list)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        for name in ("solo", "persistent_one_wave", "persistent_waves", "mesh_persistent",
-                     "mesh_persistent", "persistent_waves", "persistent_one_wave", "solo"):
+        for name in ("solo", "persistent", "mesh_persistent", "mesh_persistent", "persistent",
+                     "solo"):
             start.record()
             for _ in range(PERSISTENT_RATE_LAUNCHES):
                 forms[name]()
             end.record()
             end.synchronize()
             runs[name].append(start.elapsed_time(end) / PERSISTENT_RATE_LAUNCHES)
-        runs["persistent"] = runs["persistent_one_wave" if one_wave else "persistent_waves"]
         start.record()
         plain = words_of(persistent_search_step(ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
                                                 MAIN_BATCH, steps, zero, model=model))
@@ -1738,18 +1769,120 @@ def main() -> int:
         dev_info = smoke.info["device"]
         clocks_per_s = dev_info["sm_count"] * dev_info["clock_mhz"] * 1e6
         candidates = expect[1] * MAIN_BATCH
+        fraction = f / (MAIN_BATCH * steps)
+        solo_ms = min(runs["solo"])
         return {"nonce": nonce.hex(), "difficulty": 7, "launch_steps": steps, "words": expect,
-                "fraction_of_launch": f / (MAIN_BATCH * steps),
+                "fraction_of_launch": fraction,
                 "ms": {k: min(v) for k, v in runs.items()}, "ms_runs": dict(runs),
-                "persistent_over_solo": min(runs["persistent"]) / min(runs["solo"]),
-                "one_wave": one_wave, "waves_grid": waves,
-                "one_wave_over_waves": (min(runs["persistent_one_wave"]) /
-                                        min(runs["persistent_waves"])),
+                "persistent_over_solo": min(runs["persistent"]) / solo_ms,
+                "persistent_over_solo_less_fraction": min(runs["persistent"]) / solo_ms - fraction,
+                "mesh_persistent_over_solo": min(runs["mesh_persistent"]) / solo_ms,
+                "claim_rounds": claim_rounds(model), "claims": claims,
                 "plain_ms": start.elapsed_time(end), "plain_words": plain,
                 "bound_candidates": candidates, "needed_ops_per_hash": needed,
                 "bound_ms": candidates * needed / (ISSUED_RESULTS_PER_CLOCK_PER_SM *
                                                    clocks_per_s) * 1e3,
+                "worker_launches": worker_launches(model) if model.name == "md5" else None,
                 "card": dev_info["nvidia_smi"]}
+
+    def worker_launches(model):
+        """The persistent loop's width-1 and width-2 dispatches (2^20 and
+        2^24 candidates of a 4-byte nonce, as ``launch_steps_for`` sizes
+        them), solo and persistent, without a hit (difficulty 16) and at a
+        hit (``WORKER_LAUNCHES``: the first nonce of 256 whose hit lies past
+        the fraction given; at width 1 the chunk byte wraps every 2^16
+        candidates, so a hit lies in the launch's first sixteenth): ms, the
+        persistent ÷ solo beside the hit's fraction of the launch, and the
+        claims; the persistent words the solo kernel's index and its
+        segment + 1."""
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        budget = CudaBackend(hash_model=model.name, device=dev).max_launch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        out = {}
+        for width, difficulty, least in WORKER_LAUNCHES:
+            steps = launch_steps_for(width, MAIN_BATCH // 256, 256, budget)
+            n, chunk0 = MAIN_BATCH * steps, 256 ** (width - 1)
+
+            def forms(nonce, d):
+                spec = build_tail_spec(nonce, width, model)
+                ops = step_operands(spec, d, model, 0, 256, dev)
+                args = (model, ops, spec.tb_loc, spec.chunk_locs, chunk0, MAIN_BATCH, steps)
+                return {"solo": lambda: hash_search(*args, device=dev),
+                        "persistent": lambda: hash_persistent_search(*args, zero, device=dev),
+                        "cell": lambda: persistent_cell(*args, zero)}
+
+            for i in range(256):
+                nonce = b"wl" + bytes([width, i])
+                found = forms(nonce, difficulty)
+                f = u32_value(found["solo"]())
+                if f != SENTINEL and f >= least * n:
+                    break
+            else:
+                raise AssertionError(f"width {width}: no hit past {least} of the launch")
+            row = {"launch_steps": steps, "candidates": n, "nonce": nonce.hex(),
+                   "difficulty": difficulty, "fraction_of_launch": f / n}
+            for case, fns, expect in (
+                    ("no_hit", forms(bytes([1, 2, 3, 4]), RATE_DIFFICULTY), [SENTINEL, steps]),
+                    ("found", found, [f, f // MAIN_BATCH + 1])):
+                if u32_value(fns["solo"]()) != expect[0] or \
+                        words_of(fns["persistent"]()) != expect:
+                    raise AssertionError(f"width {width} {case}: persistent "
+                                         f"{words_of(fns['persistent']())}, expected {expect}")
+                claims = u32_value(fns["cell"]()[2])
+                runs = {"solo": [], "persistent": []}
+                for form in ("solo", "persistent", "persistent", "solo"):
+                    start.record()
+                    for _ in range(WORKER_LAUNCH_REPS):
+                        fns[form]()
+                    end.record()
+                    end.synchronize()
+                    runs[form].append(start.elapsed_time(end) / WORKER_LAUNCH_REPS)
+                row[case] = {"ms": {k: min(v) for k, v in runs.items()}, "ms_runs": runs,
+                             "persistent_over_solo": min(runs["persistent"]) / min(runs["solo"]),
+                             "claims": claims}
+            out[f"width{width}"] = row
+        return out
+
+    def device_timed(run):
+        """``run()`` with a CUDA event pair around each launch the CUDA
+        backend makes (``cuda_backend.hash_search`` and
+        ``hash_persistent_search``, patched for the call): its wall ms, the
+        launches and their device ms summed, once the card is idle, and per
+        form and launch size (candidates) the launches and their device ms."""
+        pairs = []
+        orig = {name: getattr(cuda_backend, name)
+                for name in ("hash_search", "hash_persistent_search")}
+
+        def timed(name, fn):
+            def launch(model, ops, tb_loc, chunk_locs, chunk0, batch, steps, *args, **kwargs):
+                stream = torch.cuda.current_stream(ops.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                out = fn(model, ops, tb_loc, chunk_locs, chunk0, batch, steps, *args, **kwargs)
+                end.record(stream)
+                pairs.append((start, end, f"{name}@{batch * steps}"))
+                return out
+
+            return launch
+
+        for name, fn in orig.items():
+            setattr(cuda_backend, name, timed(name, fn))
+        try:
+            t0 = time.monotonic()
+            run()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        finally:
+            for name, fn in orig.items():
+                setattr(cuda_backend, name, fn)
+        torch.cuda.synchronize()
+        sizes = collections.defaultdict(lambda: [0, 0.0])
+        for a, b, key in pairs:
+            sizes[key][0] += 1
+            sizes[key][1] += a.elapsed_time(b)
+        return {"wall_ms": wall_ms, "launches": len(pairs),
+                "device_ms": sum(v[1] for v in sizes.values()),
+                "by_launch": {k: {"launches": c, "device_ms": t} for k, (c, t) in sizes.items()}}
 
     # 4. mine: the worker's path through get_backend("auto"), both loops ---
     def mine(model):
@@ -1898,7 +2031,13 @@ def main() -> int:
             if others:
                 raise AssertionError(f"the {model.name} {loop} loop launched other kernels: "
                                      f"{others}")
-        return {"requests": requests, "kernel_launches": path,
+        # md5's requests once more under each loop, after the counts were
+        # read: the device ms of their launches beside the wall ms, to split
+        # a gap between the loops into device and host time
+        timed = {loop: {d: device_timed(lambda: backends[loop].search(nonce, d, full))
+                        for d in difficulties}
+                 for loop in ("persistent", "serial")} if model.name == "md5" else None
+        return {"requests": requests, "kernel_launches": path, "device_timed": timed,
                 "search_launches": totals["persistent"]["launches"],
                 "blocking_syncs": totals["persistent"]["blocking_syncs"],
                 "persistent_steps": totals["persistent"]["persistent_steps"],
@@ -1947,28 +2086,22 @@ def main() -> int:
         ms = start.elapsed_time(end) / RATE_LAUNCHES
 
         # the persistent form of the same launch, no hit and no flag: every
-        # segment runs; timed between two more readings of the solo launch,
-        # on the grid the backends give it (one_wave_for: not expected to
-        # hold a hit, so the serial kernel's) and on one resident wave
+        # tile runs; timed between two more readings of the solo launch
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        rule = one_wave_for(n, RATE_DIFFICULTY)
 
-        def persistent(one_wave=rule):
+        def persistent():
             return hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0,
-                                          batch, steps, zero, device=dev, one_wave=one_wave)
+                                          batch, steps, zero, device=dev)
 
-        def persistent_one_wave():
-            return persistent(True)
-
-        for words in (persistent(), persistent_one_wave()):
-            torch.cuda.synchronize()
-            if [u32_value(v) for v in words] != [first, steps if first == SENTINEL else
-                                                 first // batch + 1]:
-                raise AssertionError(f"persistent launch {words.tolist()}, solo {first}")
-        persistent_runs = {"solo": [], "persistent": [], "persistent_one_wave": []}
-        for form, fn in (("solo", launch), ("persistent", persistent),
-                         ("persistent_one_wave", persistent_one_wave),
-                         ("persistent_one_wave", persistent_one_wave), ("persistent", persistent),
+        words = persistent()
+        torch.cuda.synchronize()
+        if [u32_value(v) for v in words] != [first, steps if first == SENTINEL else
+                                             first // batch + 1]:
+            raise AssertionError(f"persistent launch {words.tolist()}, solo {first}")
+        claims = u32_value(persistent_cell(model, ops, spec.tb_loc, spec.chunk_locs, chunk0,
+                                           batch, steps, zero)[2])
+        persistent_runs = {"solo": [], "persistent": []}
+        for form, fn in (("solo", launch), ("persistent", persistent), ("persistent", persistent),
                          ("solo", launch)):
             start.record()
             for _ in range(PERSISTENT_RATE_LAUNCHES):
@@ -2023,8 +2156,7 @@ def main() -> int:
                 "ms": ms, "ghs": n / ms / 1e6, "result": first,
                 "persistent_ms": persistent_ms, "persistent_runs": persistent_runs,
                 "persistent_over_solo": persistent_ms / min(persistent_runs["solo"]),
-                "persistent_one_wave": rule,
-                "persistent_one_wave_ms": min(persistent_runs["persistent_one_wave"]),
+                "persistent_claim_rounds": claim_rounds(model), "persistent_claims": claims,
                 "sm_clock_mhz_timed": clock.mhz,
                 "plain_ms_part": plain_ms, "plain_sub_batches": part,
                 "plain_part_of_launch": part / steps,

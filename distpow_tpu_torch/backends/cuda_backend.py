@@ -31,8 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..models.registry import get_hash_model
-from ..ops.hash_cuda import (hash_persistent_search, hash_search, kernel_name, load_kernels,
-                             one_wave_for)
+from ..ops.hash_cuda import hash_persistent_search, hash_search, kernel_name, load_kernels
 from ..ops.operands import Device, u32_value
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import step_operands
@@ -252,12 +251,11 @@ class CudaBackend(DeviceBackend):
             spec = build_tail_spec(nonce, vw, self.model, extra)
             ops = step_operands(spec, difficulty, self.model, tb_lo, tbc, self.device)
             chunks, k = plan_launch_geometry(target_chunks, tbc, segments, self.max_launch)
-            one_wave = one_wave_for(chunks * tbc * k, difficulty)
 
             def step(chunk0: int, stop: StopFlag) -> torch.Tensor:
                 return hash_persistent_search(self.model, ops, spec.tb_loc, spec.chunk_locs,
                                               chunk0, chunks * tbc, k, stop.operand(ops.device),
-                                              device=self.device, one_wave=one_wave)
+                                              device=self.device)
 
             return step, chunks, chunks * k
 

@@ -150,45 +150,50 @@ DISTPOW_HD uint32_t mesh_global_index(const Layout& L, const MeshOrigin& o, uint
 // A launch covers whole segments of P.seg reported indices (a solo launch's
 // flat indices, a mesh shard's partition indices) and leaves two words:
 // out[0], the least hit or SENTINEL, and out[1], the segments executed: the
-// hit's segment + 1; where a thread saw the search's stop flag, at most the
-// segment it was about to start (0 when the flag was set before the
+// hit's segment + 1; where a block saw the search's stop flag, at most the
+// segment of the tile it had claimed (0 when the flag was set before the
 // launch); else the launch's segment count, which the wrapper wrote there.
-// A null stop is the serial form, in which none of it runs.
+// out[2] is the claim counter, which the wrapper zeroed: the tiles claimed.
+//
+// Work is handed out in index order.  A block claims the next tile of
+// P.rounds * threads consecutive flat indices from the counter (claim c is
+// the tile at c * P.rounds * threads), and its thread t tests the tile's
+// indices claim_index(base, t, threads, j) for j < P.rounds, in ascending
+// order, until its first hit.
 struct Persist {
-  const uint32_t* stop;  // the search's stop flag, a device word, or null
+  const uint32_t* stop;  // the search's stop flag, a device word; null: the serial form
   uint32_t seg;          // reported indices per segment
-  uint32_t batch;        // flat indices per segment of this launch
-  uint32_t period_mask;  // 2^k - 1, 2^k >= the grid's threads (persistent_due)
+  uint32_t rounds;       // candidates a thread tests of each tile (> 0; launch_rounds)
 };
 
-// The check period's mask for a launch of `threads` threads whose segment
-// holds `batch` flat indices: 2^k - 1 for the least 2^k at or above both,
-// so a thread checks at least once a segment of its own loop.
-DISTPOW_HD uint32_t persistent_period_mask(uint32_t batch, uint32_t threads) {
-  uint32_t m = (batch > threads ? batch : threads) - 1;
-  m |= m >> 1;
-  m |= m >> 2;
-  m |= m >> 4;
-  m |= m >> 8;
-  m |= m >> 16;
-  return m;
+// Index j of thread t's part of the tile of threads * rounds flat indices
+// that starts at base.
+DISTPOW_HD uint32_t claim_index(uint32_t base, uint32_t t, uint32_t threads, uint32_t j) {
+  return base + t + threads * j;
 }
 
-// Is a persistent thread's check due before flat index f?  Where f's low k
-// bits (period_mask = 2^k - 1) are below the grid's stride: once each 2^k
-// flat indices of the thread's loop, since the loop steps by the stride,
-// at most 2^k, and at its first index, which is below the stride.  The
-// test needs no state carried through the loop.
-DISTPOW_HD bool persistent_due(uint32_t f, uint32_t period_mask, uint32_t stride) {
-  return (f & period_mask) < stride;
+// The candidates a thread tests of each tile of a launch of n flat indices
+// on `blocks` blocks of `threads`: as many as leave each block at least
+// TILES_PER_BLOCK tiles, so that a launch of few tiles a wave still fills
+// the wave and stops near its hit, and at least 1; at most `most`, the
+// model's (hash_cuda.claim_rounds), which keeps a long launch's claims rare.
+constexpr uint32_t TILES_PER_BLOCK = 8;
+
+DISTPOW_HD uint32_t launch_rounds(uint32_t n, uint32_t blocks, uint32_t threads, uint32_t most) {
+  const uint64_t r = n / (static_cast<uint64_t>(blocks > 0 ? blocks : 1) * threads *
+                          TILES_PER_BLOCK);
+  return r < 1 ? 1 : r > most ? most : static_cast<uint32_t>(r);
 }
 
-// What a persistent thread does before the candidate it reports as index g,
-// from the launch's cell (out[0]) and the search's flag as it read them:
-// test it (kTest); stop, because the cell holds a hit below g (kBelowHit); or
-// stop on the flag (kStopped).  The cell only decreases, the reported index
-// grows along a thread's loop, and every index a thread skips lies above a
-// hit already published, so the least index is the serial kernel's.
+// What a persistent block does with the tile it claimed, whose first index
+// it reports as g, from the launch's cell (out[0]) and the search's flag as
+// it read them: test it (kTest); drop it and stop, because the cell holds a
+// hit below g (kBelowHit); or stop on the flag (kStopped).  Tiles leave the
+// counter in ascending order, the reported index grows with the flat index,
+// and the cell only decreases, so a tile is dropped only when every index
+// in it lies above a hit already published, and so does every tile claimed
+// after it: every index below the least hit is tested, and the least index
+// is the serial kernel's.
 enum PersistentStep : int { kTest = 0, kBelowHit = 1, kStopped = 2 };
 
 DISTPOW_HD int persistent_step(uint32_t cell, uint32_t stop, uint32_t g) {
@@ -519,16 +524,15 @@ int launch_group(int n_blocks, int n_slots, uint32_t batch, int grid_x, Launch l
 // * The min across the grid: per thread, per warp (__reduce_min_sync), then
 //   one atomicMin per block into a cell the wrapper set to SENTINEL on the
 //   same stream.
-// * The persistent form (hash_persistent_kernel, Persist) is the same body
-//   with a stop flag, a kernel of its own so that the serial loop stays as
-//   it was (one check inside it cost md5's serial launch 7 %): a hit goes
-//   into the cell at once, and each thread stops once a segment's check
-//   finds a hit below its next index or the search's flag set, so a launch
-//   ends about one segment after its first hit, and a launch still queued
-//   when the driver sets the flag within one segment.  A launch expected
-//   to hold a hit runs on one resident wave (resident_grid), so that the
-//   threads reach the hit in index order.  The check costs md5's loop, the
-//   shortest, about 6 % and the others about 2 %.
+// * The persistent form (hash_persistent_kernel, Persist) tests the same
+//   candidates in a kernel of its own, so that the serial loop stays as it
+//   was.  Its blocks claim tiles of consecutive flat indices in ascending
+//   order (hash_persistent_block), so every block sweeps the launch low to
+//   high whatever the number of waves, and it runs on one resident wave
+//   (resident_wave), with tiles sized to the launch (launch_rounds).  A hit goes into the cell at once; the cell and the
+//   search's flag are read once a tile, at the claim, not in the candidate
+//   loop; so a launch ends about one tile after its first hit, and a launch
+//   still queued when the driver sets the flag within one tile.
 // What bounds it is instruction issue: a candidate reads no device memory.
 constexpr int HASH_BLOCK_THREADS = 256;
 
@@ -541,20 +545,8 @@ __device__ __forceinline__ uint32_t live_word(const uint32_t* p) {
   return v;
 }
 
-// A persistent thread's check before the candidate it reports as g, on the
-// cell and flag as it read them: true if it stops (persistent_step).  The
-// loads stall the warp for their latency once a segment; loads issued a
-// check ahead, a countdown of iterations, a check after the hash test or
-// in the same branch measured no faster (md5, sha1; PERF.md §6).
-__device__ __forceinline__ bool persistent_stops(const Persist& P, uint32_t* out, uint32_t cell,
-                                                 uint32_t stop, uint32_t g) {
-  const int step = persistent_step(cell, stop, g);
-  if (step == kStopped) atomicMin(out + 1, g / P.seg);
-  return step != kTest;
-}
-
-// A persistent thread's hit, published at once, so that the others stop at
-// their next check.
+// A persistent thread's hit, published at once, so that no block tests a
+// tile above it.
 __device__ __forceinline__ void persistent_hit(const Persist& P, uint32_t* out, uint32_t g) {
   atomicMin(out, g);
   atomicMin(out + 1, g / P.seg + 1);
@@ -572,18 +564,14 @@ struct PartitionIndex {
   }
 };
 
-// The thread's first hitting flat index in its grid-stride loop, or SENTINEL.
-// In the persistent form (PERSISTENT) the thread checks the cell and the
-// flag where persistent_due says, about once a segment of its own loop, and
-// publishes a hit into out at once (report gives the index out holds).  A
-// check keeps no state in the loop, so md5's per-thread table keeps its
-// registers.  The serial form compiles none of it, so its loop is the one
-// it was before the persistent form.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT, class Report>
+// The thread's first hitting flat index in its grid-stride loop, or
+// SENTINEL: the serial kernels' loop.  Its two candidate tests are
+// CandidateTest's (the persistent form's), written out here so that the
+// serial loops' SASS stays as it was; a change to one goes into both.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
 __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const uint32_t* base,
                                                      const uint32_t* masks, const Layout& L,
-                                                     uint32_t n, const Persist& P,
-                                                     uint32_t* out, Report report) {
+                                                     uint32_t n) {
   const uint32_t stride = gridDim.x * blockDim.x;
   // one hash per iteration, so the loop body in the SASS is one candidate's
   // work: chip_smoke.py counts it beside the bound
@@ -594,15 +582,7 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
     for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
       uint32_t tb, chunk;
       decode<POW2>(L, f, tb, chunk);
-      if constexpr (PERSISTENT) {
-        if (persistent_due(f, P.period_mask, stride) &&
-            persistent_stops(P, out, live_word(out), live_word(P.stop), report(f, tb, chunk)))
-          return SENTINEL;
-      }
-      if (keyed_candidate_hits<H, MASK_WORDS, N_BLOCKS>(tail, masks, L, tb, chunk)) {
-        if constexpr (PERSISTENT) persistent_hit(P, out, report(f, tb, chunk));
-        return f;
-      }
+      if (keyed_candidate_hits<H, MASK_WORDS, N_BLOCKS>(tail, masks, L, tb, chunk)) return f;
     }
     return SENTINEL;
   } else {
@@ -610,15 +590,8 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
     for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < n; f += stride) {
       uint32_t tb, chunk;
       decode<POW2>(L, f, tb, chunk);
-      if constexpr (PERSISTENT) {
-        if (persistent_due(f, P.period_mask, stride) &&
-            persistent_stops(P, out, live_word(out), live_word(P.stop), report(f, tb, chunk)))
-          return SENTINEL;
-      }
-      if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk)) {
-        if constexpr (PERSISTENT) persistent_hit(P, out, report(f, tb, chunk));
+      if (hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk))
         return f;
-      }
     }
     return SENTINEL;
   }
@@ -626,15 +599,17 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
 
 // A thread's first hit in one block's search, the launch's operands loaded
 // into shared memory first: the body of the solo, group and mesh kernels.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false,
-          class Report = FlatIndex>
+// Report, the index the kernel's cell holds (FlatIndex for the solo and
+// group kernels, PartitionIndex for the mesh kernel), keys the shared
+// arrays: the mesh kernels keep arrays of their own, apart from the solo
+// kernels'.  ptxas lays out a kernel's shared memory by the arrays of the
+// whole module, and with the arrays shared, md5's two-block kernels came
+// out 4 instructions longer or shorter.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, class Report = FlatIndex>
 __device__ __forceinline__ uint32_t hash_block_first_hit(const uint32_t* __restrict__ init_g,
                                                          const uint32_t* __restrict__ base_g,
                                                          const uint32_t* __restrict__ masks_g,
-                                                         const Layout& L, uint32_t n,
-                                                         const Persist& P = Persist{},
-                                                         uint32_t* out = nullptr,
-                                                         Report report = Report{}) {
+                                                         const Layout& L, uint32_t n) {
   constexpr int BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
   uint32_t masks[MASK_WORDS];
 #pragma unroll
@@ -644,22 +619,18 @@ __device__ __forceinline__ uint32_t hash_block_first_hit(const uint32_t* __restr
   for (int i = threadIdx.x; i < H::STATE_WORDS; i += blockDim.x) init[i] = init_g[i];
   for (int i = threadIdx.x; i < BASE_WORDS; i += blockDim.x) base[i] = base_g[i];
   __syncthreads();
-  return thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PERSISTENT>(init, base, masks, L, n, P,
-                                                                     out, report);
+  return thread_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init, base, masks, L, n);
 }
 
-// The kernels' body, one block's search, serial or persistent.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false>
+// The kernels' body, one block's search.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
 __device__ __forceinline__ void hash_search_block(const uint32_t* __restrict__ init_g,
                                                   const uint32_t* __restrict__ base_g,
                                                   const uint32_t* __restrict__ masks_g,
                                                   const Layout& L, uint32_t n,
-                                                  uint32_t* __restrict__ out,
-                                                  const Persist& P = Persist{}) {
+                                                  uint32_t* __restrict__ out) {
   block_min_to<HASH_BLOCK_THREADS>(
-      hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PERSISTENT>(init_g, base_g, masks_g, L,
-                                                                      n, P, out),
-      out);
+      hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n), out);
 }
 
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
@@ -680,13 +651,128 @@ resident_hash_search_kernel(const uint32_t* __restrict__ init_g,
   hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out);
 }
 
+// The candidate test of the persistent form: for a hash built for one tail
+// layout (KEYED) its own body, over the launch's constants made once per
+// thread; else the generic one over the rows in shared memory.  The same two
+// tests as thread_first_hit's two loops.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool KEYED = KeyedByVarWord<H>::value>
+struct CandidateTest {
+  const uint32_t *init, *base, *masks;
+  __device__ __forceinline__ CandidateTest(const uint32_t* init_, const uint32_t* base_,
+                                           const uint32_t* masks_)
+      : init(init_), base(base_), masks(masks_) {}
+  __device__ __forceinline__ bool operator()(const Layout& L, uint32_t tb, uint32_t chunk) const {
+    return hash_candidate_hits<H, MASK_WORDS, N_BLOCKS>(init, base, masks, L, tb, chunk);
+  }
+};
+
+template <class H, int MASK_WORDS, int N_BLOCKS>
+struct CandidateTest<H, MASK_WORDS, N_BLOCKS, true> {
+  const typename H::template Tail<N_BLOCKS> tail;
+  const uint32_t* masks;
+  __device__ __forceinline__ CandidateTest(const uint32_t* init, const uint32_t* base,
+                                           const uint32_t* masks_)
+      : tail(init, base), masks(masks_) {}
+  __device__ __forceinline__ bool operator()(const Layout& L, uint32_t tb, uint32_t chunk) const {
+    return keyed_candidate_hits<H, MASK_WORDS, N_BLOCKS>(tail, masks, L, tb, chunk);
+  }
+};
+
+// Thread 0's check of the tile it claimed at flat index b (persistent_step
+// on the cell and the flag as it reads them now): b, or SENTINEL where the
+// block stops, because the counter has passed the launch's end, the cell
+// holds a hit below the tile, or the flag is set (the segment word then
+// falls to the tile's segment).
+template <bool POW2, class Report>
+__device__ __forceinline__ uint32_t persistent_claim(const Persist& P, uint32_t* out,
+                                                     const Layout& L, uint32_t n, uint32_t b,
+                                                     Report report) {
+  const uint32_t cell = live_word(out), stop = live_word(P.stop);
+  if (b >= n) return SENTINEL;
+  uint32_t tb, chunk;
+  decode<POW2>(L, b, tb, chunk);
+  const uint32_t g = report(b, tb, chunk);
+  const int step = persistent_step(cell, stop, g);
+  if (step == kStopped) atomicMin(out + 1, g / P.seg);
+  return step == kTest ? b : SENTINEL;
+}
+
+// One block of the persistent form: the launch's operands into shared
+// memory, then tile after tile of P.rounds candidates a thread.
+// * Thread 0 claims the block's next tile with one atomicAdd of 1 on the
+//   counter (out[2]) as the block starts the tile before, so that the atomic's
+//   latency hides behind that tile; it checks the claim at that tile's end
+//   (persistent_claim, with fresh reads of the cell and the flag) and hands
+//   its base to the block through shared memory, two slots in turn, so one
+//   barrier a tile suffices.
+// * Each thread tests its indices of the tile (claim_index) in ascending
+//   order.  Tiles leave the counter in ascending order and a tile is
+//   dropped only where the cell holds a hit below its base
+//   (persistent_step), so every index below the least hit is tested, and
+//   the words are the serial kernel's.
+// * A thread that has hit tests nothing more, but stays in the loop until
+//   its block stops, since every claim takes a barrier of the whole block.
+//   Each hit is published at once (persistent_hit), so no block min follows.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, class Report>
+__device__ __forceinline__ void hash_persistent_block(const uint32_t* __restrict__ init_g,
+                                                      const uint32_t* __restrict__ base_g,
+                                                      const uint32_t* __restrict__ masks_g,
+                                                      const Layout& L, uint32_t n,
+                                                      uint32_t* __restrict__ out,
+                                                      const Persist& P, Report report) {
+  constexpr int BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
+  uint32_t masks[MASK_WORDS];
+#pragma unroll
+  for (int i = 0; i < MASK_WORDS; ++i) masks[i] = __ldg(masks_g + i);
+
+  __shared__ uint32_t init[H::STATE_WORDS], base[BASE_WORDS], claimed[2];
+  for (int i = threadIdx.x; i < H::STATE_WORDS; i += blockDim.x) init[i] = init_g[i];
+  for (int i = threadIdx.x; i < BASE_WORDS; i += blockDim.x) base[i] = base_g[i];
+  uint32_t* const counter = out + 2;  // tiles claimed
+  const uint32_t tile = P.rounds * HASH_BLOCK_THREADS;
+  uint32_t next = 0;  // thread 0's next tile's first index
+  // claim * tile < n + grid * tile < 2^32 (launch_persistent)
+  if (threadIdx.x == 0) next = atomicAdd(counter, 1u) * tile;
+  __syncthreads();
+  const CandidateTest<H, MASK_WORDS, N_BLOCKS> hits(init, base, masks);
+  bool testing = true;
+#pragma unroll 1
+  for (int slot = 0;; slot ^= 1) {
+    if (threadIdx.x == 0) {
+      const uint32_t b = persistent_claim<POW2>(P, out, L, n, next, report);
+      claimed[slot] = b;
+      if (b != SENTINEL) next = atomicAdd(counter, 1u) * tile;
+    }
+    __syncthreads();
+    const uint32_t b = claimed[slot];
+    if (b == SENTINEL) return;
+    if (testing) {
+      // b + tile < n + grid * tile < 2^32 (launch_persistent)
+      const uint32_t end = min(b + tile, n);
+      // one hash per iteration, as in the serial loop
+#pragma unroll 1
+      for (uint32_t f = claim_index(b, threadIdx.x, HASH_BLOCK_THREADS, 0); f < end;
+           f += HASH_BLOCK_THREADS) {
+        uint32_t tb, chunk;
+        decode<POW2>(L, f, tb, chunk);
+        if (hits(L, tb, chunk)) {
+          persistent_hit(P, out, report(f, tb, chunk));
+          testing = false;
+          break;
+        }
+      }
+    }
+  }
+}
+
 // The persistent form of the solo kernel (Persist), and its resident twin.
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
 __global__ void __launch_bounds__(HASH_BLOCK_THREADS)
 hash_persistent_kernel(const uint32_t* __restrict__ init_g, const uint32_t* __restrict__ base_g,
                        const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
                        uint32_t* __restrict__ out, Persist P) {
-  hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, n, out, P);
+  hash_persistent_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out, P,
+                                                       FlatIndex{});
 }
 
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
@@ -695,39 +781,42 @@ resident_hash_persistent_kernel(const uint32_t* __restrict__ init_g,
                                 const uint32_t* __restrict__ base_g,
                                 const uint32_t* __restrict__ masks_g, Layout L, uint32_t n,
                                 uint32_t* __restrict__ out, Persist P) {
-  hash_search_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, n, out, P);
+  hash_persistent_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out, P,
+                                                       FlatIndex{});
 }
 
 // One resident wave of kernel: the blocks of HASH_BLOCK_THREADS that the
-// current device's SMs hold at once, and no more than n flat indices fill.
-// In one wave a thread's grid-stride loop walks the launch in index order
-// beside every other thread's, so a published hit stops the whole launch
-// near the hit's position; with several waves the blocks of a later wave
-// start only once an earlier wave has swept the launch.  0 where the
-// device cannot be asked (the launch then fails).
+// current device's SMs hold at once.  0 where the device cannot be asked
+// (the launch then fails).
 template <class Kernel>
-int resident_grid(Kernel kernel, uint32_t n) {
+int resident_wave(Kernel kernel) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, HASH_BLOCK_THREADS, 0) !=
           cudaSuccess)
     return 0;
-  const long long blocks =
-      (static_cast<long long>(n) + HASH_BLOCK_THREADS - 1) / HASH_BLOCK_THREADS;
-  const long long wave = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-  return static_cast<int>(blocks < wave ? blocks : wave);
+  return (per_sm > 0 ? per_sm : 1) * sms;
 }
 
 // A persistent kernel's launch over n flat indices: grid blocks, or where
-// grid <= 0 one resident wave (resident_grid); P's check period is set for
-// the grid it runs on.  args are the kernel's arguments before P.
+// grid <= 0 one resident wave (resident_wave) cut to the launch's tiles.
+// The tile takes launch_rounds(n, those blocks, ..., P.rounds) candidates
+// a thread.  A block claims at most one tile past the launch's end, so the
+// claimed tiles' indices stay below n + grid * tile; the grid is cut so
+// that this fits 32 bits.  args are the kernel's arguments before P.
 template <class Kernel, class... Args>
 void launch_persistent(Kernel kernel, uint32_t n, int grid, cudaStream_t stream, Persist P,
                        Args... args) {
-  if (grid <= 0) grid = resident_grid(kernel, n);
-  P.period_mask =
-      persistent_period_mask(P.batch, static_cast<uint32_t>(grid) * HASH_BLOCK_THREADS);
+  const int blocks = grid > 0 ? grid : resident_wave(kernel);
+  P.rounds = launch_rounds(n, blocks, HASH_BLOCK_THREADS, P.rounds);
+  const uint32_t tile = P.rounds * HASH_BLOCK_THREADS;
+  if (grid <= 0) {
+    const long long tiles = (static_cast<long long>(n) + tile - 1) / tile;
+    grid = static_cast<int>(tiles < blocks ? tiles : blocks);
+  }
+  const unsigned long long room = (0xFFFFFFFFull - n) / tile;
+  if (static_cast<unsigned long long>(grid) > room) grid = static_cast<int>(room);
   kernel<<<grid, HASH_BLOCK_THREADS, 0, stream>>>(args..., P);
 }
 
@@ -836,21 +925,17 @@ int launch_hash_group_search(const void* init, const void* base, const void* mas
 // hit becomes the partition's flat index (mesh_global_index)
 // before the block min, so the least value across the shards' cells is
 // the partition's first hit.  The loop is the solo kernel's: the remap
-// runs once per thread, after it.  In the persistent form each shard's
-// threads check and publish against the shard's own cell in partition
-// indices, which grow with the flat index within a shard, so the rule of
-// persistent_step keeps each shard's least index.
-template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2, bool PERSISTENT = false>
+// runs once per thread, after it.
+template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
 __device__ __forceinline__ void hash_mesh_block(const uint32_t* __restrict__ init_g,
                                                 const uint32_t* __restrict__ base_g,
                                                 const uint32_t* __restrict__ masks_g,
                                                 const Layout& L, const MeshOrigin& o, uint32_t n,
-                                                uint32_t* __restrict__ out,
-                                                const Persist& P = Persist{}) {
+                                                uint32_t* __restrict__ out) {
   block_min_to<HASH_BLOCK_THREADS>(
       mesh_global_index<POW2>(L, o,
-                              hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PERSISTENT>(
-                                  init_g, base_g, masks_g, L, n, P, out, PartitionIndex{o})),
+                              hash_block_first_hit<H, MASK_WORDS, N_BLOCKS, POW2, PartitionIndex>(
+                                  init_g, base_g, masks_g, L, n)),
       out);
 }
 
@@ -872,14 +957,19 @@ resident_hash_mesh_kernel(const uint32_t* __restrict__ init_g,
   hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, o, n, out);
 }
 
-// The persistent form of the mesh kernel (Persist), and its resident twin.
+// The persistent form of the mesh kernel (Persist), and its resident twin:
+// the solo persistent block over the shard's slice, claiming in the
+// shard's flat order and reporting partition indices (PartitionIndex),
+// which grow with the flat index within a shard, against the shard's own
+// cell, so that the rule of persistent_step keeps each shard's least index.
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
 __global__ void __launch_bounds__(HASH_BLOCK_THREADS)
 hash_mesh_persistent_kernel(const uint32_t* __restrict__ init_g,
                             const uint32_t* __restrict__ base_g,
                             const uint32_t* __restrict__ masks_g, Layout L, MeshOrigin o,
                             uint32_t n, uint32_t* __restrict__ out, Persist P) {
-  hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, o, n, out, P);
+  hash_persistent_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out, P,
+                                                       PartitionIndex{o});
 }
 
 template <class H, int MASK_WORDS, int N_BLOCKS, bool POW2>
@@ -889,7 +979,8 @@ resident_hash_mesh_persistent_kernel(const uint32_t* __restrict__ init_g,
                                      const uint32_t* __restrict__ masks_g, Layout L,
                                      MeshOrigin o, uint32_t n, uint32_t* __restrict__ out,
                                      Persist P) {
-  hash_mesh_block<H, MASK_WORDS, N_BLOCKS, POW2, true>(init_g, base_g, masks_g, L, o, n, out, P);
+  hash_persistent_block<H, MASK_WORDS, N_BLOCKS, POW2>(init_g, base_g, masks_g, L, n, out, P,
+                                                       PartitionIndex{o});
 }
 
 // The body of each kernel's extern "C" launcher (the *_search.cu files).
@@ -963,29 +1054,32 @@ int launch_hash_mesh_search(const void* init, const void* base, const void* mask
 }
 
 // The persistent form's Persist from the C functions' arguments: the
-// search's stop flag, the segment in reported indices and in the launch's
-// flat indices (the check period follows at the launch, from the grid).
-// An invalid one (no flag, a zero segment) is reported as a null stop,
-// which DISTPOW_PERSISTENT_FUNCTIONS refuses.
-inline Persist persistent_form(const void* stop, uint32_t seg, uint32_t batch) {
-  if (stop == nullptr || seg == 0 || batch == 0) return Persist{};
-  return Persist{static_cast<const uint32_t*>(stop), seg, batch, 0};
+// search's stop flag, the segment in reported indices, and the most
+// candidates a thread tests of each tile (rounds, 1 to MAX_ROUNDS; the
+// launch takes launch_rounds of it).  An invalid one (no flag, a zero
+// segment, rounds out of range) is reported as a null stop, which
+// DISTPOW_PERSISTENT_FUNCTIONS refuses.
+constexpr uint32_t MAX_ROUNDS = 1u << 16;
+
+inline Persist persistent_form(const void* stop, uint32_t seg, uint32_t rounds) {
+  if (stop == nullptr || seg == 0 || rounds == 0 || rounds > MAX_ROUNDS) return Persist{};
+  return Persist{static_cast<const uint32_t*>(stop), seg, rounds};
 }
 
 // The bodies of each kernel's fourth and fifth extern "C" functions, the
 // persistent solo launch and the persistent launch of one mesh shard: the
 // arguments of launch_hash_search and launch_hash_mesh_search, then the
 // search's stop flag (a device word), the segment's size in reported
-// indices (seg) and in the launch's flat indices (batch), and the two-word
-// out, which the wrapper set to (SENTINEL, the segment count).  A grid <= 0
-// launches one resident wave (resident_grid).
+// indices (seg), the most candidates a thread tests of each tile (rounds),
+// and the three-word out, which the wrapper set to (SENTINEL, the segment
+// count, 0).  A grid <= 0 launches one resident wave (resident_wave).
 #define DISTPOW_PERSISTENT_FUNCTIONS(NAME, H, LAYOUT_OK)                                      \
   extern "C" int distpow_##NAME##_persistent_search(                                          \
       const void* init, const void* base, const void* masks, int n_blocks, int mask_words,    \
       uint32_t chunk0, uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word,               \
       int var_shift, uint32_t chunk_mask, uint32_t n, const void* stop, uint32_t seg,         \
-      uint32_t batch, void* out, int grid, void* stream) {                                    \
-    const distpow::Persist P = distpow::persistent_form(stop, seg, batch);                    \
+      uint32_t rounds, void* out, int grid, void* stream) {                                   \
+    const distpow::Persist P = distpow::persistent_form(stop, seg, rounds);                   \
     if (!(LAYOUT_OK) || P.stop == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \
     return distpow::launch_hash_search<H>(init, base, masks, n_blocks, mask_words, chunk0,    \
                                           tb_lo, tbc, log_tbc, var_word, var_shift,           \
@@ -996,8 +1090,8 @@ inline Persist persistent_form(const void* stop, uint32_t seg, uint32_t batch) {
       uint32_t chunk0, uint32_t tb_lo, uint32_t tbc, int log_tbc, int var_word,               \
       int var_shift, uint32_t chunk_mask, uint32_t n, uint32_t origin_chunk0,                 \
       uint32_t origin_tb_lo, uint32_t origin_tbc, const void* stop, uint32_t seg,             \
-      uint32_t batch, void* out, int grid, void* stream) {                                    \
-    const distpow::Persist P = distpow::persistent_form(stop, seg, batch);                    \
+      uint32_t rounds, void* out, int grid, void* stream) {                                   \
+    const distpow::Persist P = distpow::persistent_form(stop, seg, rounds);                   \
     if (!(LAYOUT_OK) || P.stop == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \
     return distpow::launch_hash_mesh_search<H>(init, base, masks, n_blocks, mask_words,       \
                                                chunk0, tb_lo, tbc, log_tbc, var_word,         \

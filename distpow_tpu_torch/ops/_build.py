@@ -223,7 +223,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         vp, i32, vp,         # out, grid, stream
     ]
     mesh.restype = i32
-    persist = [vp, u32, u32]  # stop, seg, batch
+    persist = [vp, u32, u32]  # stop, seg, rounds
     solo_p = getattr(lib, persistent_function(name))
     solo_p.argtypes = fn.argtypes[:13] + persist + fn.argtypes[13:]
     solo_p.restype = i32

@@ -37,19 +37,22 @@ And the persistent forms of the solo and mesh launches, the device side of
 the persistent search loop (``parallel/search.py persistent_search``; the
 reference's XLA ``persistent_search_step`` and ``mesh_persistent_step``):
 ``hash_persistent_search`` and ``hash_mesh_persistent_search`` launch the
-kernels' persistent form (the same body, which also reads the search's
-stop flag, a device word) and return a two-word cell, (first hit, segments
-executed), without synchronising.  A launch stops about one segment after
-its own first hit, or after the driver sets the flag; one expected to hold
-a hit runs on one resident wave of blocks (``one_wave_for``), so that it
-stops near its hit.  They count under ``LAUNCHES["<kernel>_persistent"]``
-and ``LAUNCHES["<kernel>_mesh_persistent"]``; their plain versions are
+kernels' persistent form (the same candidates, handed out in tiles of
+consecutive indices that the blocks claim in ascending order, with the
+search's stop flag, a device word, read at each claim) on one resident wave
+of blocks and return a two-word cell, (first hit, segments executed),
+without synchronising.  A launch stops about one tile after its own first
+hit, or after the driver sets the flag; a tile is at most ``claim_rounds``
+candidates a thread, fewer where a launch has few tiles a block.  They
+count under ``LAUNCHES["<kernel>_persistent"]`` and
+``LAUNCHES["<kernel>_mesh_persistent"]``; their plain versions are
 ``search_step.persistent_search_step`` and
 ``plain_shard_persistent_search``.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -216,19 +219,22 @@ def load_kernels(model: HashModel, tails) -> None:
         load_library(name, w)
 
 
-# A persistent launch expected to hold at least this many hits runs on one
-# resident wave, where its threads reach the first hit in index order and
-# the launch ends near it; one expected to hold fewer runs on the serial
-# kernel's grid of several waves, which sweeps a launch without a hit up to
-# 8 % faster (md5; PERF.md section 6).
-ONE_WAVE_EXPECTED_HITS = 0.5
+# The persistent form's tile: a block claims at most claim_rounds(model)
+# candidates a thread at a time, rounds * BLOCK_THREADS consecutive flat
+# indices.  The rounds fall as the model's cost per hash rises, so that a
+# tile takes about the same time in every model: few enough claims (one
+# same-address atomic each) that md5's 2^30-candidate launch makes 2^16 of
+# them, and a tile short beside a launch (tools/persistent_grids sweeps the
+# rounds; PERF.md).  The launcher takes fewer where that would leave a block
+# under 8 tiles of the launch (hash_search.cuh launch_rounds).
+CLAIM_COST_OPS = 64 * 584  # md5's cost_ops at 64 rounds
 
 
-def one_wave_for(n: int, difficulty: int) -> bool:
-    """Whether a persistent launch over ``n`` candidates at ``difficulty``
-    (each candidate hits with probability 16^-difficulty) runs on one
-    resident wave (``ONE_WAVE_EXPECTED_HITS``)."""
-    return n >= ONE_WAVE_EXPECTED_HITS * 16 ** difficulty
+def claim_rounds(model: HashModel) -> int:
+    """The most candidates a thread tests of each tile its block claims in
+    the persistent form: the power of two nearest ``CLAIM_COST_OPS /
+    model.cost_ops``, at least 1."""
+    return 1 << max(0, round(math.log2(CLAIM_COST_OPS / model.cost_ops)))
 
 
 def default_grid(n: int, sm_count: int) -> int:
@@ -274,18 +280,33 @@ def _check_search(name: str, model: HashModel, ops: StepOperands, chunk0: int, b
         raise RuntimeError(f"{name} on a CUDA device, but CUDA is not available")
 
 
+# (device, segments) -> the persistent cell's first words, (SENTINEL,
+# segments, 0), on the device: a launch clones it, one copy on its stream
+_CELL_INITS = {}
+
+
+def _persistent_cell_init(dev: torch.device, segments: int) -> torch.Tensor:
+    init = _CELL_INITS.get((dev, segments))
+    if init is None:
+        # a blocking copy: done before any stream reads it
+        init = torch.tensor([-1, segments, 0], dtype=torch.int32, device=dev)
+        _CELL_INITS[(dev, segments)] = init
+    return init
+
+
 def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands, tb_loc,
                    chunk_locs, chunk0: int, n: int, grid: Optional[int],
                    origin: Tuple[int, ...] = (), persist=None) -> torch.Tensor:
     """Launch ``csrc/<name>.cu``'s ``function`` (the solo search, or with
     the three ``origin`` words the mesh shard's) over ``n`` flat indices on
     the current stream of the operands' device; return its result cell.
-    ``persist`` is the persistent form's ``(stop, seg, segments, batch,
-    one_wave)``: the flag word, the segment in reported indices, the
-    segments word's initial value, the launch's own segment in flat indices
-    and whether a ``grid`` of None is one resident wave (the launcher asks
-    the device how many blocks that is) or ``default_grid``; the cell is
-    then two words."""
+    ``persist`` is the persistent form's ``(stop, seg, segments, rounds)``:
+    the flag word, the segment in reported indices, the segments word's
+    initial value and the most candidates a thread tests of each tile; the
+    cell is then three words, the last the claim counter, which starts at
+    0, and a ``grid`` of None is one resident wave (the launcher asks the
+    device how many blocks that is) where the serial form's is
+    ``default_grid``."""
     var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
     check_tail(model, ops.n_blocks, var_word, tb_loc)
     lib = _library(name, model, var_word)
@@ -295,24 +316,22 @@ def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands
     log_tbc = tbc.bit_length() - 1 if tbc & (tbc - 1) == 0 else -1
     dev = ops.device
     with torch.cuda.device(dev):
-        extra, one_wave = (), persist is not None and persist[4]
-        if grid is None:
-            # 0: one resident wave, sized by the launcher
-            grid = 0 if one_wave else default_grid(
-                n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        extra = ()
         if persist is None:
-            out = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
+            if grid is None:
+                grid = default_grid(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+            out = cell = torch.full((), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
         else:
-            stop, seg, segments, batch, _ = persist
-            out = torch.full((2,), -1, dtype=torch.int32, device=dev)
-            out[1].fill_(segments)
-            extra = (stop.data_ptr(), seg, batch)
+            stop, seg, segments, rounds = persist
+            grid = 0 if grid is None else grid  # 0: one resident wave, sized by the launcher
+            out = cell = _persistent_cell_init(dev, segments).clone()
+            extra = (stop.data_ptr(), seg, rounds)
         rc = getattr(lib, function)(
             ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
             ops.n_blocks, mw,
             chunk0, ops.tb_lo, tbc, log_tbc,
             var_word, var_shift, chunk_mask,
-            n, *origin, *extra, out.data_ptr(), grid,
+            n, *origin, *extra, cell.data_ptr(), grid,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -399,22 +418,20 @@ def _check_stop(stop: torch.Tensor, ops: StepOperands) -> None:
 
 def hash_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs,
                            chunk0: int, batch: int, segments: int, stop: torch.Tensor, *,
-                           device: Device, one_wave: bool = True,
-                           grid: Optional[int] = None) -> torch.Tensor:
+                           device: Device, grid: Optional[int] = None) -> torch.Tensor:
     """The persistent form of ``hash_search``: up to ``segments`` segments of
-    ``batch`` candidates from cursor ``chunk0``, stopping about one segment
+    ``batch`` candidates from cursor ``chunk0``, stopping about one tile
     after the first hit or after the 0-d ``stop`` flag (on the launch's
     device) turns nonzero.  Returns the two words (first hit's flat index or
     SENTINEL, segments executed); a width-0 layout raises.
 
-    On a CUDA device: launches ``model``'s kernel in its persistent form and
-    returns its ``int32[2]`` cell (uint32 bit patterns) without
-    synchronising.  With ``one_wave`` (``one_wave_for``) the grid is one
-    resident wave, so the threads walk the launch in index order; else the
-    serial kernel's (``default_grid``); ``grid`` names the blocks instead.
-    On the CPU: the plain version, ``int64[2]``
-    (``persistent_search_step``)."""
-    name = kernel_name(model)
+    On a CUDA device: launches ``model``'s kernel in its persistent form on
+    one resident wave and returns its ``int32[2]`` cell (uint32 bit
+    patterns) without synchronising.  Its blocks claim tiles of at most
+    ``claim_rounds(model)`` candidates a thread in index order; ``grid``
+    names the blocks instead of the wave (for tools and tests).  On the
+    CPU: the plain version, ``int64[2]`` (``persistent_search_step``)."""
+    kernel_name(model)  # raises for a model without a kernel
     device = torch.device(device)
     _check_search("hash_persistent_search", model, ops, chunk0, batch, segments, device)
     _check_persistent(tb_loc, chunk_locs, batch, segments)
@@ -422,11 +439,27 @@ def hash_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chunk_lo
     if device.type == "cpu":
         return persistent_search_step(ops, tb_loc, chunk_locs, chunk0, batch, segments, stop,
                                       model=model)
+    return persistent_cell(model, ops, tb_loc, chunk_locs, chunk0, batch, segments, stop,
+                           grid=grid)[:2]
+
+
+def persistent_cell(model: HashModel, ops: StepOperands, tb_loc, chunk_locs, chunk0: int,
+                    batch: int, segments: int, stop: torch.Tensor, *,
+                    grid: Optional[int] = None, rounds: Optional[int] = None) -> torch.Tensor:
+    """``hash_persistent_search``'s launch on a CUDA device, its arguments
+    unchecked, with the whole of its cell: ``int32[3]``, the two words and
+    the tiles its blocks claimed, each block's last claim (past the
+    launch's end, or dropped at its check) included.  ``rounds`` is the most
+    candidates a thread tests of each tile (default ``claim_rounds(model)``,
+    a sweep's override; the launcher takes fewer where a block would get
+    under 8 tiles of the launch, and refuses a value outside 1 to 2^16)."""
     from ._build import persistent_function
 
+    name = kernel_name(model)
     out = _launch_search(name, persistent_function(name), model, ops, tb_loc, chunk_locs,
                          chunk0, batch * segments, grid,
-                         persist=(stop, batch, segments, batch, one_wave))
+                         persist=(stop, batch, segments,
+                                  claim_rounds(model) if rounds is None else rounds))
     LAUNCHES[f"{name}_persistent"].add()
     return out
 
@@ -434,22 +467,21 @@ def hash_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chunk_lo
 def hash_mesh_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chunk_locs,
                                 chunk0: int, batch: int, segments: int, origin: MeshOrigin,
                                 seg: int, total: int, stop: torch.Tensor, *, device: Device,
-                                one_wave: bool = True,
                                 grid: Optional[int] = None) -> torch.Tensor:
     """The persistent form of ``hash_mesh_search``, one shard of a
     persistent mesh launch: up to ``segments`` segments of ``batch``
-    candidates of the shard's run from ``chunk0``, stopping about one
-    segment after the shard's own first hit or after ``stop`` turns
-    nonzero.  Returns the first hit as the partition's flat index (or
-    SENTINEL) and the segments executed, counted in the partition's
-    segments of ``seg`` indices (``total`` where the shard found nothing and
-    saw no flag): the least of each word across the shards is the mesh
-    launch's result.
+    candidates of the shard's run from ``chunk0``, stopping about one tile
+    after the shard's own first hit or after ``stop`` turns nonzero.
+    Returns the first hit as the partition's flat index (or SENTINEL) and
+    the segments executed, counted in the partition's segments of ``seg``
+    indices (``total`` where the shard found nothing and saw no flag): the
+    least of each word across the shards is the mesh launch's result.
 
-    On a CUDA device: the mesh kernel's persistent form, on the grid that
-    ``one_wave`` and ``grid`` choose as in ``hash_persistent_search``, its
-    ``int32[2]`` cell without synchronising.  On the CPU: the plain version,
-    ``int64[2]`` (``plain_shard_persistent_search``)."""
+    On a CUDA device: the mesh kernel's persistent form, on one resident
+    wave (or ``grid`` blocks) claiming tiles of at most
+    ``claim_rounds(model)`` candidates a thread, its ``int32[2]`` cell without synchronising.  On
+    the CPU: the plain version, ``int64[2]``
+    (``plain_shard_persistent_search``)."""
     name = kernel_name(model)
     device = torch.device(device)
     _check_search("hash_mesh_persistent_search", model, ops, chunk0, batch, segments, device)
@@ -465,7 +497,7 @@ def hash_mesh_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chu
 
     out = _launch_search(name, mesh_persistent_function(name), model, ops, tb_loc, chunk_locs,
                          chunk0, batch * segments, grid, origin,
-                         persist=(stop, seg, total, batch, one_wave))
+                         persist=(stop, seg, total, claim_rounds(model)))[:2]
     LAUNCHES[f"{name}_mesh_persistent"].add()
     return out
 

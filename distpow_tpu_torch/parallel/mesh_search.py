@@ -80,7 +80,7 @@ import torch.distributed as dist
 
 from ..models.registry import HashModel, get_hash_model
 from ..ops.hash_cuda import (BLOCK_THREADS, hash_group_search, hash_mesh_persistent_search,
-                              hash_mesh_search, kernel_name, one_wave_for)
+                              hash_mesh_search, kernel_name)
 from ..ops.operands import MASK32, Device, GroupOperands, u32_bits, u32_min, widen
 from ..ops.packing import build_tail_spec
 from ..ops.search_step import MeshOrigin, MeshShard, _check_launch, step_operands
@@ -319,16 +319,14 @@ def _global_chunks(chunks_local: int, tbc: int, n_dev: int, launch_steps: int) -
 
 
 def _shard_persistent(model: HashModel, ops, tb_loc, chunk_locs, shard: MeshShard,
-                      origin: MeshOrigin, seg: int, total: int, stop, one_wave: bool,
-                      dev: torch.device):
+                      origin: MeshOrigin, seg: int, total: int, stop, dev: torch.device):
     """One shard's persistent launch, on the current stream of its device
     (the shard's, under ``Mesh.run``), which also reads the flag's word."""
     word = stop.operand(dev)
     if dev.type == "cuda":
         word.record_stream(torch.cuda.current_stream(dev))
     return hash_mesh_persistent_search(model, ops, tb_loc, chunk_locs, shard.chunk0, shard.batch,
-                                       shard.launch_steps, origin, seg, total, word, device=dev,
-                                       one_wave=one_wave)
+                                       shard.launch_steps, origin, seg, total, word, device=dev)
 
 
 def _mesh_binding(nonce: bytes, difficulty: int, tb_lo: int, tbc: int, model: HashModel,
@@ -410,15 +408,12 @@ def mesh_persistent_factory(nonce: bytes, difficulty: int, tb_lo: int, tbc: int,
         chunks_local, k, chunks = place(target_chunks, segments)
         spec, ops = bind(vw, bytes(extra), chunks_local, k)
         seg, total = chunks_local * tbc, chunks // chunks_local
-        # a shard's launch holds its share of the launch's candidates
-        one_wave = one_wave_for(chunks * tbc // mesh.size, difficulty)
 
         def step(chunk0: int, stop) -> torch.Tensor:
             shards = mesh.local(mesh_shards(tb_lo, tbc, chunk0, mesh.size, chunks_local, k))
             origin = MeshOrigin(chunk0, tb_lo, tbc)
             return mesh.run([functools.partial(_shard_persistent, model, o, spec.tb_loc,
-                                               spec.chunk_locs, s, origin, seg, total, stop,
-                                               one_wave, dev)
+                                               spec.chunk_locs, s, origin, seg, total, stop, dev)
                              for s, o, dev in zip(shards, ops, mesh.devices)])
 
         return step, chunks_local, chunks

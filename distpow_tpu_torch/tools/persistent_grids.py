@@ -1,24 +1,47 @@
-"""The persistent kernel's grid: one resident wave against several.
+"""The persistent kernel's tile: a sweep of the candidates a thread tests of
+each tile its block claims.
 
 A persistent launch (``ops/hash_cuda.py hash_persistent_search``) runs on
-one resident wave of blocks where it is expected to hold a hit
-(``one_wave_for``), so that its threads reach the first hit in index order
-and the launch ends near it, and on the serial kernel's grid
-(``default_grid``: 16 blocks of 256 threads a SM, several waves) otherwise.
-This script measures what that rule trades, per model, at the worker's
-main-path launch (2^20 candidates a sub-batch, ``launch_steps_for``'s
-multiplier under the backend's budget):
+one resident wave of blocks, which claim tiles of ``rounds`` x 256
+consecutive flat indices in ascending order from a counter.
+``claim_rounds`` gives the most rounds per model, from its cost per hash;
+the launcher takes fewer where that would leave a block under 8 tiles of
+the launch (``hash_search.cuh launch_rounds``).  Few rounds make many
+claims (a same-address atomic and a block barrier each); many rounds make a
+launch run on longer past its first hit and leave the blocks' last tiles
+uneven.  This script measures that trade, per model, at three launches of
+the worker's persistent loop (2^20 candidates a sub-batch, times
+``launch_steps_for``'s multiplier under the backend's budget):
 
-* ``no_hit``: difficulty 16, so every segment runs: the serial kernel and
-  the persistent form on each grid;
-* ``found``: the persistent form at a difficulty-7 first hit past the
-  launch's first third (the first such nonce of ``DEEP_TRIES``), its two
-  words checked on every grid against the solo kernel's index.
+* ``main``: the width-4 dispatch (md5 2^30 candidates), where the rounds
+  asked for are the rounds run (up to 256), so this is the sweep of
+  ``claim_rounds``;
+* ``width1`` and ``width2``: the width-1 and width-2 dispatches (2^20 and
+  2^24 candidates), where ``launch_rounds`` cuts the rounds: rounds asked
+  for at or below ``claim_rounds``.
 
-The grids: one resident wave (``one_wave``, the launcher's count) and 1, 2,
-3, 4, 6, 8, 12 and 16 blocks a SM.  A reading is the least of two, one
-taken forward and one backward through the forms, of ``REPS`` launches
-timed with CUDA events.
+At each launch, for each rounds asked for:
+
+* ``no_hit``: difficulty 16, so every tile runs, beside the solo kernel's
+  launch of the same candidates (the serial kernel on its own grid);
+* ``found``: a first hit (difficulty 7 on ``main``, past the launch's first
+  third; 5 and 6 on the small ones, past the first quarter on ``width2``;
+  at width 1 the chunk byte wraps every 2^16 candidates, so its hit lies in
+  the first sixteenth), the first such nonce of ``DEEP_TRIES``, its two
+  words checked at every rounds against the solo kernel's index;
+* ``solo@persistent_grid`` (``main`` only): the serial kernel without a hit
+  on as many blocks as the persistent form's grid at the rule's rounds,
+  which tells the grid's cost from the claim loop's.
+
+A reading is the least of two, one taken forward and one backward through
+the forms, of ``REPS`` launches (more on the small launches) timed with
+CUDA events.  Each model's line gives per launch the ms of each form, each
+over the solo kernel's, the hit's fraction of the launch, and per rounds
+the claims of a no-hit launch (the counter), the blocks (on ``main``, the
+claims past the tiles of the launch: one a block) and one tile's ms (the
+launch's ms over the tiles a block takes); and the registers, spill bytes
+and stack frame ptxas gave the persistent kernels of the libraries built
+here.
 
 Run from the root of a checkout on a machine with a GPU::
 
@@ -32,13 +55,21 @@ GPU is visible.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 
-MAIN_BATCH, MAIN_CHUNK0 = 1 << 20, 1 << 24
-NO_HIT_DIFFICULTY, DEEP_DIFFICULTY, DEEP_TRIES = 16, 7, 256
-BLOCKS_PER_SM = (1, 2, 3, 4, 6, 8, 12, 16)
+MAIN_BATCH = 1 << 20
+NO_HIT_DIFFICULTY, DEEP_TRIES = 16, 256
+# launch: (width, its found case's difficulty, the least fraction of the
+# launch its hit lies at)
+LAUNCHES = {"main": (4, 7, 1 / 3), "width1": (1, 5, 0.0), "width2": (2, 6, 1 / 4)}
+ROUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 REPS = 5
+# a persistent kernel's line of nvcc's -Xptxas -v
+PTXAS_PERSISTENT = (r"Function properties for (\S*persistent_kernel\S*)\n\s*(\d+) bytes stack "
+                    r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n[^\n]*Used "
+                    r"(\d+) registers")
 
 
 def main(argv) -> int:
@@ -50,8 +81,8 @@ def main(argv) -> int:
     from ..backends.cuda_backend import CudaBackend
     from ..models.registry import get_hash_model
     from ..ops import _build
-    from ..ops.hash_cuda import (KERNELS, hash_persistent_search, hash_search, kernel_layout,
-                                 load_kernels)
+    from ..ops.hash_cuda import (BLOCK_THREADS, KERNELS, claim_rounds, hash_search,
+                                 kernel_layout, load_kernels, persistent_cell)
     from ..ops.operands import u32_value
     from ..ops.packing import build_tail_spec
     from ..ops.search_step import SENTINEL, step_operands
@@ -59,7 +90,6 @@ def main(argv) -> int:
 
     models = argv or list(KERNELS)
     dev = torch.device("cuda", torch.cuda.current_device())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
@@ -72,69 +102,93 @@ def main(argv) -> int:
         var_word = kernel_layout(spec.tb_loc, spec.chunk_locs, model)[0]
         keys.append(_build.library_key(KERNELS[name], var_word if name == "md5" else None))
     _build.build(keys)
+    ptxas = {}
+    for key, log in _build.last_build_log.items():
+        found = re.findall(PTXAS_PERSISTENT, log)
+        if found:
+            ptxas[key] = {"registers": sorted({int(r) for *_, r in found}),
+                          "spill_bytes": max(int(st) + int(ld) for _, _, st, ld, _ in found),
+                          "stack_bytes": max(int(sf) for _, sf, *_ in found)}
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-
-    def ms(fn) -> float:
-        start.record()
-        for _ in range(REPS):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / REPS
-
     failed = False
     for name in models:
         model = get_hash_model(name)
         budget = CudaBackend(hash_model=name, device=dev).max_launch
-        steps = launch_steps_for(4, MAIN_BATCH // 256, 256, budget)
-        n = MAIN_BATCH * steps
+        rule = claim_rounds(model)
+        line = {"model": name, "card": card.strip(), "claim_rounds": rule,
+                "ptxas_persistent": ptxas.get(keys[models.index(name)])}
+        for launch, (width, difficulty, least) in LAUNCHES.items():
+            steps = launch_steps_for(width, MAIN_BATCH // 256, 256, budget)
+            n, chunk0 = MAIN_BATCH * steps, 256 ** (width - 1)
+            reps = max(REPS, (REPS << 26) // n)
 
-        def operands(nonce, d):
-            spec = build_tail_spec(nonce, 4, model)
-            load_kernels(model, [(spec.tb_loc, spec.chunk_locs)])
-            return spec, step_operands(spec, d, model, 0, 256, dev)
+            def ms(fn) -> float:
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / reps
 
-        def solo(spec, ops, grid=None):
-            return hash_search(model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
-                               MAIN_BATCH, steps, device=dev, grid=grid)
+            def operands(nonce, d):
+                spec = build_tail_spec(nonce, width, model)
+                load_kernels(model, [(spec.tb_loc, spec.chunk_locs)])
+                return spec, step_operands(spec, d, model, 0, 256, dev)
 
-        def persistent(spec, ops, grid, one_wave=False):
-            return hash_persistent_search(model, ops, spec.tb_loc, spec.chunk_locs, MAIN_CHUNK0,
-                                          MAIN_BATCH, steps, zero, device=dev, grid=grid,
-                                          one_wave=one_wave)
+            def solo(spec, ops, grid=None):
+                return hash_search(model, ops, spec.tb_loc, spec.chunk_locs, chunk0,
+                                   MAIN_BATCH, steps, device=dev, grid=grid)
 
-        no_hit = operands(bytes([1, 2, 3, 4]), NO_HIT_DIFFICULTY)
-        for i in range(DEEP_TRIES):
-            nonce = b"par" + bytes([i])
-            found = operands(nonce, DEEP_DIFFICULTY)
-            f = u32_value(solo(*found))
-            if f != SENTINEL and f >= n // 3:
-                break
-        else:
-            print(json.dumps({"model": name, "error": "no deep hit"}), flush=True)
-            failed = True
-            continue
-        grids = {"one_wave": None, **{f"{b}_per_sm": sms * b for b in BLOCKS_PER_SM}}
-        forms = {}
-        words = {}
-        for label, grid in grids.items():
-            one_wave = grid is None
-            if not one_wave:  # (the serial kernel's own grid is 16_per_sm)
-                forms[f"serial@{label}"] = lambda g=grid: solo(*no_hit, g)
-            forms[f"no_hit@{label}"] = lambda g=grid, w=one_wave: persistent(*no_hit, g, w)
-            forms[f"found@{label}"] = lambda g=grid, w=one_wave: persistent(*found, g, w)
-            words[label] = [u32_value(v) for v in forms[f"found@{label}"]().reshape(-1)]
-        bad = {k: w for k, w in words.items() if w != [f, f // MAIN_BATCH + 1]}
-        readings = {}
-        for key in [*forms, *reversed(forms)]:
-            readings.setdefault(key, []).append(ms(forms[key]))
-        print(json.dumps({"model": name, "launch_steps": steps, "candidates": n,
-                          "deep_nonce": nonce.hex(), "hit": f, "hit_fraction": f / n,
-                          "sm_count": sms, "mismatches": bad,
-                          "ms": {k: min(v) for k, v in readings.items()}}), flush=True)
-        failed |= bool(bad)
+            def persistent(spec, ops, rounds):
+                return persistent_cell(model, ops, spec.tb_loc, spec.chunk_locs, chunk0,
+                                       MAIN_BATCH, steps, zero, rounds=rounds)
+
+            no_hit = operands(bytes([1, 2, 3, 4]), NO_HIT_DIFFICULTY)
+            for i in range(DEEP_TRIES):
+                nonce = b"par" + bytes([i])
+                found = operands(nonce, difficulty)
+                f = u32_value(solo(*found))
+                if f != SENTINEL and f >= least * n:
+                    break
+            else:
+                line[launch] = {"error": "no deep hit"}
+                failed = True
+                continue
+            asked = sorted({*ROUNDS, rule} if launch == "main" else
+                           {r for r in ROUNDS if r <= rule} | {rule})
+            forms = {"solo": lambda: solo(*no_hit)}
+            words, claims = {}, {}
+            for rounds in asked:
+                forms[f"no_hit@{rounds}"] = lambda r=rounds: persistent(*no_hit, r)
+                forms[f"found@{rounds}"] = lambda r=rounds: persistent(*found, r)
+                words[rounds] = [u32_value(v) for v in forms[f"found@{rounds}"]()[:2]]
+                claims[rounds] = u32_value(forms[f"no_hit@{rounds}"]()[2])
+            bad = {k: w for k, w in words.items() if w != [f, f // MAIN_BATCH + 1]}
+            out = {"width": width, "launch_steps": steps, "candidates": n,
+                   "deep_nonce": nonce.hex(), "difficulty": difficulty, "hit": f,
+                   "fraction_of_launch": f / n, "rounds_asked": asked, "mismatches": bad,
+                   "claims_no_hit": claims}
+            if launch == "main":
+                # the rounds asked for are the rounds run: one claim past the
+                # launch's tiles a block
+                tiles = {r: -(-n // (r * BLOCK_THREADS)) for r in claims}
+                blocks = {r: claims[r] - tiles[r] for r in claims}
+                forms["solo@persistent_grid"] = lambda: solo(*no_hit, blocks[rule])
+                failed |= any(b <= 0 for b in blocks.values())
+            readings = {}
+            for key in [*forms, *reversed(forms)]:
+                readings.setdefault(key, []).append(ms(forms[key]))
+            best = {k: min(v) for k, v in readings.items()}
+            out.update({"ms": best, "over_solo": {k: v / best["solo"] for k, v in best.items()
+                                                  if k != "solo"}})
+            if launch == "main":
+                out.update({"blocks": blocks, "tile_ms": {
+                    r: best[f"no_hit@{r}"] * blocks[r] / tiles[r] for r in claims}})
+            line[launch] = out
+            failed |= bool(bad)
+        print(json.dumps(line), flush=True)
     return 1 if failed else 0
 
 

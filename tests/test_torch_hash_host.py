@@ -19,9 +19,12 @@ the full digest and a power-of-two run) for all nine hashes, md5's over
 plain group step; and one shard of the mesh kernel (the solo search over the shard's slice, its first hit remapped to
 the partition's flat index by ``mesh_global_index``) for all nine, the
 least across a mesh's shards held to the port's plain mesh step.  And the
-persistent form's per-thread exit rule (``persistent_step``) over a
-simulated grid, solo and on a mesh shard, with the launch's cell pre-set:
-the least index and the segment word are the serial kernel's.
+persistent form's claim loop (``claim_index``, ``persistent_step``) over a
+simulated launch of blocks claiming tiles in seeded interleavings, solo and
+on a mesh shard, with the launch's cell pre-set and the search's flag set
+before or during the launch: the least index and the segment word are the
+serial kernel's, and blocks that keep pace stop about one tile past the
+hit.
 """
 
 import ctypes
@@ -788,87 +791,116 @@ def test_mesh_shard_twin_matches_plain_mesh_step(twins, md5_group_twin, name, n_
     assert found[-1] == SENTINEL and found[0] != SENTINEL
 
 
-# The persistent form's per-thread exit rule (hash_search.cuh
-# persistent_step) over a simulated grid: the threads of a grid-stride loop
-# advance one candidate at a time in a seeded order, check the launch's
-# cell and the search's flag where persistent_due says (before their first
-# candidate, then once each period_mask + 1 indices, the mask the launcher
-# sets from the segment's flat indices and the grid's threads), and publish
-# a hit into the cell at once, as thread_first_hit does; the block's min of
-# the threads' results follows.
+# The persistent form's claim loop (hash_search.cuh hash_persistent_block)
+# over a simulated launch: blocks of `threads` threads claim tiles of
+# rounds * threads flat indices from a counter of claims (claim c is the
+# tile at c * rounds * threads), one tile ahead as the kernel
+# does (the next claim made as a tile starts, checked with persistent_step
+# on the cell and the flag as they stand when the tile ends), and a block
+# in a tile runs one round at a time, each of its threads that has not hit
+# testing its index claim_index(base, t, threads, j) and publishing a hit
+# into the cell at once.  Which block acts at each step is drawn from
+# `order` (round robin once it is used up); the search's flag turns on
+# before step stop_at.
 PERSISTENT_SOURCE = r"""
 #include <vector>
 #include "hash_search.cuh"
 using namespace distpow;
 
+struct Block {
+  int state = 0;  // 0: start, 1: at a check, 2: in a tile, 3: stopped
+  uint32_t next = 0, base = 0, j = 0;
+  std::vector<char> hit;
+};
+
 template <class Report>
-static void grid(const uint8_t* hit, uint32_t n, uint32_t n_threads, uint32_t batch,
-                 uint32_t seg, const uint32_t* order, uint32_t n_order, uint32_t stop,
-                 uint32_t* out, uint32_t* tested, Report report) {
-  const uint32_t period_mask = persistent_period_mask(batch, n_threads);
-  std::vector<uint32_t> f(n_threads), best(n_threads, SENTINEL);
-  std::vector<char> done(n_threads, 0);
-  for (uint32_t t = 0; t < n_threads; ++t) f[t] = t;
+static void launch(const uint8_t* hit, uint32_t n, uint32_t n_blocks, uint32_t threads,
+                   uint32_t rounds, uint32_t seg, const uint32_t* order, uint32_t n_order,
+                   uint32_t stop_at, uint32_t* out, uint32_t* tested, Report report) {
+  const uint32_t tile = rounds * threads;
+  std::vector<Block> blocks(n_blocks);
+  for (auto& b : blocks) b.hit.assign(threads, 0);
+  uint32_t counter = 0, left = n_blocks, stop = 0;
   *tested = 0;
-  uint32_t left = n_threads;
-  auto advance = [&](uint32_t t) {
-    if (done[t]) return;
-    if (f[t] >= n) { done[t] = 1; --left; return; }
-    const uint32_t g = report(f[t]);
-    if (persistent_due(f[t], period_mask, n_threads)) {
-      const int step = persistent_step(out[0], stop, g);
-      if (step == kStopped && g / seg < out[1]) out[1] = g / seg;
-      if (step != kTest) { done[t] = 1; --left; return; }
+  auto act = [&](Block& b) {
+    if (b.state == 0) {  // the claim before the first barrier
+      b.next = counter++ * tile;
+      b.state = 1;
+    } else if (b.state == 1) {  // thread 0 at the claim: the check, the next claim
+      const uint32_t c = b.next;
+      int step = kBelowHit;
+      if (c < n) {
+        const uint32_t g = report(c);
+        step = persistent_step(out[0], stop, g);
+        if (step == kStopped && g / seg < out[1]) out[1] = g / seg;
+      }
+      if (c >= n || step != kTest) {
+        b.state = 3;
+        --left;
+        return;
+      }
+      b.base = c;
+      b.j = 0;
+      b.next = counter++ * tile;
+      b.state = 2;
+    } else if (b.state == 2) {  // one round of the tile
+      for (uint32_t t = 0; t < threads; ++t) {
+        const uint32_t f = claim_index(b.base, t, threads, b.j);
+        if (b.hit[t] || f >= n) continue;
+        ++*tested;
+        if (hit[f]) {
+          const uint32_t g = report(f);
+          if (g < out[0]) out[0] = g;
+          if (g / seg + 1 < out[1]) out[1] = g / seg + 1;
+          b.hit[t] = 1;
+        }
+      }
+      if (++b.j == rounds) b.state = 1;
     }
-    ++*tested;
-    if (hit[f[t]]) {
-      if (g < out[0]) out[0] = g;
-      if (g / seg + 1 < out[1]) out[1] = g / seg + 1;
-      best[t] = g;
-      done[t] = 1;
-      --left;
-      return;
-    }
-    f[t] += n_threads;
   };
-  for (uint32_t i = 0; i < n_order && left; ++i) advance(order[i]);
-  while (left)
-    for (uint32_t t = 0; t < n_threads; ++t) advance(t);
-  for (uint32_t t = 0; t < n_threads; ++t)
-    if (best[t] < out[0]) out[0] = best[t];  // block_min_to
+  uint32_t steps = 0;
+  for (uint32_t i = 0; left; ++i) {
+    if (steps++ == stop_at) stop = 1;
+    Block& b = blocks[i < n_order ? order[i] % n_blocks : i % n_blocks];
+    if (b.state != 3) act(b);
+  }
+  out[2] = counter;
 }
 
-extern "C" uint32_t host_period_mask(uint32_t batch, uint32_t threads) {
-  return persistent_period_mask(batch, threads);
-}
-
-extern "C" void host_persistent_grid(const uint8_t* hit, uint32_t n, uint32_t n_threads,
-                                     uint32_t batch, uint32_t seg, const uint32_t* order,
-                                     uint32_t n_order, uint32_t stop, uint32_t* out,
-                                     uint32_t* tested) {
-  grid(hit, n, n_threads, batch, seg, order, n_order, stop, out, tested,
-       [](uint32_t f) { return f; });
+extern "C" void host_persistent_launch(const uint8_t* hit, uint32_t n, uint32_t n_blocks,
+                                       uint32_t threads, uint32_t rounds, uint32_t seg,
+                                       const uint32_t* order, uint32_t n_order, uint32_t stop_at,
+                                       uint32_t* out, uint32_t* tested) {
+  launch(hit, n, n_blocks, threads, rounds, seg, order, n_order, stop_at, out, tested,
+         [](uint32_t f) { return f; });
 }
 
 // one shard of a mesh launch: the shard's run tb_lo .. tb_lo + tbc - 1 from
 // chunk0, reporting the partition's index (origin_index)
-extern "C" void host_persistent_shard_grid(const uint8_t* hit, uint32_t n, uint32_t n_threads,
-                                           uint32_t batch, uint32_t seg,
-                                           const uint32_t* order,
-                                           uint32_t n_order, uint32_t stop, uint32_t* out,
-                                           uint32_t* tested, uint32_t chunk0, uint32_t tb_lo,
-                                           uint32_t tbc, uint32_t o_chunk0, uint32_t o_tb_lo,
-                                           uint32_t o_tbc) {
+extern "C" void host_persistent_shard_launch(const uint8_t* hit, uint32_t n, uint32_t n_blocks,
+                                             uint32_t threads, uint32_t rounds, uint32_t seg,
+                                             const uint32_t* order, uint32_t n_order,
+                                             uint32_t stop_at, uint32_t* out, uint32_t* tested,
+                                             uint32_t chunk0, uint32_t tb_lo, uint32_t tbc,
+                                             uint32_t o_chunk0, uint32_t o_tb_lo,
+                                             uint32_t o_tbc) {
   const Layout L{chunk0, tb_lo, tbc, -1, 0, 0, 0};
   const MeshOrigin o{o_chunk0, o_tb_lo, o_tbc};
-  grid(hit, n, n_threads, batch, seg, order, n_order, stop, out, tested,
-       [&](uint32_t f) {
+  launch(hit, n, n_blocks, threads, rounds, seg, order, n_order, stop_at, out, tested,
+         [&](uint32_t f) {
     uint32_t tb, chunk;
     decode<false>(L, f, tb, chunk);
     return origin_index(o, tb, chunk);
   });
 }
+
+extern "C" uint32_t host_launch_rounds(uint32_t n, uint32_t blocks, uint32_t threads,
+                                       uint32_t most) {
+  return launch_rounds(n, blocks, threads, most);
+}
 """
+
+NEVER = 0xFFFFFFFF  # stop_at: the flag is never set
 
 
 @pytest.fixture(scope="module")
@@ -884,35 +916,50 @@ def persistent_twin(tmp_path_factory):
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
     dll = ctypes.CDLL(str(lib))
     u32, u8p = ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint8)
-    grid_args = [u8p, u32, u32, u32, u32, U32P, u32, u32, U32P, U32P]
-    dll.host_persistent_grid.argtypes = grid_args
-    dll.host_persistent_grid.restype = None
-    dll.host_persistent_shard_grid.argtypes = grid_args + [u32] * 6
-    dll.host_persistent_shard_grid.restype = None
-    dll.host_period_mask.argtypes = [u32, u32]
-    dll.host_period_mask.restype = u32
+    launch_args = [u8p, u32, u32, u32, u32, u32, U32P, u32, u32, U32P, U32P]
+    dll.host_persistent_launch.argtypes = launch_args
+    dll.host_persistent_launch.restype = None
+    dll.host_persistent_shard_launch.argtypes = launch_args + [u32] * 6
+    dll.host_persistent_shard_launch.restype = None
+    dll.host_launch_rounds.argtypes = [u32] * 4
+    dll.host_launch_rounds.restype = u32
     return dll
 
 
-def _run_grid(twin, hit, n_threads, seg, cell, segments, stop, rng, shard=(), batch=None):
+def _run_launch(twin, hit, blocks, threads, rounds, seg, cell, segments, rng=None,
+                stop_at=NEVER, shard=()):
+    """The simulated launch's (words, candidates tested, claims): blocks
+    drawn at random by ``rng``, or in round robin without one."""
     hits = np.ascontiguousarray(hit.astype(np.uint8))
-    order, order_p = _arr(rng.integers(0, n_threads, size=20 * len(hit)))
-    out, out_p = _arr([cell, segments])
+    steps = 0 if rng is None else 4 * (len(hit) // threads + 4 * blocks) * (rounds + 2)
+    order, order_p = _arr(rng.integers(0, blocks, size=steps) if steps else [0])
+    out, out_p = _arr([cell, segments, 0])
     tested, tested_p = _arr([0])
-    fn = twin.host_persistent_shard_grid if shard else twin.host_persistent_grid
-    # batch: the segment in the launch's flat indices (a solo launch's seg)
-    fn(hits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(hit), n_threads,
-       seg if batch is None else batch, seg, order_p, order.size, stop, out_p, tested_p, *shard)
-    return out.tolist(), int(tested[0])
+    fn = twin.host_persistent_shard_launch if shard else twin.host_persistent_launch
+    fn(hits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(hit), blocks, threads, rounds,
+       seg, order_p, steps, stop_at, out_p, tested_p, *shard)
+    return out[:2].tolist(), int(tested[0]), int(out[2])
+
+
+def _stopped_words_hold(words, hit, seg, segments, report=lambda f: f):
+    """With the flag set during the launch: every index below the segments
+    executed was tested, so the least hit there is the first word, and any
+    first word is a hit."""
+    below = [report(f) for f in np.flatnonzero(hit) if report(f) < words[1] * seg]
+    assert words[1] <= segments
+    assert words[0] == (min(below) if below else words[0])
+    assert words[0] == SENTINEL or words[0] in {report(f) for f in np.flatnonzero(hit)}
 
 
 @pytest.mark.parametrize("seed", range(12))
 def test_persistent_exit_rule_keeps_the_least_index(persistent_twin, seed):
     """With the cell pre-set to SENTINEL or to a hit above the least (one a
-    block published already), under random thread orders, grids, segments
-    and hits sparse or dense: the launch's words are the least hit and its
-    segment + 1, as the serial kernel's least index, and the threads test
-    no more candidates than the serial kernel's."""
+    block published already), under random interleavings of the blocks,
+    tile sizes, segments and hits sparse or dense: the launch's words are
+    the least hit and its segment + 1, as the serial kernel's least index.
+    No hit: every segment runs, each block's last claim past the end.  The
+    flag set before the launch: nothing tested, (SENTINEL, 0); set during
+    it: the words keep the least hit below the segments executed."""
     rng = np.random.default_rng(seed)
     n, seg = int(rng.integers(500, 4000)), int(rng.integers(16, 300))
     segments = -(-n // seg)
@@ -921,22 +968,28 @@ def test_persistent_exit_rule_keeps_the_least_index(persistent_twin, seed):
     hit[int(rng.integers(n // 2, n))] = True  # at least one hit
     least = int(np.flatnonzero(hit)[0])
     later = np.flatnonzero(hit)[-1]
-    n_threads = int(rng.choice([7, 32, 96, 256]))
+    threads = int(rng.choice([7, 32, 96, 256]))
+    rounds = int(rng.choice([1, 2, 3, 8, 16]))
+    blocks = int(rng.integers(1, 9))
     for cell in (SENTINEL, int(later)):
-        words, tested = _run_grid(persistent_twin, hit, n_threads, seg, cell, segments, 0, rng)
-        assert words == [least, least // seg + 1], (cell, n_threads, seg, n)
-        # the serial kernel's threads test every index up to their own hit
-        serial = sum(min(len(range(t, n, n_threads)),
-                         next((i for i, f in enumerate(range(t, n, n_threads)) if hit[f]),
-                              n) + 1) for t in range(n_threads))
-        assert tested <= serial
-    # no hit: every segment runs
-    words, _ = _run_grid(persistent_twin, np.zeros(n, bool), n_threads, seg, SENTINEL,
-                         segments, 0, rng)
-    assert words == [SENTINEL, segments]
+        words, tested, _ = _run_launch(persistent_twin, hit, blocks, threads, rounds, seg, cell,
+                                       segments, rng)
+        assert words == [least, least // seg + 1], (cell, blocks, threads, rounds, seg, n)
+        assert tested <= n
+    # no hit: every segment runs, and each block claims once past the end
+    words, tested, claims = _run_launch(persistent_twin, np.zeros(n, bool), blocks, threads,
+                                        rounds, seg, SENTINEL, segments, rng)
+    assert words == [SENTINEL, segments] and tested == n
+    assert claims == -(-n // (rounds * threads)) + blocks
     # a flag set before the launch: nothing tested, (SENTINEL, 0)
-    words, tested = _run_grid(persistent_twin, hit, n_threads, seg, SENTINEL, segments, 1, rng)
+    words, tested, _ = _run_launch(persistent_twin, hit, blocks, threads, rounds, seg, SENTINEL,
+                                   segments, rng, stop_at=0)
     assert words == [SENTINEL, 0] and tested == 0
+    # set during the launch
+    for stop_at in rng.integers(1, 4 * n // (threads * rounds) + 8, size=4):
+        words, _, _ = _run_launch(persistent_twin, hit, blocks, threads, rounds, seg, SENTINEL,
+                                  segments, rng, stop_at=int(stop_at))
+        _stopped_words_hold(words, hit, seg, segments)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -944,7 +997,8 @@ def test_persistent_exit_rule_on_a_mesh_shard(persistent_twin, seed):
     """One shard of a mesh launch (a run of 3 thread bytes inside the
     partition's run of 12, its cursor two chunks on), the cell in partition
     indices: the shard's least hit as the partition's index, whatever the
-    cell held above it."""
+    cell held above it, under random interleavings; with the flag set during
+    the launch, the least hit below the segments executed."""
     rng = np.random.default_rng(100 + seed)
     tb_lo, tbc, chunk0 = 6, 3, 1000 + 2
     origin = (1000, 0, 12)
@@ -956,20 +1010,64 @@ def test_persistent_exit_rule_on_a_mesh_shard(persistent_twin, seed):
     least = g[int(np.flatnonzero(hit)[0])]
     seg = 12 * 8  # the partition's segment: 8 chunks over the whole run
     segments = -(-g[-1] // seg) + 1
+    shard = (chunk0, tb_lo, tbc, *origin)
+    blocks, rounds = int(rng.integers(1, 5)), int(rng.choice([1, 2, 4]))
     for cell in (SENTINEL, g[-1]):
-        words, _ = _run_grid(persistent_twin, hit, 32, seg, cell, segments, 0, rng,
-                             shard=(chunk0, tb_lo, tbc, *origin), batch=8 * tbc)
+        words, _, _ = _run_launch(persistent_twin, hit, blocks, 32, rounds, seg, cell, segments,
+                                  rng, shard=shard)
         assert words == [least, least // seg + 1]
+    words, _, _ = _run_launch(persistent_twin, hit, blocks, 32, rounds, seg, SENTINEL, segments,
+                              rng, stop_at=int(rng.integers(1, 40)), shard=shard)
+    _stopped_words_hold(words, hit, seg, segments, report=lambda f: g[f])
 
 
-@pytest.mark.parametrize("threads", [1, 7, 256, 96 * 256, 132 * 8 * 256, 132 * 16 * 256])
-def test_persistent_period_covers_a_segment_and_the_grid(persistent_twin, threads):
-    """The launcher's check period (hash_search.cuh persistent_period_mask,
-    set from the grid it launches): the least power of two at or above
-    both the segment's flat indices and the grid's threads, so that a
-    thread checks at least once a segment of its own loop and at its first
-    index."""
-    for batch in (1, 2, 3, 255, 256, 4096, (1 << 20) - 1, 1 << 20, 3 << 19, 1 << 31):
-        period = persistent_twin.host_period_mask(batch, threads) + 1
-        assert period & (period - 1) == 0
-        assert period == 1 << max(batch - 1, threads - 1).bit_length(), (batch, threads)
+@pytest.mark.parametrize("rounds,threads,blocks", [
+    (1, 1, 1), (1, 32, 4), (2, 7, 3), (4, 256, 2), (8, 32, 8), (16, 96, 3), (64, 8, 5),
+    (3, 17, 6)])
+def test_persistent_claims_stop_one_tile_past_the_hit(persistent_twin, rounds, threads, blocks):
+    """Blocks that keep pace (round robin, as one resident wave does) test
+    no more candidates than the tiles claimed up to the hit's tile, plus one
+    tile a block, and claim at most one tile more a block; the words are the
+    least hit's.  Without a hit, every index is tested once."""
+    rng = np.random.default_rng(rounds * 1000 + threads * 10 + blocks)
+    tile = rounds * threads
+    n = tile * (4 * blocks + int(rng.integers(4, 12))) - int(rng.integers(0, tile))
+    seg = tile * int(rng.integers(1, 4))
+    segments = -(-n // seg)
+    for h in (int(rng.integers(0, tile)), int(rng.integers(n // 3, n))):
+        hit = np.zeros(n, bool)
+        hit[h] = True
+        hit[min(n - 1, h + int(rng.integers(1, 3 * tile)))] = True
+        words, tested, claims = _run_launch(persistent_twin, hit, blocks, threads, rounds, seg,
+                                            SENTINEL, segments)
+        assert words == [h, h // seg + 1]
+        assert tested <= (h // tile + 1 + blocks) * tile, (h, tested)
+        assert claims <= h // tile + 1 + 2 * blocks, (h, claims)
+    words, tested, claims = _run_launch(persistent_twin, np.zeros(n, bool), blocks, threads,
+                                        rounds, seg, SENTINEL, segments)
+    assert words == [SENTINEL, segments] and tested == n
+    assert claims == -(-n // tile) + blocks
+
+
+@pytest.mark.parametrize("n,blocks,most,want", [
+    (1 << 20, 1056, 64, 1),     # md5's width-1 dispatch on its wave: a candidate a tile
+    (1 << 24, 1056, 64, 7),     # its width-2 dispatch: at least 8 tiles a block
+    (1 << 30, 1056, 64, 64),    # the main path's launch: the model's rounds
+    (1 << 30, 396, 4, 4),       # sha3_256's rounds on a wave of 3 blocks a SM
+    (1 << 24, 3, 1, 1),         # a tool's grid and rounds: the override holds
+    (255, 1, 16, 1),            # fewer indices than a block's threads
+    (0xFFFFFFFF, 1, 1 << 16, 1 << 16),
+    (3 << 20, 0, 8, 8),         # no blocks asked of the device: counted as one
+])
+def test_launch_rounds_leave_each_block_eight_tiles(persistent_twin, n, blocks, most, want):
+    """The launcher's tile (``launch_rounds``): the model's rounds where
+    the launch has room for them, else as many as leave each block of the
+    grid at least 8 tiles, and never under 1 candidate a thread, so a
+    launch of few tiles a wave still fills the wave and can stop near its
+    hit."""
+    got = persistent_twin.host_launch_rounds(n, blocks, 256, most)
+    assert got == want
+    assert 1 <= got <= most
+    tiles = -(-n // (got * 256))
+    assert got == 1 or tiles >= 8 * max(1, blocks)
+    assert got in (1, most) or n < (got + 1) * 256 * 8 * blocks

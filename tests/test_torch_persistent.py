@@ -49,6 +49,8 @@ from distpow_tpu_torch.parallel.partition import thread_bytes, worker_bits
 from distpow_tpu_torch.runtime.metrics import Metrics
 
 MODELS = ("md5", "sha1", "sha256d", "sha512")
+MODELS_ALL = ("md5", "sha256", "sha256d", "sha1", "ripemd160", "sha512", "sha384", "sha3_256",
+              "blake2b_256")
 SEED = 20261017
 
 # (nonce_len, width, difficulty, tb_lo, tbc, chunks, segments, chunk0, extra)
@@ -137,41 +139,42 @@ def test_width_zero_has_no_persistent_form():
                                torch.zeros(1, dtype=torch.int32), device="cpu")
 
 
-def test_one_wave_for_a_launch_expected_to_hold_a_hit():
-    """A persistent launch runs on one resident wave where it is expected
-    to hold at least half a hit (each candidate hits with probability
-    16^-difficulty), else on the serial kernel's grid."""
-    from distpow_tpu_torch.ops.hash_cuda import ONE_WAVE_EXPECTED_HITS, one_wave_for
+@pytest.mark.parametrize("name", MODELS_ALL)
+def test_claim_rounds_keep_a_launch_near_md5s_claims(name):
+    """The persistent form's most rounds a tile (``claim_rounds``, a power of
+    two at least 1): a launch at the backend's cost-scaled budget makes
+    2^15 to 2^17 claims of a tile, md5's 2^30 candidates 2^16, so claims
+    stay rare however costly the hash."""
+    from distpow_tpu_torch.ops.hash_cuda import BLOCK_THREADS, claim_rounds
 
-    assert ONE_WAVE_EXPECTED_HITS == 0.5
-    assert one_wave_for(1 << 30, 7) and not one_wave_for(1 << 30, 8)
-    assert one_wave_for(1 << 31, 8) and not one_wave_for((1 << 31) - 1, 8)
-    assert one_wave_for(8, 1) and not one_wave_for(7, 1)
-    assert not one_wave_for(1 << 30, 16)
+    model = get_hash_model(name)
+    rounds = claim_rounds(model)
+    assert rounds >= 1 and rounds & (rounds - 1) == 0
+    claims = CudaBackend(hash_model=name, device="cpu").max_launch / (rounds * BLOCK_THREADS)
+    assert 1 << 15 <= claims <= 1 << 17, (name, rounds, claims)
+    if name == "md5":
+        assert claims == 1 << 16
 
 
 @pytest.mark.parametrize("difficulty", [2, 3, 4])
 def test_backend_launches_on_the_grid_its_expected_hits_choose(monkeypatch, difficulty):
-    """``CudaBackend``'s persistent step asks for one resident wave exactly
-    where ``one_wave_for`` says so for its launch's candidates, and the
-    search's secret does not depend on the grid (the nonce's secrets at
-    difficulties 2-4 all need a chunk byte, so each search reaches the
-    persistent step)."""
-    from distpow_tpu_torch.ops.hash_cuda import one_wave_for
-
+    """``CudaBackend``'s persistent step leaves the grid and the tile to the
+    wrapper (one resident wave, ``claim_rounds``): it passes no grid choice
+    whatever the launch is expected to hold, and the search's secret is the
+    reference's (the nonce's secrets at difficulties 2-4 all need a chunk
+    byte, so each search reaches the persistent step)."""
     seen = []
     real = cuda_backend.hash_persistent_search
 
     def recorded(model, ops, tb_loc, chunk_locs, chunk0, batch, segments, stop, **kw):
-        seen.append((batch * segments, kw["one_wave"]))
+        seen.append(sorted(kw))
         return real(model, ops, tb_loc, chunk_locs, chunk0, batch, segments, stop, **kw)
 
     monkeypatch.setattr(cuda_backend, "hash_persistent_search", recorded)
     be = CudaBackend(hash_model="md5", device="cpu", batch_size=1 << 10, max_launch=1 << 12)
     nonce = b"\x02\x02\x02\x02"
     got = be.search(nonce, difficulty, range(256))
-    assert seen and all(wave == one_wave_for(n, difficulty) for n, wave in seen)
-    assert {wave for _, wave in seen} == {difficulty < 4}
+    assert seen and all(kw == ["device"] for kw in seen)
     want = jax_persistent_search(nonce, difficulty, list(range(256)),
                                  model=jax_registry.get_hash_model("md5"), batch_size=1 << 10,
                                  launch_candidates=1 << 12)
@@ -184,6 +187,32 @@ def test_persistent_grids_tool_exits_without_a_gpu(capsys):
     assert not torch.cuda.is_available()
     assert persistent_grids.main([]) == 2
     assert "no GPU" in capsys.readouterr().err
+
+
+def test_compare_persistent_tool_exits_without_a_gpu(capsys):
+    from distpow_tpu_torch.tools import compare_persistent
+
+    assert not torch.cuda.is_available()
+    assert compare_persistent.main(["."]) == 2
+    assert "no GPU" in capsys.readouterr().err
+
+
+def test_compare_persistent_turns_agree_only_on_the_same_words_and_secrets():
+    """``compare_persistent``'s check across its turns: every launch's
+    persistent words and every search's secret the same in each turn, and
+    each search's secret the one its own backend found first."""
+    from distpow_tpu_torch.tools.compare_persistent import agree
+
+    def turn(found=(5, 1), secret="0102", stable=True):
+        return {"launches": {"width1": {"no_hit": {"words": [SENTINEL, 1]},
+                                        "found": {"words": list(found)}}},
+                "loops": {"rows": [{"loop": "persistent", "difficulty": 5, "nonce": "ab",
+                                    "secret": secret, "secret_stable": stable}]}}
+
+    assert agree([turn(), turn(), turn(), turn()])
+    assert not agree([turn(), turn(found=(6, 1)), turn(), turn()])
+    assert not agree([turn(), turn(), turn(secret="0103"), turn()])
+    assert not agree([turn(), turn(), turn(), turn(stable=False)])
 
 
 # (model, nonce, difficulty, thread bytes, batch, launch candidates)

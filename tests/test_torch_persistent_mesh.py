@@ -241,15 +241,14 @@ def test_scheduler_solo_route_plans_with_the_scheduler_lane(monkeypatch, lane, s
 
 @pytest.mark.parametrize("difficulty", [2, 4])
 def test_mesh_shards_launch_on_the_grid_their_expected_hits_choose(monkeypatch, difficulty):
-    """Each shard of a persistent mesh launch asks for one resident wave
-    exactly where ``one_wave_for`` says so for its share of the launch."""
-    from distpow_tpu_torch.ops.hash_cuda import one_wave_for
-
+    """Each shard of a persistent mesh launch leaves the grid and the tile to
+    the wrapper (one resident wave, ``claim_rounds``): it passes no grid
+    choice whatever its share of the launch is expected to hold."""
     seen = []
     real = mesh_search.hash_mesh_persistent_search
 
     def recorded(model, ops, tb_loc, chunk_locs, chunk0, batch, segments, *a, **kw):
-        seen.append((batch * segments, kw["one_wave"]))
+        seen.append((batch * segments, sorted(kw)))
         return real(model, ops, tb_loc, chunk_locs, chunk0, batch, segments, *a, **kw)
 
     monkeypatch.setattr(mesh_search, "hash_mesh_persistent_search", recorded)
@@ -259,8 +258,7 @@ def test_mesh_shards_launch_on_the_grid_their_expected_hits_choose(monkeypatch, 
     step, each, chunks = factory(2, b"", 16, 4)
     step(256, StopFlag())
     assert len(seen) == 4 and all(n == chunks * 256 // 4 for n, _ in seen)
-    assert all(wave == one_wave_for(n, difficulty) for n, wave in seen)
-    assert {wave for _, wave in seen} == {difficulty == 2}
+    assert all(kw == ["device"] for _, kw in seen)
 
 
 def test_persistent_step_builder_plans():
