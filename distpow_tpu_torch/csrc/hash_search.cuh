@@ -44,6 +44,7 @@
 
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #if defined(__CUDACC__)
@@ -179,9 +180,10 @@ DISTPOW_HD uint32_t claim_index(uint32_t base, uint32_t t, uint32_t threads, uin
 // model's (hash_cuda.claim_rounds), which keeps a long launch's claims rare.
 constexpr uint32_t TILES_PER_BLOCK = 8;
 
-DISTPOW_HD uint32_t launch_rounds(uint32_t n, uint32_t blocks, uint32_t threads, uint32_t most) {
+DISTPOW_HD uint32_t launch_rounds(uint32_t n, uint32_t blocks, uint32_t threads, uint32_t most,
+                                  uint32_t tiles_per_block = TILES_PER_BLOCK) {
   const uint64_t r = n / (static_cast<uint64_t>(blocks > 0 ? blocks : 1) * threads *
-                          TILES_PER_BLOCK);
+                          tiles_per_block);
   return r < 1 ? 1 : r > most ? most : static_cast<uint32_t>(r);
 }
 
@@ -199,6 +201,68 @@ enum PersistentStep : int { kTest = 0, kBelowHit = 1, kStopped = 2 };
 DISTPOW_HD int persistent_step(uint32_t cell, uint32_t stop, uint32_t g) {
   return cell < g ? kBelowHit : stop != 0 ? kStopped : kTest;
 }
+
+// The group form's claims (hash_group_search_kernel): each slot of a group
+// has a counter of claims, and claim c of a slot is the tile of `tile`
+// consecutive flat indices at tile_index(c, tile), saturated at 2^32 - 1,
+// which lies past any slot's batch (< 2^31).
+DISTPOW_HD uint32_t tile_index(uint32_t c, uint32_t tile) {
+  const uint64_t b = static_cast<uint64_t>(c) * tile;
+  return b > 0xFFFFFFFFull ? 0xFFFFFFFFu : static_cast<uint32_t>(b);
+}
+
+// Does a group block test the tile it claimed at flat index b of a slot of
+// batch indices, whose cell it read as cell?  Not where the tile starts past
+// the batch, nor above a hit published in the cell (persistent_step, with
+// no flag): every index below the slot's least hit is tested.
+DISTPOW_HD bool group_tests(uint32_t cell, uint32_t batch, uint32_t b) {
+  return b < batch && persistent_step(cell, 0, b) == kTest;
+}
+
+// Is a slot open: would the next tile claimed from its counter, which has
+// made `claims`, be tested?  A slot that is not open never opens again: its
+// counter only grows and its cell only falls.
+DISTPOW_HD bool group_slot_open(uint32_t cell, uint32_t claims, uint32_t tile, uint32_t batch) {
+  return group_tests(cell, batch, tile_index(claims, tile));
+}
+
+// A group block tests one slot: its home slot where that is open, else the
+// first open slot after it in turn (open(t) reads slot t's cell and
+// counter; -1 when none is), until that slot is no longer open.  The
+// kernel reads 32 slots at once and takes the first open one in the same
+// order.
+DISTPOW_HD int group_home_slot(uint32_t block, int n_slots) {
+  return static_cast<int>(block % static_cast<uint32_t>(n_slots));
+}
+
+template <class Open>
+DISTPOW_HD int group_next_slot(int s, int n_slots, Open open) {
+  for (int k = 1; k < n_slots; ++k) {
+    const int t = (s + k) % n_slots;
+    if (open(t)) return t;
+  }
+  return -1;
+}
+
+// The candidates a thread tests of each tile of a group launch of n flat
+// indices in all (n_slots * batch) on one wave of `blocks` blocks:
+// launch_rounds at twice the persistent form's tiles a block, and at most
+// GROUP_MOST_ROUNDS, so that the launch's last tiles end close together
+// whatever the hash's cost (md5's engine launch of 8 x 2^20 takes 2;
+// tools/group_variants.py times 1 round beside it).
+constexpr uint32_t GROUP_TILES_PER_BLOCK = 16;
+constexpr uint32_t GROUP_MOST_ROUNDS = 2;
+
+DISTPOW_HD uint32_t group_rounds(uint64_t n, uint32_t blocks, uint32_t threads, uint32_t most) {
+  return launch_rounds(n > 0xFFFFFFFFull ? 0xFFFFFFFFu : static_cast<uint32_t>(n), blocks,
+                       threads, most < GROUP_MOST_ROUNDS ? most : GROUP_MOST_ROUNDS,
+                       GROUP_TILES_PER_BLOCK);
+}
+
+// Candidates a thread tests of each tile claimed in one launch, 1 to
+// MAX_ROUNDS: the C functions refuse other values (persistent_form, the
+// group launch).
+constexpr uint32_t MAX_ROUNDS = 1u << 16;
 
 // The hashes of 64-byte blocks and 16-word rows.
 struct Block16 {
@@ -485,25 +549,6 @@ int launch_keyed(int mask_words, int n_blocks, bool pow2, uint32_t n, Launch lau
   return static_cast<int>(cudaGetLastError());
 }
 
-// The host side of every group search's C function: checks the group's
-// configuration, then calls launch(std::integral_constant<int, N_BLOCKS>,
-// grid) with the (grid_x, n_slots) grid.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a configuration no kernel was built for.
-template <class H, class Launch>
-int launch_group(int n_blocks, int n_slots, uint32_t batch, int grid_x, Launch launch) {
-  if (n_slots == 0 || batch == 0) return 0;
-  if ((n_blocks != 1 && n_blocks != 2) || !(n_blocks == 1 ? builds_tail<H>(1) : builds_tail<H>(2)) ||
-      n_slots < 0 || n_slots > 65535 || grid_x < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(grid_x, n_slots);
-  if (n_blocks == 1) {
-    if constexpr (builds_tail<H>(1)) launch(std::integral_constant<int, 1>{}, grid);
-  } else {
-    if constexpr (builds_tail<H>(2)) launch(std::integral_constant<int, 2>{}, grid);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The kernel, over any hash H.
 // * One candidate per thread per iteration of a grid-stride loop over the
 //   launch's n < 2^31 flat indices; a thread stops at its first hit, which
@@ -598,9 +643,9 @@ __device__ __forceinline__ uint32_t thread_first_hit(const uint32_t* init, const
 }
 
 // A thread's first hit in one block's search, the launch's operands loaded
-// into shared memory first: the body of the solo, group and mesh kernels.
-// Report, the index the kernel's cell holds (FlatIndex for the solo and
-// group kernels, PartitionIndex for the mesh kernel), keys the shared
+// into shared memory first: the body of the solo and mesh kernels.
+// Report, the index the kernel's cell holds (FlatIndex for the solo
+// kernels, PartitionIndex for the mesh kernel), keys the shared
 // arrays: the mesh kernels keep arrays of their own, apart from the solo
 // kernels'.  ptxas lays out a kernel's shared memory by the arrays of the
 // whole module, and with the arrays shared, md5's two-block kernels came
@@ -844,77 +889,289 @@ void launch_search_kernel(const uint32_t* init, const uint32_t* base, const uint
 
 // The scheduler's kernel: the search of a group of slots in one launch.
 // Replaces distpow_tpu/sched/lanes.py build_pallas_group_step, which
-// launched _dyn_pallas_step once per slot under one jit.  blockIdx.y is the
-// slot; each slot searches its flat indices [0, batch) with its own prefix
-// state, rows, masks of every digest word (so slots at any difficulty share
-// the launch), power-of-two run and cursor (slot_layout), and its first hit
-// goes to out[s], which the wrapper set to SENTINEL on the same stream.
-// The tail layout (N_BLOCKS, var_word, var_shift, chunk_mask) is the
-// group's.  Each block is hash_search_block at MASK_WORDS = DIGEST_WORDS
-// and POW2, the solo kernel's full-digest specialization.
+// launched _dyn_pallas_step once per slot under one jit.  Each slot s
+// searches its flat indices [0, batch) with its own prefix state, rows,
+// masks of every digest word (so slots at any difficulty share the
+// launch), power-of-two run and cursor (slot_layout); its least hit goes
+// to out[s], which the wrapper set to SENTINEL, and out[n_slots + s] counts
+// the tiles claimed of it, which the wrapper set to 0.  The tail layout
+// (N_BLOCKS, var_word, var_shift, chunk_mask) is the group's, the
+// candidate test the solo kernel's at MASK_WORDS = DIGEST_WORDS and POW2
+// (CandidateTest).  It claims work as the persistent form does:
+// * blocks claim tiles of `rounds` x 256 consecutive flat indices of one
+//   slot from the slot's counter, in index order; the rounds are
+//   group_rounds over the whole group on one resident wave (group_wave),
+//   so that each block of the wave gets GROUP_TILES_PER_BLOCK tiles or more;
+// * a tile above the slot's published least hit is dropped (group_tests),
+//   so a slot stops about one tile after its first hit, and every index
+//   below that hit is tested: the words are the serial kernel's;
+// * each block tests one slot: the first open one from its home slot on
+//   (group_home_slot, group_slot_open), until it is no longer open, and
+//   then ends.  The grid is GROUP_WAVES resident waves (cut to the group's
+//   tiles, at least a block a slot): a block that starts as another ends
+//   takes the next open slot, so work moves from the slots that are done
+//   to those that are not, and the grid's blocks past the first wave that
+//   find no open slot end at once;
+// * a block loads its slot's operands into shared memory and makes its
+//   launch constants once (md5's Md5Tail), outside any loop: with the
+//   constants made inside a loop over slots (tools/group_slot_loop.cuh),
+//   ptxas recomputes md5's K[i] + m sums every candidate (UIADD3, VIADD)
+//   where it keeps them in uniform registers here (tools/group_variants.py
+//   builds and times both);
+// * no stop flag: the engine cancels at launch boundaries.
+constexpr int GROUP_WAVES = 3;
+
 #define DISTPOW_GROUP_PARAMS                                                                  \
   const uint32_t *__restrict__ init_g, const uint32_t *__restrict__ base_g,                   \
       const uint32_t *__restrict__ masks_g, const uint32_t *__restrict__ tb_lo,               \
       const uint32_t *__restrict__ log_tbc, const uint32_t *__restrict__ chunk0, int var_word, \
-      int var_shift, uint32_t chunk_mask, uint32_t batch, uint32_t *__restrict__ out
-#define DISTPOW_GROUP_ARGS \
-  init_g, base_g, masks_g, tb_lo, log_tbc, chunk0, var_word, var_shift, chunk_mask, batch, out
+      int var_shift, uint32_t chunk_mask, int n_slots, uint32_t batch, uint32_t rounds,       \
+      uint32_t *__restrict__ out
+#define DISTPOW_GROUP_ARGS                                                                  \
+  init_g, base_g, masks_g, tb_lo, log_tbc, chunk0, var_word, var_shift, chunk_mask, n_slots, \
+      batch, rounds, out
 
+// A tile handed to a group block: its slot and first flat index, or slot
+// -1 when no slot is open.
+struct GroupTile {
+  int slot;
+  uint32_t b;
+};
+
+// Thread 0's check of the claim it made a tile ahead, claim number `claim`
+// of slot s, against the slot's cell as it read it (group_tests): where the
+// tile is to be tested, its first flat index, and the next claim is made at
+// once; else SENTINEL.  The claim is kept as the counter gave it and turned
+// into an index only at its check, so that no instruction waits for the
+// atomic before the tile's barrier: its latency hides behind the tile.
+__device__ __forceinline__ uint32_t group_claim(int s, uint32_t& claim, uint32_t cell,
+                                                uint32_t* out, int n_slots, uint32_t batch,
+                                                uint32_t tile) {
+  const uint32_t b = tile_index(claim, tile);
+  if (!group_tests(cell, batch, b)) return SENTINEL;
+  claim = atomicAdd(out + n_slots + s, 1u);
+  return b;
+}
+
+// Warp 0's choice of a block's slot as the block starts: its home slot
+// where that is open, else the first open one after it in turn
+// (group_next_slot's order; the warp reads the cells and counters of 32
+// slots at once), where lane 0 claims a tile and checks it (group_claim).
+// A slot that is not open never opens again, so the loop ends after at
+// most n_slots moves.  Returns the tile to test, or slot -1; lane 0 keeps
+// its claim ahead in `claim`.
+__device__ __forceinline__ GroupTile group_start(uint32_t& claim, uint32_t* out, int n_slots,
+                                                 uint32_t batch, uint32_t tile) {
+  uint32_t* const counters = out + n_slots;
+  const int lane = threadIdx.x & 31;
+  int slot = group_home_slot(blockIdx.x, n_slots);
+  bool open = group_slot_open(live_word(out + slot), live_word(counters + slot), tile, batch);
+#pragma unroll 1
+  for (;;) {
+    if (open) {
+      uint32_t b = SENTINEL;  // a tile to test starts below batch < 2^31
+      if (lane == 0) {
+        claim = atomicAdd(counters + slot, 1u);
+        b = group_claim(slot, claim, live_word(out + slot), out, n_slots, batch, tile);
+      }
+      b = __shfl_sync(0xFFFFFFFFu, b, 0);
+      if (b != SENTINEL) return GroupTile{slot, b};
+    }
+    int to = -1;
+#pragma unroll 1
+    for (int k = 1; k < n_slots && to < 0; k += 32) {
+      const int i = k + lane, t = (slot + i) % n_slots;
+      const bool o = i < n_slots && group_slot_open(live_word(out + t), live_word(counters + t),
+                                                    tile, batch);
+      const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, o);
+      if (ballot != 0) to = (slot + k + __ffs(ballot) - 1) % n_slots;
+    }
+    if (to < 0) return GroupTile{-1, SENTINEL};
+    slot = to;
+    open = true;
+  }
+}
+
+// One block of the group kernel.
+// * Warp 0 picks the block's slot and first tile (group_start) and hands
+//   them to the block through shared memory.
+// * The block loads the slot's operands into shared memory and each thread
+//   makes the candidate test (CandidateTest: md5's constants from them).
+// * Between tiles, thread 0 checks the claim it made a tile ahead
+//   (group_claim) and hands the tile over, two words of shared memory in
+//   turn, so one barrier a tile suffices; the block ends where the claim is
+//   dropped.  It checks against the slot's cell as it read it when the
+//   tile began, the read's latency hidden behind the tile (so a block
+//   tests at most one tile more past a hit), but for a hash built for one
+//   tail layout (md5's), which reads it at the tile's end: each form ran
+//   the faster for its hashes on the H100, as ptxas scheduled their loops
+//   (tools/group_variants.py times md5's both ways).
+// * Each thread tests its indices of the tile (claim_index) in ascending
+//   order until its first hit, which goes into the slot's cell at once; it
+//   tests no more tiles, all of which lie above its hit.
 template <class H, int N_BLOCKS>
-__device__ __forceinline__ void hash_group_search_slot(DISTPOW_GROUP_PARAMS) {
-  const int s = blockIdx.y;
+__device__ __forceinline__ void hash_group_block(DISTPOW_GROUP_PARAMS) {
+  constexpr int D = H::DIGEST_WORDS, BASE_WORDS = H::ROW_WORDS * N_BLOCKS;
+  __shared__ uint32_t init[H::STATE_WORDS], base[BASE_WORDS];
+  __shared__ GroupTile handed[2];
+  const uint32_t tile = rounds * HASH_BLOCK_THREADS;
+  uint32_t claim = 0;  // thread 0's claim ahead
+  if (threadIdx.x < 32) {
+    const GroupTile t = group_start(claim, out, n_slots, batch, tile);
+    if (threadIdx.x == 0) handed[0] = t;
+  }
+  __syncthreads();
+  const int s = handed[0].slot;
+  if (s < 0) return;
+  uint32_t b = handed[0].b;
+  for (int i = threadIdx.x; i < H::STATE_WORDS; i += blockDim.x)
+    init[i] = init_g[s * H::STATE_WORDS + i];
+  for (int i = threadIdx.x; i < BASE_WORDS; i += blockDim.x) base[i] = base_g[s * BASE_WORDS + i];
+  uint32_t masks[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) masks[i] = __ldg(masks_g + s * D + i);
   const Layout L = slot_layout(__ldg(chunk0 + s), __ldg(tb_lo + s), __ldg(log_tbc + s), var_word,
                                var_shift, chunk_mask);
-  hash_search_block<H, H::DIGEST_WORDS, N_BLOCKS, true>(
-      init_g + s * H::STATE_WORDS, base_g + s * H::ROW_WORDS * N_BLOCKS,
-      masks_g + s * H::DIGEST_WORDS, L, batch, out + s);
+  __syncthreads();
+  const CandidateTest<H, D, N_BLOCKS> hits(init, base, masks);
+  constexpr bool EARLY = !KeyedByVarWord<H>::value;  // the cell read as the tile begins
+  bool testing = true;
+#pragma unroll 1
+  for (int buf = 1; b != SENTINEL; buf ^= 1) {
+    const uint32_t seen = EARLY && threadIdx.x == 0 ? live_word(out + s) : 0u;
+    if (testing) {
+      // b + tile < 2^31 + 2^24 (MAX_ROUNDS)
+      const uint32_t end = min(b + tile, batch);
+      // one hash per iteration, as in the serial loop
+#pragma unroll 1
+      for (uint32_t f = claim_index(b, threadIdx.x, HASH_BLOCK_THREADS, 0); f < end;
+           f += HASH_BLOCK_THREADS) {
+        uint32_t tb, chunk;
+        decode<true>(L, f, tb, chunk);
+        if (hits(L, tb, chunk)) {
+          atomicMin(out + s, f);
+          testing = false;
+          break;
+        }
+      }
+    }
+    if (threadIdx.x == 0)
+      handed[buf].b = group_claim(s, claim, EARLY ? seen : live_word(out + s), out, n_slots,
+                                  batch, tile);
+    __syncthreads();
+    b = handed[buf].b;
+  }
 }
 
 template <class H, int N_BLOCKS>
 __global__ void __launch_bounds__(HASH_BLOCK_THREADS)
 hash_group_search_kernel(DISTPOW_GROUP_PARAMS) {
-  hash_group_search_slot<H, N_BLOCKS>(DISTPOW_GROUP_ARGS);
+  hash_group_block<H, N_BLOCKS>(DISTPOW_GROUP_ARGS);
 }
 
 // The same kernel for a hash that asks for H::MIN_BLOCKS_PER_SM blocks.
 template <class H, int N_BLOCKS>
 __global__ void __launch_bounds__(HASH_BLOCK_THREADS, H::MIN_BLOCKS_PER_SM)
 resident_hash_group_search_kernel(DISTPOW_GROUP_PARAMS) {
-  hash_group_search_slot<H, N_BLOCKS>(DISTPOW_GROUP_ARGS);
+  hash_group_block<H, N_BLOCKS>(DISTPOW_GROUP_ARGS);
 }
 
 template <class H, int N_BLOCKS>
-void launch_group_kernel(dim3 grid, cudaStream_t stream, DISTPOW_GROUP_PARAMS) {
-  if constexpr (AsksResidentBlocks<H>::value) {
-    resident_hash_group_search_kernel<H, N_BLOCKS>
-        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(DISTPOW_GROUP_ARGS);
-  } else {
-    hash_group_search_kernel<H, N_BLOCKS>
-        <<<grid, HASH_BLOCK_THREADS, 0, stream>>>(DISTPOW_GROUP_ARGS);
+auto group_kernel() {
+  if constexpr (AsksResidentBlocks<H>::value) return resident_hash_group_search_kernel<H, N_BLOCKS>;
+  else return hash_group_search_kernel<H, N_BLOCKS>;
+}
+
+// One resident wave of the group kernel on the current device
+// (resident_wave), asked of the device at its first launch there and kept,
+// so that a launch's only query is cudaGetDevice.
+template <class H, int N_BLOCKS>
+int group_wave() {
+  constexpr int DEVICES = 64;
+  static std::atomic<int> waves[DEVICES];  // 0: not asked yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 0 || dev >= DEVICES) return resident_wave(group_kernel<H, N_BLOCKS>());
+  int wave = waves[dev].load(std::memory_order_relaxed);
+  if (wave <= 0) {
+    wave = resident_wave(group_kernel<H, N_BLOCKS>());
+    waves[dev].store(wave, std::memory_order_relaxed);
   }
+  return wave;
+}
+
+// A group launch on `grid` blocks, or where grid <= 0 on GROUP_WAVES
+// resident waves cut to the group's tiles; at least a block a slot, so that
+// every slot is some block's home.  The tile takes group_rounds, over the
+// group's n_slots * batch indices on one wave (or the grid asked for), of
+// the `rounds` asked for.
+template <class H, int N_BLOCKS>
+void launch_group_kernel(int grid, cudaStream_t stream, DISTPOW_GROUP_PARAMS) {
+  const int blocks = grid > 0 ? grid : group_wave<H, N_BLOCKS>();
+  rounds = group_rounds(static_cast<uint64_t>(n_slots) * batch, blocks, HASH_BLOCK_THREADS, rounds);
+  if (grid <= 0) {
+    const uint64_t tile = static_cast<uint64_t>(rounds) * HASH_BLOCK_THREADS;
+    const uint64_t tiles = static_cast<uint64_t>(n_slots) * ((batch + tile - 1) / tile);
+    const uint64_t most = static_cast<uint64_t>(blocks) * GROUP_WAVES;
+    grid = static_cast<int>(tiles < most ? tiles : most);
+  }
+  if (grid < n_slots) grid = n_slots;
+  const auto kernel = group_kernel<H, N_BLOCKS>();
+  kernel<<<grid, HASH_BLOCK_THREADS, 0, stream>>>(DISTPOW_GROUP_ARGS);
 }
 
 // The body of each kernel's second extern "C" function, the group search.
 // init[n_slots][STATE_WORDS], base[n_slots][ROW_WORDS * n_blocks],
-// masks[n_slots][DIGEST_WORDS], tb_lo, log_tbc, chunk0 and out[n_slots]
-// are device arrays; out already holds SENTINEL.  The grid is (grid_x,
-// n_slots).  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// configuration no kernel was built for.
+// masks[n_slots][DIGEST_WORDS], tb_lo, log_tbc, chunk0 and out[2 * n_slots]
+// are device arrays; out holds n_slots SENTINELs, then n_slots zeros, the
+// claim counters.  batch < 2^31; rounds is the most candidates a thread
+// tests of each tile (1 to MAX_ROUNDS), grid the blocks (<= 0:
+// GROUP_WAVES resident waves; at least n_slots).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a configuration no
+// kernel was built for.
 template <class H>
 int launch_hash_group_search(const void* init, const void* base, const void* masks,
                              int n_blocks, int var_word, int var_shift, uint32_t chunk_mask,
                              const void* tb_lo, const void* log_tbc, const void* chunk0,
-                             int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
+                             int n_slots, uint32_t batch, uint32_t rounds, void* out, int grid,
+                             void* stream) {
+  if (n_slots == 0 || batch == 0) return 0;
+  if ((n_blocks != 1 && n_blocks != 2) ||
+      !(n_blocks == 1 ? builds_tail<H>(1) : builds_tail<H>(2)) || n_slots < 0 ||
+      n_slots > 65535 || batch >= 0x80000000u || rounds == 0 || rounds > MAX_ROUNDS)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto u = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  return launch_group<H>(n_blocks, n_slots, batch, grid_x, [&](auto n_blk, dim3 grid) {
+  auto go = [&](auto n_blk) {
     launch_group_kernel<H, decltype(n_blk)::value>(
         grid, static_cast<cudaStream_t>(stream), u(init), u(base), u(masks), u(tb_lo),
-        u(log_tbc), u(chunk0), var_word, var_shift, chunk_mask, batch,
+        u(log_tbc), u(chunk0), var_word, var_shift, chunk_mask, n_slots, batch, rounds,
         static_cast<uint32_t*>(out));
-  });
+  };
+  if (n_blocks == 1) {
+    if constexpr (builds_tail<H>(1)) go(std::integral_constant<int, 1>{});
+  } else {
+    if constexpr (builds_tail<H>(2)) go(std::integral_constant<int, 2>{});
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 #undef DISTPOW_GROUP_ARGS
 #undef DISTPOW_GROUP_PARAMS
+
+// Each kernel's second extern "C" function, distpow_<NAME>_group_search,
+// over hash H: launch_hash_group_search's arguments; a layout that
+// LAYOUT_OK refuses (md5's libraries are built per var_word) is
+// cudaErrorInvalidValue.
+#define DISTPOW_GROUP_FUNCTION(NAME, H, LAYOUT_OK)                                            \
+  extern "C" int distpow_##NAME##_group_search(                                               \
+      const void* init, const void* base, const void* masks, int n_blocks, int var_word,      \
+      int var_shift, uint32_t chunk_mask, const void* tb_lo, const void* log_tbc,             \
+      const void* chunk0, int n_slots, uint32_t batch, uint32_t rounds, void* out, int grid,  \
+      void* stream) {                                                                         \
+    if (!(LAYOUT_OK)) return static_cast<int>(cudaErrorInvalidValue);                        \
+    return distpow::launch_hash_group_search<H>(init, base, masks, n_blocks, var_word,         \
+                                                var_shift, chunk_mask, tb_lo, log_tbc, chunk0, \
+                                                n_slots, batch, rounds, out, grid, stream);    \
+  }
 
 // The mesh kernel: one shard's launch of a search spread over a mesh of
 // devices (replaces distpow_tpu/parallel/mesh_search.py
@@ -1059,8 +1316,6 @@ int launch_hash_mesh_search(const void* init, const void* base, const void* mask
 // launch takes launch_rounds of it).  An invalid one (no flag, a zero
 // segment, rounds out of range) is reported as a null stop, which
 // DISTPOW_PERSISTENT_FUNCTIONS refuses.
-constexpr uint32_t MAX_ROUNDS = 1u << 16;
-
 inline Persist persistent_form(const void* stop, uint32_t seg, uint32_t rounds) {
   if (stop == nullptr || seg == 0 || rounds == 0 || rounds > MAX_ROUNDS) return Persist{};
   return Persist{static_cast<const uint32_t*>(stop), seg, rounds};

@@ -8,7 +8,7 @@
 // Interface: five plain C functions, launched on the caller's stream;
 // they do not synchronise and allocate nothing.  The search of one request
 // (arguments as in distpow::launch_hash_search), the scheduler's search of
-// a group of slots (distpow::launch_hash_group_search) and one shard's
+// a group of slots (DISTPOW_GROUP_FUNCTION) and one shard's
 // launch of a mesh search (distpow::launch_hash_mesh_search); and the
 // persistent forms of the first and the third (DISTPOW_PERSISTENT_FUNCTIONS).
 #include "sha512.cuh"
@@ -23,14 +23,7 @@ extern "C" int distpow_sha384_search(const void* init, const void* base, const v
                                                       chunk_mask, n, out, grid, stream);
 }
 
-extern "C" int distpow_sha384_group_search(
-    const void* init, const void* base, const void* masks, int n_blocks, int var_word,
-    int var_shift, uint32_t chunk_mask, const void* tb_lo, const void* log_tbc,
-    const void* chunk0, int n_slots, uint32_t batch, void* out, int grid_x, void* stream) {
-  return distpow::launch_hash_group_search<distpow::Sha384>(
-      init, base, masks, n_blocks, var_word, var_shift, chunk_mask, tb_lo, log_tbc, chunk0,
-      n_slots, batch, out, grid_x, stream);
-}
+DISTPOW_GROUP_FUNCTION(sha384, distpow::Sha384, true)
 
 extern "C" int distpow_sha384_mesh_search(
     const void* init, const void* base, const void* masks, int n_blocks, int mask_words,

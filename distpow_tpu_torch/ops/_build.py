@@ -194,10 +194,22 @@ def mesh_persistent_function(name: str) -> str:
     return f"distpow_{name[:-len('_search')]}_mesh_persistent_search"
 
 
+_vp, _u32, _i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+# the group search's arguments (hash_search.cuh DISTPOW_GROUP_FUNCTION)
+GROUP_ARGTYPES = [
+    _vp, _vp, _vp,           # init[n_slots][S], base[n_slots][n_blocks * W], masks[n_slots][D]
+    _i32,                    # n_blocks
+    _i32, _i32, _u32,        # var_word, var_shift, chunk_mask
+    _vp, _vp, _vp,           # tb_lo[n_slots], log_tbc[n_slots], chunk0[n_slots]
+    _i32, _u32, _u32,        # n_slots, batch, rounds
+    _vp, _i32, _vp,          # out[2 * n_slots], grid, stream
+]
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     """Set the argument and result types of the five C functions of each
     library; every search kernel has the same interface."""
-    vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+    vp, u32, i32 = _vp, _u32, _i32
     fn = getattr(lib, f"distpow_{name}")
     fn.argtypes = [
         vp, vp, vp,          # init, base, masks
@@ -208,14 +220,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     ]
     fn.restype = i32
     group = getattr(lib, group_function(name))
-    group.argtypes = [
-        vp, vp, vp,          # init[n_slots][S], base[n_slots][n_blocks * W], masks[n_slots][D]
-        i32,                 # n_blocks
-        i32, i32, u32,       # var_word, var_shift, chunk_mask
-        vp, vp, vp,          # tb_lo[n_slots], log_tbc[n_slots], chunk0[n_slots]
-        i32, u32,            # n_slots, batch
-        vp, i32, vp,         # out[n_slots], grid_x, stream
-    ]
+    group.argtypes = GROUP_ARGTYPES
     group.restype = i32
     mesh = getattr(lib, mesh_function(name))
     mesh.argtypes = fn.argtypes[:13] + [

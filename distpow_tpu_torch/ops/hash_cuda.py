@@ -20,8 +20,12 @@ Each kernel's library also holds its group form, the counterpart of the
 reference scheduler's ``distpow_tpu/sched/lanes.py``
 ``build_pallas_group_step``: ``hash_group_search`` searches a group of
 scheduler slots that share a tail layout in one launch, each slot with its
-own operands (``GroupOperands``), and counts under
-``LAUNCHES["<kernel>_group"]``; its plain version is
+own operands (``GroupOperands``): its blocks claim tiles of one slot in
+index order, so that a slot stops about one tile after its first hit, and
+each tests one slot, the grid's later blocks taking the slots still open;
+it counts under ``LAUNCHES["<kernel>_group"]``,
+keeps what does not change between launches of one shape (the library's
+function, the cells' first words), and its plain version is
 ``search_step.plain_group_search``.
 
 And its mesh form, the counterpart of the reference's
@@ -502,30 +506,28 @@ def hash_mesh_persistent_search(model: HashModel, ops: StepOperands, tb_loc, chu
     return out
 
 
+# The group tensors' names and shapes, per (model, slots, tail blocks).
+def _group_shapes(model: HashModel, n: int, n_blocks: int):
+    return (("init", (n, len(model.init_state))), ("base", (n, n_blocks, model.row_words)),
+            ("masks", (n, model.digest_words)), ("tb_lo", (n,)), ("log_tbc", (n,)),
+            ("chunk0", (n,)))
+
+
 def _check_group(ops: GroupOperands, device: torch.device, model: HashModel,
                  batch: int) -> None:
-    n = ops.n_slots
-    want = {"init": (n, len(model.init_state)), "base": (n, ops.n_blocks, model.row_words),
-            "masks": (n, model.digest_words), "tb_lo": (n,), "log_tbc": (n,), "chunk0": (n,)}
-    for name, shape in want.items():
+    n, n_blocks = ops.n_slots, ops.n_blocks
+    if n < 1 or n > 65535 or n_blocks not in (1, 2):
+        raise ValueError(f"bad group: {n} slots of {n_blocks} tail blocks")
+    for name, shape in _group_shapes(model, n, n_blocks):
         t = getattr(ops, name)
         if t.device.type != device.type:
             raise ValueError(f"{name} is on {t.device}, the call asks for {device}")
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 (uint32 bit patterns)")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{model.name} group {name} must be {list(shape)}, "
                              f"got {list(t.shape)}")
-    if n < 1 or n > 65535 or ops.n_blocks not in (1, 2):
-        raise ValueError(f"bad group: {n} slots of {ops.n_blocks} tail blocks")
     _check_launch(batch, 1)
-
-
-def group_grid(batch: int, n_slots: int, sm_count: int) -> int:
-    """Blocks per slot (the grid's x) for a group launch: the solo launch's
-    few waves per SM shared among the slots, and no more blocks than a
-    slot has indices for."""
-    return max(1, min(-(-batch // BLOCK_THREADS), sm_count * BLOCKS_PER_SM // n_slots))
 
 
 def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, batch: int,
@@ -537,35 +539,79 @@ def hash_group_search(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, 
     run ``tb_lo[s] .. tb_lo[s] + 2^log_tbc[s] - 1`` and cursor ``chunk0[s]``.
     On a CUDA device: one launch of ``model``'s group kernel on the current
     stream, returning the ``int32[n_slots]`` result cells (uint32 bit
-    patterns, SENTINEL is -1) without synchronising.  On the CPU: the plain
-    version, ``int64[n_slots]``.  The grid is ``group_grid`` blocks per slot.
+    patterns, SENTINEL is -1) without synchronising.  Its blocks claim
+    tiles of at most ``claim_rounds(model)`` candidates a thread of one
+    slot, in index order, so a slot stops about one tile after its first
+    hit; each block tests one slot, and the grid (a few resident waves)
+    starts its later blocks on the slots still open.  On the CPU: the
+    plain version, ``int64[n_slots]``.
     """
-    name = kernel_name(model)
     device = torch.device(device)
     _check_group(ops, device, model, batch)
     if device.type == "cpu":
+        kernel_name(model)  # raises for a model without a kernel
         return plain_group_search(model, ops, tb_loc, chunk_locs, batch)
     if device.type != "cuda":
         raise ValueError(f"hash_group_search runs on cuda or cpu, not {device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("hash_group_search on a CUDA device, but CUDA is not available")
-    var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
-    check_tail(model, ops.n_blocks, var_word, tb_loc)
-    from ._build import group_function
+    return group_cell(model, ops, tb_loc, chunk_locs, batch)[:ops.n_slots]
 
-    lib = _library(name, model, var_word)
-    dev = ops.device
-    with torch.cuda.device(dev):
-        grid_x = group_grid(batch, ops.n_slots,
-                            torch.cuda.get_device_properties(dev).multi_processor_count)
-        out = torch.full((ops.n_slots,), -1, dtype=torch.int32, device=dev)  # SENTINEL's bits
-        rc = getattr(lib, group_function(name))(
-            ops.init.data_ptr(), ops.base.data_ptr(), ops.masks.data_ptr(), ops.n_blocks,
-            var_word, var_shift, chunk_mask,
-            ops.tb_lo.data_ptr(), ops.log_tbc.data_ptr(), ops.chunk0.data_ptr(),
-            ops.n_slots, batch, out.data_ptr(), grid_x,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+
+# (model, tail layout, device, slots) -> what a group launch of that shape
+# keeps from one launch to the next: the library's C function, the layout's
+# arguments, the most rounds of a tile, and the cells' first words on the
+# device (n_slots SENTINELs, then n_slots zero claim counters), which each
+# launch copies into a cell of its own, one copy on its stream
+_GROUP_LAUNCHES = {}
+
+
+def _group_launch(model: HashModel, n_blocks: int, tb_loc, chunk_locs, dev: torch.device,
+                  n_slots: int):
+    key = (model.name, n_blocks, tuple(tb_loc), tuple(map(tuple, chunk_locs)), dev, n_slots)
+    fixed = _GROUP_LAUNCHES.get(key)
+    if fixed is None:
+        from ._build import group_function
+
+        name = kernel_name(model)
+        var_word, var_shift, chunk_mask = kernel_layout(tb_loc, chunk_locs, model)
+        check_tail(model, n_blocks, var_word, tb_loc)
+        fn = getattr(_library(name, model, var_word), group_function(name))
+        with torch.cuda.device(dev):
+            # two fills, no host wait (the scheduler's loop runs under sync
+            # debug mode "error" in chip_smoke.py)
+            cells = torch.zeros(2 * n_slots, dtype=torch.int32, device=dev)
+            cells[:n_slots].fill_(-1)  # SENTINEL's bits
+        fixed = (name, fn, (var_word, var_shift, chunk_mask), claim_rounds(model), cells)
+        _GROUP_LAUNCHES[key] = fixed
+    return fixed
+
+
+def group_cell(model: HashModel, ops: GroupOperands, tb_loc, chunk_locs, batch: int, *,
+               grid: Optional[int] = None, rounds: Optional[int] = None) -> torch.Tensor:
+    """``hash_group_search``'s launch on a CUDA device, its arguments
+    unchecked, with the whole of its cell: ``int32[2 * n_slots]``, the
+    slots' words, then the tiles claimed of each slot (each block's claim
+    past a slot's end, or dropped at its check, included).  ``grid`` names
+    the blocks (at least a block a slot) instead of a few resident waves,
+    ``rounds`` the most candidates a thread tests of each tile instead of
+    ``claim_rounds(model)`` (the launcher takes fewer where a block of one
+    wave would get under 8 tiles of the group, and refuses a value outside
+    1 to 2^16); for tools and tests."""
+    dev, n_slots = ops.device, ops.n_slots
+    name, fn, layout, most, cells = _group_launch(model, ops.n_blocks, tb_loc, chunk_locs, dev,
+                                                  n_slots)
+    out = cells.clone()
+
+    def launch() -> int:
+        return fn(ops.init.data_ptr(), ops.base.data_ptr(), ops.masks.data_ptr(), ops.n_blocks,
+                  *layout, ops.tb_lo.data_ptr(), ops.log_tbc.data_ptr(), ops.chunk0.data_ptr(),
+                  n_slots, batch, most if rounds is None else rounds, out.data_ptr(),
+                  0 if grid is None else grid, torch.cuda.current_stream(dev).cuda_stream)
+
+    if torch.cuda.current_device() == dev.index:
+        rc = launch()
+    else:
+        with torch.cuda.device(dev):
+            rc = launch()
     if rc != 0:
         raise RuntimeError(f"{name} group kernel launch failed: CUDA error {rc}")
     LAUNCHES[f"{name}_group"].add()

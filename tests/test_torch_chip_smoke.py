@@ -484,3 +484,45 @@ def test_demo_client_shim_runs_the_client_cli_and_waits_for_its_stdin():
     lines = out.stdout.splitlines()
     assert lines[0].startswith("usage:") and "--config2" in out.stdout
     assert lines[-1] == cs.DEMO_CLIENT_DONE
+
+
+# A claim loop (a barrier a tile) around a candidate loop, as the group and
+# persistent kernels compile: the widest loop is the claim loop, the widest
+# loop without a barrier the candidate loop
+CLAIM_SASS = """
+        Function : _ZN7distpow24hash_group_search_kernelINS_6Sha256ELi1EEEvPKj
+.L_x_1:
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   LDS R2, [UR4] ;
+.L_x_2:
+        /*0020*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*0030*/                   LOP3.LUT R5, R4, R2, RZ, 0xfc, !PT ;
+        /*0040*/                   IMAD R6, R5, 0x3, R4 ;
+        /*0050*/               @P0 BRA `(.L_x_2) ;
+        /*0060*/                   ATOMG.E.ADD.STRONG.GPU PT, R7, [R8.64], R9 ;
+        /*0070*/               @P1 BRA `(.L_x_1) ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_candidate_loop_is_the_widest_without_a_barrier():
+    """``sass_loops``' ``candidate`` skips a loop whose body holds a
+    barrier: the group kernels' loop is their candidate loop, not the claim
+    loop around it; a listing without barriers gives the same loops."""
+    cs = _load()
+    name = "_ZN7distpow24hash_group_search_kernelINS_6Sha256ELi1EEEvPKj"
+    assert sum(cs.sass_loops(CLAIM_SASS)[name].values()) == 8
+    assert cs.sass_loops(CLAIM_SASS, candidate=True)[name] == {
+        "IADD3": 1, "LOP3.LUT": 1, "IMAD": 1, "BRA": 1}
+    assert cs.group_sass_loops(CLAIM_SASS) == {1: {"IADD3": 1, "LOP3.LUT": 1, "IMAD": 1,
+                                                   "BRA": 1}}
+    for listing in (SASS, PROBE_SASS, ROUTED_SASS, SWITCH_SASS):
+        assert cs.sass_loops(listing, candidate=True) == cs.sass_loops(listing)
+
+
+@pytest.mark.parametrize("registers,blocks", [(24, 8), (32, 8), (40, 6), (58, 4), (64, 4),
+                                              (77, 3), (80, 3), (93, 2), (128, 2), (255, 1)])
+def test_blocks_per_sm_from_registers(registers, blocks):
+    """Resident 256-thread blocks an SM holds at a kernel's registers: the
+    registers a thread rounded up to 8, 65,536 an SM, at most 8 blocks."""
+    assert _load().blocks_per_sm(registers) == blocks

@@ -1071,3 +1071,296 @@ def test_launch_rounds_leave_each_block_eight_tiles(persistent_twin, n, blocks, 
     tiles = -(-n // (got * 256))
     assert got == 1 or tiles >= 8 * max(1, blocks)
     assert got in (1, most) or n < (got + 1) * 256 * 8 * blocks
+
+
+# The group kernel (hash_search.cuh hash_group_block) over a simulated
+# launch of md5 slots: first each slot's candidates are tested with the
+# kernel's candidate test (md5's Tail made from the slot's operands,
+# slot_layout, the full digest's masks), then a grid of blocks of `threads`
+# threads, at most `resident` of them running at once and each started in
+# index order as another ends, claims tiles of rounds * threads flat
+# indices of one slot from that slot's counter (claim c is the tile at
+# tile_index(c, tile)), one tile ahead as the kernel does.  A block starts
+# on its home slot (group_home_slot) where that is open, else on the next
+# open one (group_next_slot over group_slot_open), claims a tile there and
+# checks it with group_tests on the slot's cell as it stands, moving on
+# while its first claim is dropped; then it tests its slot tile after
+# tile, checking each claim as the tile before ends, and ends where one is
+# dropped.  A block in a tile runs one round at a time, each of its threads
+# that has not hit testing its index claim_index(base, t, threads, j) and
+# publishing a hit into the slot's cell at once.  Which running block acts
+# at each step is drawn from `order` (round robin once it is used up).
+GROUP_CLAIM_SOURCE = r"""
+#include <vector>
+#include "md5.cuh"
+using namespace distpow;
+
+template <int VW = 0, class F>
+static int at_var_word(int vw, F f) {
+  if constexpr (VW > 15) return -1;
+  else return vw == VW ? f(Md5<VW>{}) : at_var_word<VW + 1>(vw, f);
+}
+
+extern "C" int host_group_hits(int n_blocks, int var_word, int var_shift, uint32_t chunk_mask,
+                               int n_slots, const uint32_t* init, const uint32_t* base,
+                               const uint32_t* masks, const uint32_t* tb_lo,
+                               const uint32_t* log_tbc, const uint32_t* chunk0, uint32_t batch,
+                               uint8_t* hit) {
+  return at_var_word(var_word, [&](auto h) -> int {
+    using H = decltype(h);
+    auto go = [&](auto nb) -> int {
+      constexpr int NB = decltype(nb)::value;
+      if constexpr (!H::builds(NB)) {
+        return -1;
+      } else {
+        for (int s = 0; s < n_slots; ++s) {
+          const typename H::template Tail<NB> tail(init + 4 * s, base + 16 * NB * s);
+          const Layout L = slot_layout(chunk0[s], tb_lo[s], log_tbc[s], var_word, var_shift,
+                                       chunk_mask);
+          for (uint32_t f = 0; f < batch; ++f) {
+            uint32_t tb, chunk;
+            decode<true>(L, f, tb, chunk);
+            hit[s * batch + f] = keyed_candidate_hits<H, 4, NB>(tail, masks + 4 * s, L, tb, chunk);
+          }
+        }
+        return 0;
+      }
+    };
+    return n_blocks == 1 ? go(std::integral_constant<int, 1>{})
+                         : go(std::integral_constant<int, 2>{});
+  });
+}
+
+struct Block {
+  int state = 0;  // 0: start, 1: at a check, 2: in a tile, 3: ended
+  bool tested = false;  // handed a tile: a dropped claim now ends the block
+  int slot = 0;
+  uint32_t next = 0, base = 0, j = 0, seen = 0;
+  std::vector<char> hit;
+};
+
+extern "C" void host_group_launch(const uint8_t* hit, int n_slots, uint32_t batch,
+                                  uint32_t grid, uint32_t resident, uint32_t threads,
+                                  uint32_t rounds, int early, const uint32_t* order,
+                                  uint32_t n_order, uint32_t* out, uint32_t* tested) {
+  const uint32_t tile = rounds * threads;
+  uint32_t* const cell = out;
+  uint32_t* const counter = out + n_slots;
+  auto open = [&](int t) { return group_slot_open(cell[t], counter[t], tile, batch); };
+  std::vector<Block> blocks(grid);
+  std::vector<uint32_t> running;  // the blocks running, by index
+  uint32_t started = 0;
+  while (started < grid && running.size() < resident) running.push_back(started++);
+  auto act = [&](Block& b, uint32_t i) {
+    if (b.state == 0) {  // warp 0 as the block starts: its home slot, else the next open one
+      b.slot = group_home_slot(i, n_slots);
+      if (!open(b.slot)) b.slot = group_next_slot(b.slot, n_slots, open);
+      if (b.slot < 0) {
+        b.state = 3;
+        return;
+      }
+      b.next = tile_index(counter[b.slot]++, tile);
+      b.hit.assign(threads, 0);
+      b.state = 1;
+    } else if (b.state == 1) {  // a check of the claim ahead
+      if (group_tests(early && b.tested ? b.seen : cell[b.slot], batch, b.next)) {
+        b.base = b.next;
+        b.next = tile_index(counter[b.slot]++, tile);
+        b.tested = true;
+        b.j = 0;
+        b.state = 2;
+      } else if (b.tested) {
+        b.state = 3;
+      } else {  // still starting: the next open slot
+        b.slot = group_next_slot(b.slot, n_slots, open);
+        if (b.slot < 0) {
+          b.state = 3;
+          return;
+        }
+        b.next = tile_index(counter[b.slot]++, tile);
+      }
+    } else if (b.state == 2) {  // one round of the tile
+      if (b.j == 0) b.seen = cell[b.slot];  // the cell as the tile begins
+      for (uint32_t t = 0; t < threads; ++t) {
+        const uint32_t f = claim_index(b.base, t, threads, b.j);
+        if (b.hit[t] || f >= batch) continue;
+        const uint64_t at = static_cast<uint64_t>(b.slot) * batch + f;
+        ++tested[at];
+        if (hit[at]) {
+          if (f < cell[b.slot]) cell[b.slot] = f;
+          b.hit[t] = 1;
+        }
+      }
+      if (++b.j == rounds) b.state = 1;
+    }
+  };
+  for (uint32_t i = 0; !running.empty(); ++i) {
+    const uint32_t k = (i < n_order ? order[i] : i) % static_cast<uint32_t>(running.size());
+    const uint32_t id = running[k];
+    act(blocks[id], id);
+    if (blocks[id].state == 3) {  // the next block of the grid takes its place
+      if (started < grid) running[k] = started++;
+      else running.erase(running.begin() + k);
+    }
+  }
+}
+
+extern "C" uint32_t host_group_rounds(uint64_t n, uint32_t blocks, uint32_t threads,
+                                      uint32_t most) {
+  return group_rounds(n, blocks, threads, most);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def group_claim_twin(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host twins cannot be built")
+    d = tmp_path_factory.mktemp("group_claim_twin")
+    src, lib = d / "group_claims.cpp", d / "libgroup_claims.so"
+    src.write_text(GROUP_CLAIM_SOURCE)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-o",
+                           str(lib), str(src)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    dll = ctypes.CDLL(str(lib))
+    u32, i32, u8p = ctypes.c_uint32, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)
+    dll.host_group_hits.argtypes = [i32, i32, i32, u32, i32] + [U32P] * 6 + [u32, u8p]
+    dll.host_group_hits.restype = i32
+    dll.host_group_launch.argtypes = [u8p, i32, u32, u32, u32, u32, u32, i32, U32P, u32, U32P,
+                                      U32P]
+    dll.host_group_launch.restype = None
+    dll.host_group_rounds.argtypes = [ctypes.c_uint64, u32, u32, u32]
+    dll.host_group_rounds.restype = u32
+    return dll
+
+
+def _group_case(seed):
+    """A group of 1-8 md5 slots of one tail layout (width 1-4, one or two
+    tail blocks), each with its own nonce, power-of-two run, cursor and
+    difficulty; one slot at difficulty 0 (its hit is index 0, in the first
+    tile) and, where the group has two slots or more, one at the full
+    digest (no hit)."""
+    from distpow_tpu_torch.ops.difficulty import nibble_masks
+    from distpow_tpu_torch.ops.operands import group_operands
+
+    rng = np.random.default_rng(seed)
+    md5 = get_hash_model("md5")
+    n_slots = int(rng.integers(1, 9))
+    width = int(rng.integers(1, 5))
+    nonce_len = 5 if seed % 2 == 0 else md5.block_bytes - 2
+    batch = int(rng.choice([1 << 12, 3000, 5 << 10]))
+    ds = [int(rng.integers(1, 4)) for _ in range(n_slots)]
+    ds[int(rng.integers(0, n_slots))] = 0
+    if n_slots > 1:
+        ds[next(s for s in range(n_slots) if ds[s] != 0)] = md5.max_difficulty
+    specs, logs, tb_lo, chunk0 = [], [], [], []
+    for s in range(n_slots):
+        nonce = rng.integers(0, 256, size=nonce_len, dtype=np.uint8).tobytes()
+        specs.append(build_tail_spec(nonce, width, md5))
+        lg = int(rng.choice([0, 1, 4, 8]))
+        logs.append(lg)
+        tb_lo.append(int(rng.integers(0, 256 >> lg)) << lg)
+        chunk0.append(256 ** (width - 1) + int(rng.integers(0, 1000)))
+    ops = group_operands([x.init_state for x in specs], [x.base_words for x in specs],
+                         [nibble_masks(d, md5) for d in ds], tb_lo, logs, chunk0)
+    return md5, specs[0], ops, batch, ds
+
+
+def _group_hits(twin, md5, spec, ops, batch):
+    var_word, var_shift, chunk_mask = kernel_layout(spec.tb_loc, spec.chunk_locs, md5)
+    rows = [_arr(t.numpy().view(np.uint32)) for t in (ops.init, ops.base, ops.masks, ops.tb_lo,
+                                                       ops.log_tbc, ops.chunk0)]
+    hit = np.zeros(ops.n_slots * batch, np.uint8)
+    assert twin.host_group_hits(ops.n_blocks, var_word, var_shift, chunk_mask, ops.n_slots,
+                                *(p for _, p in rows), batch,
+                                hit.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))) == 0
+    return hit.reshape(ops.n_slots, batch).astype(bool)
+
+
+def _group_launch(twin, hit, grid, resident, threads, rounds, early, rng=None):
+    """The simulated launch's words, claims per slot and tests per index:
+    running blocks drawn at random by ``rng``, or in round robin without
+    one."""
+    n_slots, batch = hit.shape
+    hits = np.ascontiguousarray(hit.reshape(-1).astype(np.uint8))
+    steps = 0 if rng is None else \
+        4 * (n_slots * batch // threads + 4 * grid * n_slots) * (rounds + 2)
+    order, order_p = _arr(rng.integers(0, 1 << 30, size=steps) if steps else [0])
+    out, out_p = _arr([SENTINEL] * n_slots + [0] * n_slots)
+    tested, tested_p = _arr(np.zeros(n_slots * batch))
+    twin.host_group_launch(hits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n_slots, batch,
+                           grid, resident, threads, rounds, int(early), order_p, steps, out_p,
+                           tested_p)
+    return (out[:n_slots].tolist(), out[n_slots:].tolist(),
+            tested.reshape(n_slots, batch).copy())
+
+
+@pytest.mark.parametrize("early", [False, True], ids=["cell_at_check", "cell_at_tile_start"])
+@pytest.mark.parametrize("seed", range(10))
+def test_group_claims_keep_each_slots_least_index(group_claim_twin, seed, early):
+    """Under seeded interleavings of the running blocks, for groups of 1-8
+    slots of one layout and different runs and difficulties, on grids of a
+    block a slot or more, some running all at once, some a few at a time
+    (blocks that start later take the slots still open): each slot's word
+    equals the plain group step's (exact), every index is tested at most
+    once, and a slot without a hit has every index tested, its claims
+    covering its tiles, at most one more a block.  Running blocks that keep
+    pace (round robin) test no more of a slot than its tiles up to the
+    hit's, plus one a running block, and claim at most one more a block of
+    the grid besides.  Where a block checks its claims against the cell as
+    it read it when its tile began (``early``, the kernel's form for all
+    hashes but md5's), the same holds with one more tile a running block."""
+    from distpow_tpu_torch.ops.search_step import plain_group_search
+
+    md5, spec, ops, batch, ds = _group_case(seed)
+    want = plain_group_search(md5, ops, spec.tb_loc, spec.chunk_locs, batch).tolist()
+    hit = _group_hits(group_claim_twin, md5, spec, ops, batch)
+    # the kernel's candidate test finds the plain step's first hits
+    assert [int(np.flatnonzero(h)[0]) if h.any() else SENTINEL for h in hit] == want
+    assert want[ds.index(0)] == 0
+    if ops.n_slots > 1:
+        assert want[ds.index(md5.max_difficulty)] == SENTINEL
+    rng = np.random.default_rng(1000 + seed)
+    for trial in range(4):
+        threads = int(rng.choice([7, 32, 96, 256]))
+        rounds = int(rng.choice([1, 2, 3, 8]))
+        grid = ops.n_slots + int(rng.integers(0, 3 * ops.n_slots + 3))
+        resident = grid if trial % 2 else int(rng.integers(1, grid + 1))
+        tile = threads * rounds
+        tiles = -(-batch // tile)
+        for paced in (False, True):
+            words, claims, tested = _group_launch(group_claim_twin, hit, grid, resident, threads,
+                                                  rounds, early, None if paced else rng)
+            where = (seed, early, trial, paced, grid, resident, threads, rounds)
+            assert words == want, where
+            assert tested.max() <= 1, where
+            for s, w in enumerate(want):
+                if w == SENTINEL:
+                    assert tested[s].sum() == batch, where
+                    assert tiles <= claims[s] <= tiles + grid, where
+                elif paced:
+                    past = (1 + early) * resident
+                    assert tested[s].sum() <= (w // tile + 1 + past) * tile, where
+                    assert claims[s] <= w // tile + 1 + past + grid, where
+
+
+@pytest.mark.parametrize("n,blocks,most,want", [
+    (8 << 20, 792, 64, 2),     # md5's engine launch (8 slots x 2^20) on 6 blocks an SM
+    (8 << 20, 264, 4, 2),      # sha512's, on 2 blocks an SM: at most 2 rounds
+    (8 << 20, 264, 1, 1),      # a model's (or a tool's) fewer rounds hold
+    (1 << 23, 8192, 64, 1),    # a wave that leaves each block 4 tiles of 1 round
+    (3 << 12, 792, 64, 1),     # a group of 3 small slots: a candidate a tile
+    (65535 << 31, 1, 1 << 16, 2),  # past 2^32 indices: cut to 2^32 - 1
+])
+def test_group_rounds_leave_each_block_sixteen_tiles(group_claim_twin, n, blocks, most, want):
+    """The group launch's tile (``group_rounds``): ``launch_rounds`` over
+    the whole group's indices on one wave, at 16 tiles a block, twice the
+    persistent form's, and at most 2 rounds, so that a launch's last tiles
+    end close together whatever the model's cost: md5's engine launch of 8
+    slots x 2^20 leaves each block of its wave at least 16 tiles, of 2
+    rounds."""
+    got = group_claim_twin.host_group_rounds(n, blocks, 256, most)
+    assert got == want
+    assert 1 <= got <= min(most, 2)
+    assert got == 1 or got == min(most, 2) or -(-min(n, 0xFFFFFFFF) // (got * 256)) >= 16 * blocks
