@@ -71,6 +71,7 @@ from ..ops import _build
 from ..ops.hash_cuda import LAUNCHES
 from ..parallel import partition
 from ..parallel.mesh_search import explicit_device, gather_counts
+from ..parallel.search import resolve_past_hit
 from ..runtime import actions as act
 from ..runtime.cache import ResultCache
 from ..runtime.metrics import REGISTRY as metrics
@@ -195,15 +196,25 @@ class TaskRound:
     address of the coordinator that fanned this round out — shared
     workers route the round's Results back on it instead of the config
     default.  None outside cluster mode.
+
+    ``cancelled_at``: the receipt, ``(time.time(), time.monotonic())``, of
+    the Found or Cancel whose ``cancel`` set ``ev`` (None before), where
+    ``worker.cancel_s`` starts.
     """
 
-    __slots__ = ("ev", "superseded", "round_id", "reply_to")
+    __slots__ = ("ev", "superseded", "round_id", "reply_to", "cancelled_at")
 
     def __init__(self, round_id=None, reply_to=None):
         self.ev = threading.Event()
         self.superseded = False
         self.round_id = round_id
         self.reply_to = reply_to
+        self.cancelled_at = None
+
+    def cancel(self, received) -> None:
+        """A protocol cancel received at ``received``: stamp it, wake the miner."""
+        self.cancelled_at = received
+        self.ev.set()
 
 
 class WorkerRPCHandler:
@@ -375,15 +386,24 @@ class WorkerRPCHandler:
                 nonce=key[0], num_trailing_zeros=key[1], worker_byte=key[2]
             )
         )
+        # the device timeline (runtime/spans.py): the Mine's receipt to
+        # its search's first launch, finished on the miner thread
+        # distpow: ok unclosed-span -- _mine's SPANS.launched() is the
+        # single finish point: at the search's first launch, else in its
+        # finally
+        started = SPANS.begin("worker.mine_start", trace_id=trace.trace_id,
+                              node=self.tracer.identity) \
+            if SPANS.device_timing else None
         threading.Thread(
             target=self._mine,
             args=(key, int(params["worker_bits"]), round_, trace,
-                  hash_model, tb_range),
+                  hash_model, tb_range, started),
             daemon=True,
         ).start()
         return {}
 
     def Found(self, params) -> dict:
+        received = (time.time(), time.monotonic())
         metrics.inc("worker.found_rpcs")
         key = _key(params)
         secret = bytes(params["secret"])
@@ -398,7 +418,7 @@ class WorkerRPCHandler:
         if round_ is not None:
             if cacheable:
                 self.result_cache.add(key[0], key[1], secret, trace)
-            round_.ev.set()
+            round_.cancel(received)
         else:
             # no active task for this round: cache-update-only round
             # (late-result re-broadcast or repeat Found), worker.go:212-230
@@ -414,12 +434,13 @@ class WorkerRPCHandler:
         return {}
 
     def Cancel(self, params) -> dict:
+        received = (time.time(), time.monotonic())
         metrics.inc("worker.cancel_rpcs")
         key = _key(params)
         round_ = self._task_pop(key)
         if round_ is None:
             raise RuntimeError(f"no active task for cancel: {key}")
-        round_.ev.set()
+        round_.cancel(received)
         return {}
 
     def Ping(self, params) -> dict:
@@ -433,6 +454,8 @@ class WorkerRPCHandler:
         equivalent).  ``python -m distpow_tpu.cli.stats`` prints it."""
         # resource sentinels ride every Stats snapshot (runtime/health.py)
         SENTINELS.sample()
+        # launches that searches left in flight and that have since ended
+        resolve_past_hit()
         snap = metrics.snapshot()
         snap["role"] = "worker"
         snap["backend"] = type(self.backend).__name__
@@ -505,15 +528,29 @@ class WorkerRPCHandler:
                           reply_to=round_.reply_to)
 
     def _mine(self, key: TaskKey, worker_bits: int, round_: TaskRound,
-              trace, hash_model=None, tb_range=None) -> None:
+              trace, hash_model=None, tb_range=None, started=None) -> None:
         # forensics binding (runtime/spans.py, docs/FORENSICS.md): the
         # miner thread carries its request's trace id so the layers
         # below the RPC surface — the search drivers' launch/poll spans
         # and the scheduler's slot spans — attribute to this Mine
         # without threading ids through every call
         with SPANS.bind(trace.trace_id, self.tracer.identity):
-            self._mine_bound(key, worker_bits, round_, trace, hash_model,
-                             tb_range)
+            SPANS.await_launch(started)
+            try:
+                self._mine_bound(key, worker_bits, round_, trace, hash_model,
+                                 tb_range)
+            finally:
+                SPANS.launched()  # a Mine that launched nothing ends it here
+
+    @staticmethod
+    def _observe_cancel(round_: TaskRound, returned: float) -> None:
+        """``worker.cancel_s`` and a ``worker.cancel`` span: the receipt of
+        the Found or Cancel that stopped the search to its return."""
+        ts, t0 = round_.cancelled_at
+        # at least 0: a sibling's Found may have stopped the search first
+        cancel_s = max(0.0, returned - t0)
+        metrics.observe("worker.cancel_s", cancel_s)
+        SPANS.record("worker.cancel", ts, cancel_s)
 
     def _mine_bound(self, key: TaskKey, worker_bits: int, round_: TaskRound,
                     trace, hash_model=None, tb_range=None) -> None:
@@ -579,6 +616,7 @@ class WorkerRPCHandler:
                     self._searches_delta(-1)
             sp.annotate(outcome="found" if secret is not None
                         else "no-result")
+        returned = time.monotonic()
         if round_.superseded:
             # a newer Mine owns this key now; anything we emit would be
             # mis-attributed to its round (see TaskRound) — exit silently
@@ -601,10 +639,9 @@ class WorkerRPCHandler:
                                hash_model=hash_model if off_model else None)
             return
         if round_.ev.is_set():
-            # cancelled by a Found/Cancel RPC: Mine receipt -> honored
-            # cancellation, the per-worker half of cancel propagation
-            metrics.observe("worker.time_to_cancel_s",
-                            time.monotonic() - t0)
+            # cancelled by a Found/Cancel RPC: its receipt -> the search
+            # returned, the per-worker half of cancel propagation
+            self._observe_cancel(round_, returned)
         else:
             cached = None if off_model else self.result_cache.get(
                 nonce, ntz, None)
@@ -628,8 +665,7 @@ class WorkerRPCHandler:
                 if round_.superseded:
                     # a newer Mine took the key while we waited
                     return
-                metrics.observe("worker.time_to_cancel_s",
-                                time.monotonic() - t0)
+                self._observe_cancel(round_, returned)
 
         # cancelled mid-search: two nil ACKs (worker.go:320-345)
         trace.record_action(

@@ -52,10 +52,14 @@ count under ``LAUNCHES["<kernel>_persistent"]`` and
 ``LAUNCHES["<kernel>_mesh_persistent"]``; their plain versions are
 ``search_step.persistent_search_step`` and
 ``plain_shard_persistent_search``.
+
+A launch made under ``timed`` (the search driver's device timeline) records
+a timing event on each side of its first kernel on the card it names.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 from typing import Optional, Tuple
@@ -298,6 +302,44 @@ def _persistent_cell_init(dev: torch.device, segments: int) -> torch.Tensor:
     return init
 
 
+# The device timeline (``parallel/search.py``): the first kernel that a
+# launch made under ``timed`` puts on its card records a timing event on
+# each side of itself, under the card's lock, so that no other thread's
+# kernel falls between the two, and with the GIL held from the first event
+# to the second, so that the second is not late behind another thread's
+# Python on a card that had nothing else to run.
+_TIMED = threading.local()
+_CARD_LOCKS: dict = {}
+_CARD_LOCKS_GUARD = threading.Lock()
+_GIL_HELD: dict = {}
+
+
+def _card_lock(device: torch.device) -> threading.Lock:
+    with _CARD_LOCKS_GUARD:
+        return _CARD_LOCKS.setdefault(device, threading.Lock())
+
+
+def _gil_held(fn):
+    """The declared ctypes function ``fn`` as a callable that keeps the GIL
+    (a library's functions release it for the call)."""
+    address = ctypes.cast(fn, ctypes.c_void_p).value
+    held = _GIL_HELD.get(address)
+    if held is None:
+        held = _GIL_HELD[address] = ctypes.PYFUNCTYPE(fn.restype, *fn.argtypes)(address)
+    return held
+
+
+def timed(launch, device: torch.device):
+    """``launch()``, and the timing events ``(start, end)`` around the
+    first kernel it launched on ``device`` (an indexed card): None where it
+    launched none there (the plain steps on the CPU)."""
+    _TIMED.device, _TIMED.events = device, None
+    try:
+        return launch(), _TIMED.events
+    finally:
+        _TIMED.device = _TIMED.events = None
+
+
 def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands, tb_loc,
                    chunk_locs, chunk0: int, n: int, grid: Optional[int],
                    origin: Tuple[int, ...] = (), persist=None) -> torch.Tensor:
@@ -330,14 +372,23 @@ def _launch_search(name: str, function: str, model: HashModel, ops: StepOperands
             grid = 0 if grid is None else grid  # 0: one resident wave, sized by the launcher
             out = cell = _persistent_cell_init(dev, segments).clone()
             extra = (stop.data_ptr(), seg, rounds)
-        rc = getattr(lib, function)(
-            ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
-            ops.n_blocks, mw,
-            chunk0, ops.tb_lo, tbc, log_tbc,
-            var_word, var_shift, chunk_mask,
-            n, *origin, *extra, cell.data_ptr(), grid,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev)
+        args = (ops.init.data_ptr(), ops.base.data_ptr(), masks.data_ptr(),
+                ops.n_blocks, mw,
+                chunk0, ops.tb_lo, tbc, log_tbc,
+                var_word, var_shift, chunk_mask,
+                n, *origin, *extra, cell.data_ptr(), grid,
+                stream.cuda_stream)
+        if getattr(_TIMED, "device", None) == dev and _TIMED.events is None:
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            launch = _gil_held(getattr(lib, function))
+            with _card_lock(dev):
+                events[0].record(stream)
+                rc = launch(*args)
+                events[1].record(stream)
+            _TIMED.events = events
+        else:
+            rc = getattr(lib, function)(*args)
     if rc != 0:
         raise RuntimeError(f"{function} kernel launch failed: CUDA error {rc}")
     return out

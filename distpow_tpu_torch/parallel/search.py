@@ -42,6 +42,17 @@ head's event instead of blocking on it (``search.blocking_syncs`` stays
 flat; the wait is ``search.poll_s`` and a ``search.poll`` span), and the
 search's ``StopFlag`` is set on every exit, so that the dispatches still
 in flight behind a hit or a cancel stop within a segment.
+
+The device timeline (``SPANS.device_timing``, off by default; the port's
+own, the reference driver has none): on a card, the kernel wrapper records
+a timing event on each side of a launch's kernel under its card's lock
+(``ops/hash_cuda.py`` ``timed``), so that no host work and no other
+search's kernel falls between them, and a ``search.enqueue`` span covers
+the host's enqueue.  A drained launch's device time goes to
+``search.device_s``; the launches a search leaves in flight when it returns
+are resolved later, without waiting, into ``search.past_hit_s``
+(``resolve_past_hit``: at each drain and before the worker's ``Stats``
+snapshot).  Off, the driver runs none of it.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 
 from ..models import puzzle
 from ..models.registry import HashModel, get_hash_model
+from ..ops import hash_cuda
 from ..ops.operands import Device, u32_value
 from ..ops.search_step import SENTINEL, cached_persistent_step, cached_search_step
 from ..runtime.metrics import REGISTRY, Metrics
@@ -331,6 +343,63 @@ def _enqueue_fetch(res: torch.Tensor):
     return host, event
 
 
+def _timed(device: Device) -> bool:
+    """Whether the device timeline can time launches on ``device``."""
+    return torch.device(device).type == "cuda"
+
+
+def _card(device: Device) -> torch.device:
+    """``device`` with its index: the current card's where it names none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _timed_launch(launch: Callable[[int], torch.Tensor], chunk0: int, card: torch.device):
+    """``launch(chunk0)`` and the timing events its kernel wrapper recorded
+    around the kernel on ``card``'s stream, or None."""
+    return hash_cuda.timed(lambda: launch(chunk0), card)
+
+
+class _PastHit:
+    """Timed launches that a search left in flight when it returned: each
+    ``((start, end), metrics)`` is observed into ``search.past_hit_s`` once
+    its end event is complete, never waited for."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._pending: list = []
+
+    def add(self, events, metrics: Metrics) -> None:
+        with self._lock:
+            self._pending.append((events, metrics))
+
+    def resolve(self) -> None:
+        if not self._pending:
+            return
+        with self._lock:
+            pending, self._pending = self._pending, []
+        left = []
+        for (start, end), metrics in pending:
+            if end.query():
+                metrics.observe("search.past_hit_s", start.elapsed_time(end) / 1e3)
+            else:
+                left.append(((start, end), metrics))
+        if left:
+            with self._lock:
+                self._pending.extend(left)
+
+
+_PAST_HIT = _PastHit()
+
+
+def resolve_past_hit() -> None:
+    """Observe the finished launches that searches left in flight (the
+    worker's ``Stats`` calls this before its snapshot)."""
+    _PAST_HIT.resolve()
+
+
 # One width segment's dispatch plan for ``_drive``: (launch(chunk0) ->
 # result tensor, chunks_each, chunks_per_step, pair); ``pair`` results are
 # the persistent step's two words (first hit, segments executed).
@@ -341,21 +410,24 @@ def _drive(nonce: bytes, difficulty: int, model: HashModel, tb_lo: int, tbc: int
            batch_size: int, pipeline_depth: int, cancel_check, max_hashes, max_width: int,
            launch_candidates: int, metrics: Metrics,
            plan: Callable[[int, bytes, int, int], Plan],
-           wait: Callable[[Optional[torch.cuda.Event], int], bool]) -> Optional[SearchResult]:
+           wait: Callable[[Optional[torch.cuda.Event], int], bool],
+           device: Device) -> Optional[SearchResult]:
     """The loop both drivers share: per chunk width and segment, dispatch
     ``plan(vw, extra, target_chunks, k)``'s launches with ``pipeline_depth``
     of them in flight, drained FIFO (``wait(event, n_cand)`` until the
     head's result is on the host: True if the search was cancelled while
     waiting); ``cancel_check`` and ``max_hashes`` between dispatches; the
     first dispatch of each width segment under the first-compile grace;
-    ``search.hashes`` counted on every exit path."""
+    ``search.hashes`` counted on every exit path; with the device timeline
+    on, each launch timed on ``device`` (module docstring)."""
     target_chunks = max(1, effective_batch(batch_size) // tbc)
     hashes = 0
+    card = _card(device) if SPANS.device_timing and _timed(device) else None
     # FIFO of in-flight dispatches: (host_result, event, chunk0, vw, extra,
-    # seg_chunks, chunks_each, pair); seg_chunks is the dispatch's chunks
-    # within the segment (a dispatch may overshoot the segment end; the
-    # overshot chunk ints alias already-covered candidates and are not
-    # counted)
+    # seg_chunks, chunks_each, pair, timing); seg_chunks is the dispatch's
+    # chunks within the segment (a dispatch may overshoot the segment end;
+    # the overshot chunk ints alias already-covered candidates and are not
+    # counted); timing is a timed launch's (start, end) events, else None
     inflight: deque = deque()
 
     def count(n_cand: int) -> None:
@@ -363,12 +435,31 @@ def _drive(nonce: bytes, difficulty: int, model: HashModel, tb_lo: int, tbc: int
         hashes += n_cand
         metrics.inc("search.hashes", n_cand)
 
+    def enqueue(launch: Callable[[int], torch.Tensor], chunk0: int, vw: int):
+        """Launch at ``chunk0`` (of width ``vw``) and start fetching its
+        result: ``(host, event, timing)``."""
+        if card is None or not SPANS.device_timing:
+            return (*_enqueue_fetch(launch(chunk0)), None)
+        SPANS.launched()
+        ts, t0 = time.time(), time.monotonic()
+        res, timing = _timed_launch(launch, chunk0, card)
+        host, event = _enqueue_fetch(res)
+        SPANS.record("search.enqueue", ts, time.monotonic() - t0, vw=vw)
+        return host, event, timing
+
     def drain_one() -> Tuple[Optional[SearchResult], bool]:
         """Wait for the head, then read it: ``(found, cancelled)``."""
-        host, event, chunk0, vw, extra, seg_chunks, chunks_each, pair = inflight.popleft()
+        host, event, chunk0, vw, extra, seg_chunks, chunks_each, pair, timing = \
+            inflight.popleft()
         if wait(event, seg_chunks * tbc):
             count(seg_chunks * tbc)
+            if timing is not None:
+                _PAST_HIT.add(timing, metrics)
             return None, True
+        if timing is not None:
+            # the result's event is done, so the kernel's end event is too
+            metrics.observe("search.device_s", timing[0].elapsed_time(timing[1]) / 1e3)
+            _PAST_HIT.resolve()
         if pair:
             f, segs = u32_value(host[0]), u32_value(host[1])
             metrics.inc("search.persistent_steps", segs)
@@ -401,7 +492,10 @@ def _drive(nonce: bytes, difficulty: int, model: HashModel, tb_lo: int, tbc: int
         search.hashes equals dispatched work on every exit path, while
         hashes_tried stays the drained count."""
         while inflight:
-            count(inflight.popleft()[5] * tbc)
+            _, _, _, _, _, seg_chunks, _, _, timing = inflight.popleft()
+            count(seg_chunks * tbc)
+            if timing is not None:
+                _PAST_HIT.add(timing, metrics)
         if cancelled:
             metrics.inc("search.cancelled")
             return None
@@ -430,12 +524,12 @@ def _drive(nonce: bytes, difficulty: int, model: HashModel, tb_lo: int, tbc: int
                             # (nvcc at the first load of a library): one
                             # uninterruptible gap, under the compile grace
                             with WATCHDOG.grace(FIRST_COMPILE_GRACE_S):
-                                res = launch(chunk0 & 0xFFFFFFFF)
+                                host, event, timing = enqueue(launch, chunk0 & 0xFFFFFFFF, vw)
                         else:
-                            res = launch(chunk0 & 0xFFFFFFFF)
+                            host, event, timing = enqueue(launch, chunk0 & 0xFFFFFFFF, vw)
                         metrics.inc("search.launches")
-                        inflight.append((*_enqueue_fetch(res), chunk0, vw, extra, seg_chunks,
-                                         chunks_each, pair))
+                        inflight.append((host, event, chunk0, vw, extra, seg_chunks,
+                                         chunks_each, pair, timing))
                         chunk0 += chunks_per_step
                         if len(inflight) >= pipeline_depth:
                             found, cancelled = drain_one()
@@ -512,7 +606,7 @@ def search(
 
     return _drive(nonce, difficulty, model, tb_lo, tbc, batch_size, pipeline_depth, cancel_check,
                   max_hashes, max_width, launch_candidates, metrics, _serial_plan(factory),
-                  block)
+                  block, device)
 
 
 def persistent_search(
@@ -593,6 +687,6 @@ def persistent_search(
     try:
         return _drive(nonce, difficulty, model, tb_lo, tbc, batch_size, pipeline_depth,
                       cancel_check, max_hashes, max_width, launch_candidates, metrics, plan,
-                      poll)
+                      poll, device)
     finally:
         stop.set()

@@ -24,7 +24,13 @@ span sweeps (``forensics.fetches``, ``forensics.fetch_failures``), the soak
 harness (``soak.*``) and the open-loop generator's lag (``load.lag_s``).
 ``worker.warmup_failures`` is the port's own: a failed boot warm-up; so
 are ``mesh.collective_host_waits`` and ``mesh.collective_s``, the
-cross-process min of a mesh in a ``torch.distributed`` group.
+cross-process min of a mesh in a ``torch.distributed`` group; the device
+timeline's ``search.device_s`` (a drained launch's device time) and
+``search.past_hit_s`` (a launch left in flight when its search returned),
+both written only while ``SPANS.device_timing`` is on; and
+``worker.cancel_s``, from the receipt of the Found or Cancel that stopped
+a search to its return (the reference's ``worker.time_to_cancel_s``
+started at the Mine).
 """
 
 from __future__ import annotations
@@ -77,8 +83,9 @@ KNOWN_HISTOGRAMS = frozenset({
     "coord.first_result_s", "coord.cancel_propagation_s",
     "powlib.mine_s",
     "cluster.failover_s", "repl.push_lag_s", "repl.handoff_s",
-    "worker.solve_s", "worker.time_to_cancel_s",
-    "search.launch_s", "search.poll_s", "mesh.collective_s",
+    "worker.solve_s", "worker.cancel_s",
+    "search.launch_s", "search.poll_s", "search.device_s", "search.past_hit_s",
+    "mesh.collective_s",
     "sched.batch_occupancy", "sched.slot_wait_s",
     "rpc.frame.sent_bytes", "rpc.frame.recv_bytes",
     "fleet.heartbeat_rtt_s",

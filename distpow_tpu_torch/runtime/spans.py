@@ -10,6 +10,16 @@ begin-site form; ``SPANS.begin`` opens a span that another thread finishes
 (a scheduler slot is submitted on the caller's thread and finished on the
 device loop).  ``DISTPOW_SPANS=0`` turns recording off.
 ``SlowRequestTrigger`` is the coordinator's slow-request capture policy.
+
+The port adds the device timeline (``SPANS.device_timing``), off by
+default and set only by ``configure(device_timing=...)``.  With it on, the
+search driver times each launch on the device (``search.device_s``,
+``search.past_hit_s``) and records its host enqueue (``search.enqueue``),
+and the worker a Mine's ``worker.mine_start`` (``await_launch`` /
+``launched``).  ``since(seq)`` reads the ring from a sequence number on, so
+that a reader polling it loses no span to the ring's bound; a gap in the
+sequence numbers it returns is what the ring overwrote before the reader
+came.
 """
 
 from __future__ import annotations
@@ -125,19 +135,28 @@ class SpanRecorder:
         self._lock = threading.Lock()
         self._seq = 0
         self._enabled = os.environ.get("DISTPOW_SPANS", "1") != "0"
+        self._device_timing = False
 
     # -- configuration ------------------------------------------------------
     @property
     def enabled(self) -> bool:
         return self._enabled
 
+    @property
+    def device_timing(self) -> bool:
+        """The device timeline's switch (``configure``)."""
+        return self._device_timing
+
     def configure(self, enabled: Optional[bool] = None,
-                  capacity: Optional[int] = None) -> None:
+                  capacity: Optional[int] = None,
+                  device_timing: Optional[bool] = None) -> None:
         with self._lock:
             if enabled is not None:
                 self._enabled = bool(enabled)
             if capacity is not None and capacity != self._spans.maxlen:
                 self._spans = deque(self._spans, maxlen=int(capacity))
+            if device_timing is not None:
+                self._device_timing = bool(device_timing)
 
     # -- thread-local request binding ---------------------------------------
     @staticmethod
@@ -156,6 +175,21 @@ class SpanRecorder:
     def current_node() -> str:
         ctx = getattr(_tls, "ctx", None)
         return ctx[1] if ctx else ""
+
+    @staticmethod
+    def await_launch(handle) -> None:
+        """Leave ``handle`` open until this thread's next device launch
+        (``launched``): a Mine's ``worker.mine_start``, opened at the RPC's
+        receipt, ends where its search first launches."""
+        _tls.until_launch = handle
+
+    @staticmethod
+    def launched() -> None:
+        """Finish the span this thread left open until a launch, if any."""
+        handle = getattr(_tls, "until_launch", None)
+        if handle is not None:
+            _tls.until_launch = None
+            handle.finish()
 
     # -- recording ----------------------------------------------------------
     def _resolve(self, trace_id, node):
@@ -236,6 +270,17 @@ class SpanRecorder:
         with self._lock:
             out = list(self._spans)
         return out if n is None else out[-n:]
+
+    def since(self, seq: int) -> List[dict]:
+        """The spans recorded after sequence number ``seq`` that the ring
+        still holds, oldest first.  A reader that passes the last ``seq`` it
+        was given reads every span once; where the first span returned is
+        later than ``seq + 1``, the ring overwrote the ones between before
+        the reader came."""
+        with self._lock:
+            out = list(self._spans)
+            n = max(0, min(len(out), self._seq - int(seq)))
+        return out[len(out) - n:]
 
     def spans_for(self, trace_id: int,
                   limit: Optional[int] = None) -> List[dict]:
