@@ -229,7 +229,8 @@ class CudaBackend(DeviceBackend):
     def _factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         def factory(vw: int, extra: bytes, target_chunks: int, launch_steps: int = 1):
             spec = build_tail_spec(nonce, vw, self.model, extra)
-            ops = step_operands(spec, difficulty, self.model, tb_lo, tbc, self.device)
+            ops = step_operands(spec, difficulty, self.model, tb_lo, tbc, self.device,
+                               self.metrics)
             if vw == 0:
                 # width 0: the tbc candidates of one chunk value
                 chunks, k, batch = 1, 1, tbc
@@ -249,7 +250,8 @@ class CudaBackend(DeviceBackend):
     def _persistent_factory(self, nonce: bytes, difficulty: int, tb_lo: int, tbc: int):
         def factory(vw: int, extra: bytes, target_chunks: int, segments: int):
             spec = build_tail_spec(nonce, vw, self.model, extra)
-            ops = step_operands(spec, difficulty, self.model, tb_lo, tbc, self.device)
+            ops = step_operands(spec, difficulty, self.model, tb_lo, tbc, self.device,
+                               self.metrics)
             chunks, k = plan_launch_geometry(target_chunks, tbc, segments, self.max_launch)
 
             def step(chunk0: int, stop: StopFlag) -> torch.Tensor:

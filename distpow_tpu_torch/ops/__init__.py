@@ -9,7 +9,7 @@ is arithmetic.  So the plain torch code carries every 32-bit word as an
 a 32-bit value shifted left by at most 31 bits both fit in 63 bits.
 
 Operands cross to the CUDA kernels as their ``uint32`` bit patterns in
-``int32`` tensors (``operands.u32_tensor``), and a kernel's result
+``int32`` tensors (``operands.make_operands``), and a kernel's result
 cell is an ``int32`` tensor read back as an unsigned value, so the miss
 value stays ``SENTINEL = 0xFFFFFFFF``.
 """

@@ -7,6 +7,12 @@ trailing difficulty masks, all as ``int32`` tensors holding the words'
 plain step widens them to masked ``int64``), plus the thread-byte run
 ``(tb_lo, tb_count)``.  The tail layout (``tb_loc``, ``chunk_locs``) is
 not an operand: it is the static shape of the step, as in the reference.
+
+``make_operands`` and ``group_operands`` pack their host words into one
+buffer that one copy moves to the device (``_packed``): on a card, from
+pinned memory without synchronising the stream, so that making a search's
+operands never waits for the launches that other searches have queued on
+the card.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..runtime.metrics import REGISTRY, Metrics
 
 Device = Union[str, torch.device]
 
@@ -74,22 +82,44 @@ class StepOperands:
         return int(self.masks.shape[0])
 
 
+def _packed(rows: Sequence[np.ndarray], device: Device) -> Tuple[torch.Tensor, ...]:
+    """``rows`` (numpy arrays of uint32 values) packed into one ``int32``
+    buffer on ``device`` and handed back as views of it, each with its
+    row's shape.  For a CUDA device the buffer is staged in pinned host
+    memory and copied ``non_blocking`` on the device's current stream: the
+    copy is ordered before every kernel later queued there, the caching
+    host allocator keeps the staged block until the copy has run, and the
+    host waits for nothing."""
+    flat = np.concatenate([r.reshape(-1) for r in rows]).view(np.int32)
+    if torch.device(device).type == "cuda":
+        staged = torch.empty(flat.size, dtype=torch.int32, pin_memory=True)
+        # distpow: ok hot-path-host-sync -- staged is a pinned HOST
+        # tensor: .numpy() is a view of its memory, no device copy
+        staged.numpy()[:] = flat
+        buf = staged.to(device, non_blocking=True)
+    else:
+        buf = torch.from_numpy(flat).to(device)
+    parts = torch.split(buf, [r.size for r in rows])
+    return tuple(p.view(r.shape) for p, r in zip(parts, rows))
+
+
 def make_operands(init: Sequence[int], base, masks: Sequence[int], tb_lo: int,
-                  tb_count: int, device: Device = "cpu") -> StepOperands:
+                  tb_count: int, device: Device = "cpu",
+                  metrics: Metrics = REGISTRY) -> StepOperands:
     """Operands from host words (ints or numpy arrays of uint32 values).
     ``base`` is the tail's rows, ``[n_blocks][row words]``: the row width
     is the model's (16, 32, 34 or 36 words), and the kernel wrapper holds
-    it to the model."""
-    base = u32_tensor(base, device)
-    if base.dim() != 2:
+    it to the model.  The three parts reach ``device`` in one copy
+    (``_packed``); each copy to a card counts one
+    ``search.operand_uploads`` in ``metrics``."""
+    init, base, masks = (np.asarray(x, dtype=np.uint32) for x in (init, base, masks))
+    if base.ndim != 2:
         raise ValueError(f"base must be [n_blocks, row words], got {tuple(base.shape)}")
-    return StepOperands(
-        init=u32_tensor(init, device),
-        base=base,
-        masks=u32_tensor(masks, device).reshape(-1),
-        tb_lo=int(tb_lo),
-        tb_count=int(tb_count),
-    )
+    init_t, base_t, masks_t = _packed((init, base, masks.reshape(-1)), device)
+    if base_t.device.type == "cuda":
+        metrics.inc("search.operand_uploads")
+    return StepOperands(init=init_t, base=base_t, masks=masks_t,
+                        tb_lo=int(tb_lo), tb_count=int(tb_count))
 
 
 def operands_from_numpy(init, base, masks, tb_lo: int, tb_count: int,
@@ -137,23 +167,11 @@ def group_operands(init, base, masks, tb_lo, log_tbc, chunk0,
     """Group operands from host rows (ints or numpy arrays of uint32 values:
     ``init[n][S]``, ``base[n][n_blocks][W]``, ``masks[n][D]`` and the three
     per-slot scalars), packed into one buffer so that one copy moves the
-    whole group to ``device``.  For a CUDA device the rows are staged in
-    pinned host memory and copied ``non_blocking`` on the current stream,
-    so the host does not wait for the copy (the caller's one wait for its
-    results comes later on the same stream)."""
+    whole group to ``device`` without a host wait (``_packed``; the
+    caller's one wait for its results comes later on the same stream)."""
     rows = [np.asarray(x, dtype=np.uint32) for x in (init, base, masks, tb_lo, log_tbc, chunk0)]
     n = rows[0].shape[0]
     if rows[1].ndim != 3 or any(r.shape[0] != n for r in rows) or \
             any(r.ndim != 1 for r in rows[3:]):
         raise ValueError(f"bad group rows: shapes {[r.shape for r in rows]}")
-    flat = np.concatenate([r.reshape(-1) for r in rows]).view(np.int32)
-    if torch.device(device).type == "cuda":
-        staged = torch.empty(flat.size, dtype=torch.int32, pin_memory=True)
-        # distpow: ok hot-path-host-sync -- staged is a pinned HOST
-        # tensor: .numpy() is a view of its memory, no device copy
-        staged.numpy()[:] = flat
-        buf = staged.to(device, non_blocking=True)
-    else:
-        buf = torch.from_numpy(flat).to(device)
-    parts: Tuple[torch.Tensor, ...] = torch.split(buf, [r.size for r in rows])
-    return GroupOperands(*(p.view(r.shape) for p, r in zip(parts, rows)))
+    return GroupOperands(*_packed(rows, device))

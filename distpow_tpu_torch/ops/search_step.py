@@ -50,6 +50,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..models.registry import HashModel, get_hash_model
+from ..runtime.metrics import REGISTRY, Metrics
 from .difficulty import nibble_masks
 from .operands import (MASK32, Device, GroupOperands, StepOperands, group_operands,
                        make_operands, u32_value, widen)
@@ -119,13 +120,15 @@ def fold_dyn_masks(model, state, masks, mask_words: Optional[int] = None):
 
 
 def step_operands(spec: TailSpec, difficulty: int, model: HashModel,
-                  tb_lo: int, tb_count: int, device: Device = "cuda") -> StepOperands:
+                  tb_lo: int, tb_count: int, device: Device = "cuda",
+                  metrics: Metrics = REGISTRY) -> StepOperands:
     """Operands binding one (nonce, difficulty, partition) onto a step.
-    Only the ``mask_words_for(difficulty)`` trailing masks are carried."""
+    Only the ``mask_words_for(difficulty)`` trailing masks are carried; an
+    upload to a card counts in ``metrics`` (``make_operands``)."""
     masks = nibble_masks(difficulty, model)
     mw = mask_words_for(difficulty, model)
     return make_operands(spec.init_state, spec.base_words,
-                         masks[model.digest_words - mw:], tb_lo, tb_count, device)
+                         masks[model.digest_words - mw:], tb_lo, tb_count, device, metrics)
 
 
 def plain_search(ops: StepOperands, tb_loc, chunk_locs, chunk0: int, batch: int,

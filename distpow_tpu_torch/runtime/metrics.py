@@ -27,10 +27,12 @@ are ``mesh.collective_host_waits`` and ``mesh.collective_s``, the
 cross-process min of a mesh in a ``torch.distributed`` group; the device
 timeline's ``search.device_s`` (a drained launch's device time) and
 ``search.past_hit_s`` (a launch left in flight when its search returned),
-both written only while ``SPANS.device_timing`` is on; and
-``worker.cancel_s``, from the receipt of the Found or Cancel that stopped
-a search to its return (the reference's ``worker.time_to_cancel_s``
-started at the Mine).
+both written only while ``SPANS.device_timing`` is on;
+``search.operand_uploads``, a plan's operands copied to a card in one
+pinned, non-blocking copy (``ops/operands.py`` ``make_operands``: one a
+width segment, none on the CPU); and ``worker.cancel_s``, from the
+receipt of the Found or Cancel that stopped a search to its return (the
+reference's ``worker.time_to_cancel_s`` started at the Mine).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ Number = Union[int, float]
 
 KNOWN_COUNTERS = frozenset({
     "search.hashes", "search.launches", "search.cancelled", "search.found",
-    "search.blocking_syncs", "search.persistent_steps", "mesh.collective_host_waits",
+    "search.blocking_syncs", "search.operand_uploads", "search.persistent_steps",
+    "mesh.collective_host_waits",
     "worker.mine_rpcs", "worker.found_rpcs", "worker.cancel_rpcs",
     "worker.results_sent", "worker.forward_retries", "worker.warmup_failures",
     "coord.mine_rpcs", "coord.fanouts", "coord.late_results",

@@ -21,13 +21,16 @@ them (``portbench/spantrace.py``).
 * On the card (marker ``card``): the same at md5's difficulty 8 with four
   Mines at a time: the driver's timed device time against the profiler's
   kernel time, no span lost to the reader, the anchor's offset, the idle
-  time's labels.
+  time's labels; and after the warm-up no ``cudaStreamSynchronize`` and no
+  pageable host-to-device copy, with one ``search.operand_uploads`` a plan
+  (a search's width segment).
 
 This file imports no JAX: on the chip run it alone, ``python3 -m pytest
 --noconftest -p no:cacheprovider tests/test_torch_device_timeline.py -m
 card``.
 """
 
+import json
 import queue
 import random
 import threading
@@ -389,13 +392,17 @@ def _traced_mines(device, ntz, clients, per_client, **backend):
     """An in-process worker on ``device`` serving ``clients`` closed-loop
     clients (Mine, result, Found, its ACK) ``per_client`` puzzles each, under
     the profiler, the switch and a span reader: ``(spantrace summary, reader,
-    timed device s, profiled kernel device s)``."""
+    timed device s, profiled kernel device s, counts)``.  ``counts`` holds
+    the host's ``cudaStreamSynchronize`` calls and the device's pageable
+    host-to-device copies in the profile, and the window's increase of
+    ``search.operand_uploads``."""
     from torch.profiler import ProfilerActivity, profile
 
     handler = WorkerRPCHandler(Tracer("worker1", MemorySink()), queue.Queue(),
                                get_backend("cuda", hash_model="md5", device=device, **backend),
                                device=device)
     routes = {}
+    client_tracer = Tracer("client", MemorySink())  # a trace id of its own for each puzzle
 
     def route():
         while True:
@@ -406,10 +413,11 @@ def _traced_mines(device, ntz, clients, per_client, **backend):
 
     def solve(nonce, n):
         routes[nonce] = q = queue.Queue()
-        handler.Mine(_params(nonce, n))
+        token = wire_token(client_tracer.create_trace().generate_token())
+        handler.Mine(_params(nonce, n, token=token))
         secret = q.get(timeout=120)["secret"]
         assert secret is not None
-        handler.Found(_params(nonce, n, secret=secret))
+        handler.Found(_params(nonce, n, secret=secret, token=token))
         q.get(timeout=120)  # the Found's ACK
 
     def client(c):
@@ -419,8 +427,12 @@ def _traced_mines(device, ntz, clients, per_client, **backend):
     router = threading.Thread(target=route, daemon=True)
     router.start()
     solve(b"\x7f\x00\x00\x01", 2)  # builds and loads the kernels
+    # reaches width 3: each width's launch state is made before the window
+    # (the persistent cell's first words, ops/hash_cuda.py _CELL_INITS)
+    solve(b"\x7f\x00\x00\x02", ntz)
     timed = ("search.device_s", "search.past_hit_s")
     before = sum(REGISTRY.get_observed(name)["sum"] for name in timed)
+    uploads = REGISTRY.get("search.operand_uploads")
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     prof = profile(activities=acts)
     prof.start()
@@ -447,15 +459,21 @@ def _traced_mines(device, ntz, clients, per_client, **backend):
     timed_s = sum(REGISTRY.get_observed(name)["sum"] for name in timed) - before
     device_events, host = split_events(prof.profiler.kineto_results.events())
     kernel_s = sum(d for name, _, d in device_events if "hash_" in name and "kernel" in name) / 1e9
-    return spantrace.summarize(device_events, host, spans, brackets), reader, timed_s, kernel_s
+    counts = {"stream_syncs": sum(name == "cudaStreamSynchronize" for name, _, _ in host),
+              "pageable_htod": sum(name == "Memcpy HtoD (Pageable -> Device)"
+                                   for name, _, _ in device_events),
+              "operand_uploads": REGISTRY.get("search.operand_uploads") - uploads}
+    return (spantrace.summarize(device_events, host, spans, brackets), reader, timed_s, kernel_s,
+            counts)
 
 
 def test_an_in_process_traced_worker_on_the_cpu_labels_its_idle_time():
-    summary, reader, timed_s, kernel_s = _traced_mines(
+    summary, reader, timed_s, kernel_s, counts = _traced_mines(
         "cpu", 3, clients=2, per_client=3, batch_size=1 << 10, max_launch=1 << 12)
     assert reader.lost == 0 and reader.seq - reader.first == len(reader.spans)
     assert abs(summary["clock_offset_ms"]) < 5.0
     assert timed_s == 0 and kernel_s == 0  # no card: nothing timed, no kernel
+    assert counts == {"stream_syncs": 0, "pageable_htod": 0, "operand_uploads": 0}
     # no device events: the whole traced window is idle, and every second of it labelled
     assert sum(summary["idle_by_span"].values()) == pytest.approx(summary["idle_s"])
     assert summary["idle_in_search_s"] <= summary["idle_s"] + 1e-12
@@ -469,13 +487,31 @@ def test_an_in_process_traced_worker_on_the_cpu_labels_its_idle_time():
 def test_a_traced_md5_run_on_the_card_times_its_kernels_and_labels_its_idle_time():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: this test runs on the card")
-    summary, reader, timed_s, kernel_s = _traced_mines("cuda:0", 8, clients=4, per_client=6)
+    summary, reader, timed_s, kernel_s, _ = _traced_mines("cuda:0", 8, clients=4, per_client=6)
     assert reader.lost == 0
     assert 0.95 <= timed_s / kernel_s <= 1.05, (timed_s, kernel_s)
     assert abs(summary["clock_offset_ms"]) < 2.0, summary
     assert summary["idle_in_search_s"] <= summary["idle_s"] + 1e-12
     assert sum(summary["idle_by_span"].values()) == pytest.approx(summary["idle_s"])
     assert summary["idle_by_span"].keys() - {spantrace.NO_SEARCH}, summary
+
+
+@pytest.mark.card
+def test_four_md5_mines_on_the_card_upload_their_operands_without_a_stream_sync():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs on the card")
+    if not SPANS.enabled:
+        pytest.skip("span recording is off (DISTPOW_SPANS=0): the plans are counted from spans")
+    clients, per_client = 4, 6
+    _, reader, _, _, counts = _traced_mines("cuda:0", 8, clients=clients, per_client=per_client)
+    # a plan is a width segment of a search: its launches share a trace id and a width
+    plans = len({(s["trace_id"], s["attrs"]["vw"]) for s in reader.spans
+                 if s["name"] == "search.enqueue"})
+    print(json.dumps({"solves": clients * per_client, "plans": plans, **counts}))
+    assert reader.lost == 0 and plans >= 3 * clients * per_client  # widths 0 to 2 at least
+    assert counts["stream_syncs"] == 0, counts
+    assert counts["pageable_htod"] == 0, counts
+    assert counts["operand_uploads"] == plans, (counts, plans)
 
 
 def test_threads_share_one_lock_a_card():
